@@ -1,0 +1,523 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA H100.
+
+Run from the repository root with no arguments:
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line; the first that fails prints its error
+and the script exits non-zero:
+
+1. device   the card (``nvidia-smi`` name and power limit), CUDA and torch
+            versions; TF32 is switched off for matmul and cuDNN;
+2. build    compiles the CUDA kernels from ``kernels/csrc`` with nvcc;
+3. matmul   K2 against ``matmul_ref`` at the serving path's shapes, bf16
+            and f32, with kernel, plain, library (``torch.matmul``, a
+            yardstick only) and bound times;
+4. flash    K1 against ``flash_attention_ref`` over GQA, causal, window,
+            ragged and right-aligned cases, with the same times (library:
+            ``scaled_dot_product_attention``);
+5. serve    the slice at full width: qwen3-0.6b (28 layers, d 1024, vocab
+            153,600) in bf16 serving 8 staggered requests; every stream
+            must equal ``reference_generate``, and both kernels must have
+            launched the expected number of times;
+6. parity   reduced qwen3-0.6b in fp32 on the card and on the CPU, same
+            seed: the greedy streams must be equal.
+
+Then a ``{"kernels": [...]}`` line, and as the last line
+``{"ok": true, "device": {...}}``.  The full record is also written to
+``results/chip_smoke.json``.  Without a card, or outside a checkout of
+the repository, the script exits non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import contextlib
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+import traceback
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(ROOT, "src")
+
+# H100 SXM peaks (NVIDIA data sheet, dense): memory 3.35 TB/s; bf16 tensor
+# cores 989 TFLOP/s; fp32 outside the tensor cores 67 TFLOP/s
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# tolerances of tests/test_kernels.py (matmul :41, flash attention :72, :75)
+MATMUL_TOL = {"float32": 2e-3, "bfloat16": 2e-2}
+FLASH_TOL = {"float32": 3e-4, "bfloat16": 3e-2}
+
+# the serving run of phase 5: qwen3-0.6b at full width
+BATCH, MAX_LEN, PREFILL_LEN, MAX_NEW = 4, 512, 256, 32
+
+RECORD = {"phases": []}
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+@contextlib.contextmanager
+def phase(name):
+    t0 = time.perf_counter()
+    out = {"phase": name}
+    try:
+        yield out
+    except Exception as e:  # report the failing phase, then exit non-zero
+        out.update(ok=False, error=f"{type(e).__name__}: {e}",
+                   seconds=time.perf_counter() - t0)
+        emit(out)
+        traceback.print_exc()
+        RECORD["phases"].append(out)
+        _write_record()
+        sys.exit(1)
+    out.update(ok=True, seconds=round(time.perf_counter() - t0, 3))
+    RECORD["phases"].append(out)
+    emit({k: v for k, v in out.items() if k != "detail"})
+
+
+def _write_record():
+    out_dir = os.path.join(ROOT, "results")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
+        json.dump(RECORD, f, indent=1)
+
+
+def cuda_ms(torch, fn, iters=10, warmup=2):
+    """Mean device time of ``fn`` in ms, by CUDA events around ``iters``
+    back-to-back calls after ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(nbytes, flops, dtype_name):
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype_name]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def max_violation(got, want, tol):
+    """max(|got - want| - (tol + tol * |want|)) in fp32, and max |err|."""
+    g, w = got.float(), want.float()
+    if not bool(g.isfinite().all()):
+        raise AssertionError("non-finite kernel output")
+    err = (g - w).abs()
+    return float((err - (tol + tol * w.abs())).max()), float(err.max())
+
+
+def profile_decode(torch, eng, dev, steps=5):
+    """Decode executions of the live engine, each ended by a sync: their
+    host wall time without the profiler, then their device time by kernel
+    family under torch.profiler (K2, K1, PyTorch's own kernels).  The idle
+    share is one minus the profiled device time over the unprofiled wall
+    time of a step; under the profiler the wall time grows, so its own
+    idle share is given apart.  None where the profiler saw no device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+    tokens = torch.zeros((eng.batch, 1), dtype=torch.int32, device=dev)
+    decode = eng.programs["decode"]
+    for _ in range(2):
+        decode(eng.params, eng.caches, tokens)
+    torch.cuda.synchronize()
+    plain_ms = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        decode(eng.params, eng.caches, tokens)
+        torch.cuda.synchronize()
+        plain_ms.append(1e3 * (time.perf_counter() - t0))
+    wall_unprofiled = sorted(plain_ms)[steps // 2]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            decode(eng.params, eng.caches, tokens)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    fam = {"matmul_kernel": 0.0, "flash_attention_kernel": 0.0,
+           "torch": 0.0}
+    n_kernels = 0
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0.0)
+        n_kernels += e.count
+        key = next((k for k in fam if k in e.key), "torch")
+        fam[key] += t / 1e3                      # us -> ms
+    busy = sum(fam.values())
+    if busy == 0:
+        return {"device_ms": None, "wall_ms_per_step": wall_unprofiled}
+    return {"wall_ms_per_step": wall_unprofiled,
+            "wall_ms_per_step_profiled": wall_ms / steps,
+            "device_ms_per_step": busy / steps,
+            "matmul_ms_per_step": fam["matmul_kernel"] / steps,
+            "flash_ms_per_step": fam["flash_attention_kernel"] / steps,
+            "torch_ms_per_step": fam["torch"] / steps,
+            "kernels_per_step": n_kernels / steps,
+            "idle_share": max(0.0, 1.0 - busy / steps / wall_unprofiled),
+            "idle_share_profiled": max(0.0, 1.0 - busy / wall_ms)}
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available; this script runs "
+              "the port on the card only", file=sys.stderr)
+        return 2
+    if not os.path.isdir(os.path.join(SRC, "repro_torch")):
+        print(f"chip_smoke: {SRC}/repro_torch not found; run the script "
+              "from a checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, SRC)
+    import numpy as np
+
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    from repro_torch.kernels.matmul import matmul, matmul_ref
+
+    dev = torch.device("cuda")
+    dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+    # -- 1. device -------------------------------------------------------
+    with phase("device") as out:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60, check=True).stdout.strip().splitlines()[0]
+        print(smi, flush=True)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        out.update(nvidia_smi=smi, name=torch.cuda.get_device_name(0),
+                   count=torch.cuda.device_count(),
+                   cuda=torch.version.cuda, torch=torch.__version__,
+                   python=sys.version.split()[0])
+        kind = torch.cuda.get_device_name(0)
+        count = torch.cuda.device_count()
+        RECORD["device"] = dict(out)
+
+    # -- 2. build --------------------------------------------------------
+    with phase("build") as out:
+        t0 = time.perf_counter()
+        _build.library()
+        out.update(build_s=round(time.perf_counter() - t0, 3),
+                   nvcc_s=_build.last_build_seconds(),
+                   library=str(_build.BUILD_DIR / _build.LIB_NAME))
+
+    gen = torch.Generator(device="cpu").manual_seed(0)
+
+    def randn(shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dev, dtype)
+
+    # -- 3. K2 matmul ----------------------------------------------------
+    from repro_torch.models import registry
+    full = registry.get_config("qwen3-0.6b")
+    n_layers, d_model, d_ff = full.n_layers, full.d_model, full.d_ff
+    vocab = full.padded_vocab
+    heads, kv_heads, hd = full.n_heads, full.n_kv_heads, full.resolved_head_dim
+    # (K, N) of each layer's products and how many of each: wq; wk, wv; wo;
+    # gate, up; down.  The tied head is (d_model, padded vocab).
+    per_layer = [((d_model, heads * hd), 1), ((d_model, kv_heads * hd), 2),
+                 ((heads * hd, d_model), 1), ((d_model, d_ff), 2),
+                 ((d_ff, d_model), 1)]
+    proj = sorted({kn for kn, _ in per_layer})
+    per_step = n_layers * sum(c for _, c in per_layer) + 1
+    mm = {}
+    with phase("matmul") as out:
+        checks = []
+        table = {name: randn((vocab, d_model), dt, 0.02)
+                 for name, dt in dtypes.items()}
+        for dname, dt in dtypes.items():
+            tol = MATMUL_TOL[dname]
+            for m in (BATCH, 1, PREFILL_LEN, 37):
+                for k, n in proj + [(d_model, vocab)]:
+                    head = n == vocab
+                    # outputs of unit scale against the tolerance: the
+                    # head's input is a final-norm output (unit scale) and
+                    # its table is drawn at 0.02; the projections' weights
+                    # are unit normal
+                    x = randn((m, k), dt, 1.0 if head else 1.0 / math.sqrt(k))
+                    w = table[dname].t() if head else randn((k, n), dt)
+                    got = matmul(x, w)
+                    want = matmul_ref(x, w)
+                    torch.cuda.synchronize()
+                    viol, err = max_violation(got, want, tol)
+                    if viol > 0:
+                        raise AssertionError(
+                            f"matmul {dname} M={m} K={k} N={n}: max err "
+                            f"{err} exceeds tol {tol}")
+                    # rotate weight copies past the 50 MB L2 so each call
+                    # streams its weights from memory, as a decode step does
+                    nbytes_w = k * n * x.element_size()
+                    copies = [w] + [w.clone() for _ in range(
+                        min(63, (128 << 20) // nbytes_w))] if not head else [w]
+                    it = {"i": 0}
+
+                    def nxt():
+                        it["i"] += 1
+                        return copies[it["i"] % len(copies)]
+
+                    ms = cuda_ms(torch, lambda: matmul(x, nxt()))
+                    plain = cuda_ms(torch, lambda: matmul_ref(x, nxt()))
+                    lib = cuda_ms(torch, lambda: torch.matmul(x, nxt()))
+                    del copies
+                    b_ms, b_by = bound_ms(
+                        (m * k + k * n + m * n) * x.element_size(),
+                        2 * m * n * k, dname)
+                    row = {"dtype": dname, "M": m, "K": k, "N": n,
+                           "tied_head": head, "max_abs_err": err,
+                           "tol": tol, "ms": ms, "plain_ms": plain,
+                           "library_ms": lib, "bound_ms": b_ms,
+                           "bound_by": b_by}
+                    checks.append(row)
+                    mm[(dname, m, k, n)] = row
+        del table
+        out["detail"] = checks
+        out["checks"] = len(checks)
+        out["max_abs_err"] = max(c["max_abs_err"] for c in checks)
+        for c in checks:
+            emit({"matmul": {key: (round(v, 5) if isinstance(v, float)
+                                   else v) for key, v in c.items()}})
+
+    def k2_aggregate(dname, m):
+        """K2 numbers for one serving pass at batch rows ``m``: the 7
+        products of each layer plus the tied head."""
+        agg = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+               "bound_ms": 0.0}
+        nbytes = flops = 0
+        for (k, n), c in per_layer + [((d_model, vocab), None)]:
+            times = n_layers * c if c is not None else 1
+            row = mm[(dname, m, k, n)]
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                agg[key] += times * row[key]
+            nbytes += times * (m * k + k * n + m * n) * 2
+            flops += times * 2 * m * n * k
+        agg["bound_ms"], agg["bound_by"] = bound_ms(nbytes, flops, dname)
+        return agg
+
+    # -- 4. K1 flash attention -------------------------------------------
+    fa = {}
+    with phase("flash_attention") as out:
+        checks = []
+        cases = []
+        for h, kv, d in ((heads, kv_heads, hd), (4, 2, 16)):
+            for causal, window in ((True, 0), (True, 64)):
+                for sq, sk in ((PREFILL_LEN, PREFILL_LEN), (200, 200),
+                               (37, PREFILL_LEN)):
+                    cases.append((h, kv, d, causal, window, sq, sk))
+        for dname, dt in dtypes.items():
+            tol = FLASH_TOL[dname]
+            for h, kv, d, causal, window, sq, sk in cases:
+                b = 2
+                q = randn((b * h, sq, d), dt)
+                k = randn((b * kv, sk, d), dt)
+                v = randn((b * kv, sk, d), dt)
+                got = flash_attention(q, k, v, causal=causal, window=window)
+                want = flash_attention_ref(q, k, v, causal=causal,
+                                           window=window)
+                torch.cuda.synchronize()
+                viol, err = max_violation(got, want, tol)
+                if viol > 0:
+                    raise AssertionError(
+                        f"flash_attention {dname} H={h}/{kv} D={d} "
+                        f"causal={causal} window={window} Sq={sq} Sk={sk}: "
+                        f"max err {err} exceeds tol {tol}")
+                row = {"dtype": dname, "B": b, "H": h, "Hk": kv, "D": d,
+                       "causal": causal, "window": window, "Sq": sq,
+                       "Sk": sk, "max_abs_err": err, "tol": tol}
+                checks.append(row)
+        # times at the path's shape: one layer's prefill of one admission
+        kv, d, s = kv_heads, hd, PREFILL_LEN
+        for dname, dt in dtypes.items():
+            q = randn((heads, s, d), dt)
+            k = randn((kv, s, d), dt)
+            v = randn((kv, s, d), dt)
+            qs = q.reshape(1, heads, s, d)
+            ks = k.repeat_interleave(heads // kv, 0).reshape(1, heads, s, d)
+            vs = v.repeat_interleave(heads // kv, 0).reshape(1, heads, s, d)
+            ms = cuda_ms(torch, lambda: flash_attention(q, k, v), iters=50)
+            plain = cuda_ms(torch, lambda: flash_attention_ref(q, k, v),
+                            iters=50)
+            lib = cuda_ms(torch, lambda: torch.nn.functional
+                          .scaled_dot_product_attention(qs, ks, vs,
+                                                        is_causal=True),
+                          iters=50)
+            pairs = s * (s + 1) // 2
+            b_ms, b_by = bound_ms((2 * heads + 2 * kv) * s * d
+                                  * q.element_size(),
+                                  4 * d * pairs * heads, dname)
+            fa[dname] = {"dtype": dname, "H": heads, "Hk": kv, "D": d,
+                         "S": s, "causal": True, "ms": ms, "plain_ms": plain,
+                         "library_ms": lib, "bound_ms": b_ms,
+                         "bound_by": b_by}
+        out["detail"] = checks
+        out["checks"] = len(checks)
+        out["max_abs_err"] = max(c["max_abs_err"] for c in checks)
+        out["timed"] = fa
+        for c in checks:
+            emit({"flash_attention": {key: (round(v, 6) if isinstance(
+                v, float) else v) for key, v in c.items()}})
+
+    # -- 5. the slice at full width ----------------------------------------
+    from repro_torch.engine_config import EngineConfig
+    from repro_torch.launch.serve import ServingEngine
+    from repro_torch.models import transformer
+
+    launches = {}
+    with phase("serve") as out:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng = ServingEngine("qwen3-0.6b", EngineConfig(
+            reduced=False, batch=BATCH, max_len=MAX_LEN,
+            prefill_len=PREFILL_LEN, clock="step", seed=0), device="cuda")
+        cfg = eng.cfg
+        assert (cfg.n_layers, cfg.d_model, cfg.padded_vocab) == \
+            (28, 1024, 153_600), cfg
+        assert eng.params["embed"].dtype == torch.bfloat16
+        boot_s = time.perf_counter() - t0
+        rng = np.random.default_rng(0)
+        plens = [16, 200, 57, 120, 31, 180, 90, 140]
+        arrivals = [0, 0, 0, 0, 3, 9, 20, 40]
+        reqs = [eng.submit(rng.integers(1, cfg.vocab_size, size=p),
+                           max_new=MAX_NEW, arrival_time=a)
+                for p, a in zip(plens, arrivals)]
+        ops.reset_launch_counts()
+        stats = eng.run()
+        launches = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        assert stats["requests"] == len(reqs), stats
+        assert stats["refill_admissions"] >= 1, stats
+        admissions = stats["admitted"]
+        k2_want = per_step * (stats["decode_steps"] + admissions)
+        k1_want = n_layers * admissions
+        if launches["matmul"] != k2_want or \
+                launches["flash_attention"] != k1_want:
+            raise AssertionError(f"kernel launches {launches}, expected "
+                                 f"matmul {k2_want}, flash {k1_want}")
+        mism = []
+        for r in reqs:
+            ref = eng.reference_generate(r.prompt, r.max_new)
+            if ref != r.generated:
+                mism.append({"rid": r.rid, "engine": r.generated,
+                             "reference": ref})
+        if mism:
+            RECORD["stream_mismatch"] = mism
+            raise AssertionError(f"{len(mism)} of {len(reqs)} streams differ "
+                                 f"from reference_generate: {mism[0]}")
+        # what comes out is finite and of the expected shape
+        tokens = torch.from_numpy(np.asarray(
+            [reqs[0].prompt.tolist() + [0] * (PREFILL_LEN - reqs[0].prompt_len)],
+            np.int32)).to(dev)
+        logits, _ = transformer.forward(
+            cfg, eng.params, tokens, mode="prefill",
+            caches=transformer.init_cache(cfg, 1, MAX_LEN, device=dev),
+            lengths=torch.tensor([reqs[0].prompt_len]))
+        assert logits.shape == (1, PREFILL_LEN, vocab), logits.shape
+        assert bool(logits.isfinite().all()), "non-finite logits"
+        first = int(torch.argmax(
+            logits[0, reqs[0].prompt_len - 1, :cfg.vocab_size].float()))
+        assert first == reqs[0].generated[0], (first, reqs[0].generated[0])
+        # one admission (prefill_slot of a 200-token prompt) on the host
+        # clock with a sync, and where the device time of decode goes
+        long = next(r for r in reqs if r.prompt_len == 200)
+        tokens = torch.zeros((1, PREFILL_LEN), dtype=torch.int32)
+        tokens[0, :200] = torch.from_numpy(long.prompt)
+        tokens = tokens.to(dev)
+        admit_ms = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            eng.programs["prefill_slot"](eng.params, eng.caches, tokens, 0,
+                                         200)
+            torch.cuda.synchronize()
+            admit_ms.append(1e3 * (time.perf_counter() - t1))
+        profile = profile_decode(torch, eng, dev)
+        out.update(
+            admission_ms=sorted(admit_ms[1:])[1], profile=profile)
+        out.update(
+            model="qwen3-0.6b", dtype="bfloat16", layers=cfg.n_layers,
+            d_model=cfg.d_model, padded_vocab=cfg.padded_vocab,
+            batch=BATCH, max_len=MAX_LEN, prefill_len=PREFILL_LEN,
+            requests=len(reqs), prompt_lens=plens, max_new=MAX_NEW,
+            boot_s=round(boot_s, 3),
+            tok_per_s=stats["tok_per_s"], ttft_ms=stats["ttft_ms"],
+            decode_p50_ms=stats["decode_p50_ms"], wall_s=stats["wall_s"],
+            tokens=stats["tokens"], decode_steps=stats["decode_steps"],
+            admitted=admissions,
+            refill_admissions=stats["refill_admissions"],
+            occupancy=stats["occupancy"], launches=launches,
+            matmul_per_decode_step=per_step,
+            flash_attention_per_admission=n_layers,
+            peak_mem_gib=round(peak / 2 ** 30, 3),
+            streams_equal_reference=True, card=smi)
+        del eng
+
+    # -- 6. card against CPU -----------------------------------------------
+    with phase("parity") as out:
+        streams = {}
+        for device in ("cuda", "cpu"):
+            eng = ServingEngine("qwen3-0.6b", EngineConfig(
+                reduced=True, batch=2, max_len=64, clock="step", seed=7),
+                device=device)
+            rng = np.random.default_rng(1)
+            reqs = [eng.submit(rng.integers(1, eng.cfg.vocab_size, size=p),
+                               max_new=n, arrival_time=a)
+                    for p, n, a in ((5, 12, 0), (17, 20, 0), (9, 16, 3))]
+            eng.run()
+            streams[device] = [r.generated for r in reqs]
+        if streams["cuda"] != streams["cpu"]:
+            raise AssertionError(f"card and CPU streams differ: {streams}")
+        out.update(dtype="float32", streams=len(streams["cuda"]),
+                   tokens=sum(len(s) for s in streams["cuda"]), equal=True)
+
+    k2 = k2_aggregate("bfloat16", BATCH)
+    k2_prefill = k2_aggregate("bfloat16", PREFILL_LEN)
+    kernels = [
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:84",
+         "launches": launches["flash_attention"],
+         "max_abs_err": RECORD["phases"][3]["max_abs_err"],
+         "ms": fa["bfloat16"]["ms"], "plain_ms": fa["bfloat16"]["plain_ms"],
+         "bound_ms": fa["bfloat16"]["bound_ms"],
+         "bound_by": fa["bfloat16"]["bound_by"],
+         "library_ms": fa["bfloat16"]["library_ms"],
+         "per": f"one call: bf16 causal prefill S={PREFILL_LEN}, "
+                f"H={heads}, Hk={kv_heads}, D={hd}"},
+        {"name": "matmul", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/matmul.cu",
+         "replaces": "src/repro/kernels/matmul.py:33",
+         "launches": launches["matmul"],
+         "max_abs_err": RECORD["phases"][2]["max_abs_err"],
+         "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
+         "library_ms": k2["library_ms"],
+         "per": f"one decode step: bf16 M={BATCH}, {n_layers}x7 "
+                "projections + tied head",
+         "prefill_per_admission": k2_prefill},
+    ]
+    RECORD["kernels"] = kernels
+    _write_record()
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                 "count": count}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,76 @@
+"""Carry weights and caches between the reference and the port.
+
+Trees travel as nested dicts of numpy arrays with the reference's key
+paths: parameters ``embed``, ``final_norm`` and
+``groups/slot0/{mix/{ln,wq,wk,wv,wo,q_norm,k_norm},ffn_ln,mlp/{w_gate,w_up,
+w_down}}`` with the layer on the leading axis; caches ``pos`` and
+``groups/slot0/{k,v}``.  bfloat16 arrives as a numpy array whose
+``dtype.name == "bfloat16"`` (numpy has no such type of its own): its bytes
+are viewed as 16-bit integers and reinterpreted by torch, so the round trip
+is bit-exact.  Going back, bfloat16 leaves come out as ``uint16`` bit
+patterns.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.models import transformer
+
+
+def _leaf_from_numpy(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
+        return t.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
+
+
+def _tree_from_numpy(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_from_numpy(v, device) for k, v in tree.items()}
+    return _leaf_from_numpy(tree, device)
+
+
+def to_numpy(tree) -> Any:
+    """Tensors -> numpy arrays; bfloat16 leaves as ``uint16`` bit patterns."""
+    if isinstance(tree, dict):
+        return {k: to_numpy(v) for k, v in tree.items()}
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def _check_shapes(tree, shapes, path=""):
+    if isinstance(shapes, dict):
+        if not isinstance(tree, dict) or set(tree) != set(shapes):
+            got = sorted(tree) if isinstance(tree, dict) else type(tree)
+            raise ValueError(f"tree at {path or '/'} has keys {got}, "
+                             f"expected {sorted(shapes)}")
+        for k in shapes:
+            _check_shapes(tree[k], shapes[k], f"{path}/{k}")
+        return
+    if tuple(tree.shape) != tuple(shapes):
+        raise ValueError(f"leaf {path} has shape {tuple(tree.shape)}, "
+                         f"expected {tuple(shapes)}")
+
+
+def params_from_numpy(tree, cfg, device) -> dict:
+    """The reference's parameter tree (numpy leaves) -> the port's."""
+    _check_shapes(tree, transformer.abstract_params(cfg))
+    return _tree_from_numpy(tree, device)
+
+
+def cache_from_numpy(tree, cfg, batch: int, cache_len: int, device) -> dict:
+    """The reference's dense cache tree (numpy leaves) -> the port's."""
+    _check_shapes(tree, transformer.abstract_cache(cfg, batch, cache_len))
+    out = _tree_from_numpy(tree, device)
+    out["pos"] = out["pos"].to(torch.int32)
+    return out
+
+
+def cache_to_numpy(caches) -> dict:
+    return to_numpy(caches)

@@ -1,0 +1,89 @@
+"""K1: flash attention for the causal prefill of every attention layer.
+
+``flash_attention(q, k, v)`` replaces the Pallas kernel
+``repro/kernels/flash_attention.py:flash_attention`` with the CUDA C++
+kernel in ``csrc/flash_attention.cu`` (its header says what bounds it).
+Layout as in the reference: q (BH,Sq,D), k and v (BHk,Sk,D) with
+BH % BHk == 0; query row ``bh`` reads K/V row ``bh // (BH // BHk)``, so a
+(B,S,H,D) tensor laid out as (B*H,S,D) needs no K/V repeat.  Queries are
+right-aligned against the keys.  CPU tensors take
+:func:`flash_attention_ref`; CUDA tensors launch the kernel or raise.
+``flash_attention.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+
+NEG_INF = -1e30
+HEAD_DIMS = (16, 32, 64, 128)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True,
+                        window: int = 0) -> torch.Tensor:
+    """Plain version (``repro/kernels/ref.py:flash_attention``): repeat K/V
+    over the query groups, fp32 scores, masked softmax, p cast to v's dtype
+    before the p.v product."""
+    bh, sq, d = q.shape
+    bhk, sk, _ = k.shape
+    g = bh // bhk
+    k = k.repeat_interleave(g, dim=0)
+    v = v.repeat_interleave(g, dim=0)
+    scores = torch.einsum("bqd,bkd->bqk", q, k).float() * d ** -0.5
+    q_pos = torch.arange(sq, device=q.device) + (sk - sq)
+    k_pos = torch.arange(sk, device=q.device)
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= q_pos[:, None] >= k_pos[None, :]
+    if window > 0:
+        mask &= (q_pos[:, None] - k_pos[None, :]) < window
+    scores = torch.where(mask[None], scores,
+                         torch.full_like(scores, NEG_INF))
+    p = torch.softmax(scores, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p.to(v.dtype), v)
+
+
+def _check(q, k, v):
+    if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape:
+        raise ValueError(f"flash_attention takes q (BH,Sq,D), k/v (BHk,Sk,D); "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if q.shape[2] != k.shape[2] or q.shape[0] % k.shape[0] != 0:
+        raise ValueError(f"flash_attention: head_dim or GQA grouping differs: "
+                         f"{tuple(q.shape)} vs {tuple(k.shape)}")
+    if not (q.dtype == k.dtype == v.dtype) or \
+            q.dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"flash_attention takes float32 or bfloat16 of one "
+                        f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("flash_attention operands on different devices")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention has no route for device {q.device}")
+    bh, sq, d = q.shape
+    bhk, sk, _ = k.shape
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel takes head_dim in "
+                         f"{HEAD_DIMS}, got {d}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention kernel needs contiguous q, k, v")
+    lib = _build.library()
+    out = torch.empty_like(q)
+    err = lib.repro_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, bhk,
+        sq, sk, d, int(causal), int(window), _build.DTYPE_CODES[q.dtype],
+        _build.stream_handle())
+    _build.check(err, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

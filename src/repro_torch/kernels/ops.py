@@ -1,0 +1,30 @@
+"""Public kernel entry points of the port (mirrors ``repro/kernels/ops.py``).
+
+There is no implementation switch: the device of the tensors decides.  A
+CPU tensor takes the kernel's plain PyTorch version; a CUDA tensor launches
+the hand-written Hopper kernel or raises.  Kernels of other families
+(``moe_ffn``, ``ssd_scan``, ``rglru_scan``) are not ported yet (ROADMAP
+Queue 2).
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_ref)
+from repro_torch.kernels.matmul import matmul, matmul_ref
+
+KERNELS = {"matmul": matmul, "flash_attention": flash_attention}
+
+__all__ = ["matmul", "matmul_ref", "flash_attention", "flash_attention_ref",
+           "KERNELS", "launch_counts", "reset_launch_counts"]
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches per kernel since the last reset."""
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts():
+    for fn in KERNELS.values():
+        fn.launches = 0

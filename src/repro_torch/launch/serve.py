@@ -1,0 +1,371 @@
+"""Continuous-batching serving engine on the persistent executor
+(port of the dense path of ``repro/launch/serve.py``).
+
+The Syscore boots once and hot-loads the ``prefill_slot`` and ``decode``
+programs; admission of a new request into a running batch is a
+re-execution of ``prefill_slot``, and every engine step re-executes
+``decode`` for all slots at their own positions.  Finished slots are
+refilled from a bounded arrival-time queue between decode steps.  Engine
+telemetry (TTFT, decode latency, occupancy) goes through the numbered
+hostcall table.
+
+Exactness: admission is per slot (a batch-1 prefill copied into the live
+cache) and K2 sums K in a fixed order whatever the number of rows, so every
+request's greedy stream equals a batch-of-1 decode of the same prompt
+(:meth:`ServingEngine.reference_generate`), on the CPU and on the card.
+
+The engine runs on the card unless asked otherwise: ``device=None`` means
+``"cuda"``, and a missing card is an error, never a quiet move to the CPU.
+"""
+from __future__ import annotations
+
+import argparse
+import bisect
+import time
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import steps as steps_lib
+from repro_torch.core.hostcall import CALL_BATCH, CALL_METRIC, CALL_STEP_REPORT
+from repro_torch.core.syscore import (METRIC_PROGRAM_COMPILE_MS,
+                                      METRIC_PROGRAM_LOAD_MS, Syscore)
+from repro_torch.engine_config import EngineConfig
+from repro_torch.kernels import _build
+from repro_torch.models import registry, transformer
+
+# CALL_METRIC name codes used by the engine (the reference's schema)
+METRIC_TTFT_MS = 1        # time-to-first-token per request, ms
+METRIC_DECODE_MS = 2      # per decode-step wall latency, ms
+METRIC_OCCUPANCY = 3      # active slots / batch, per decode step
+# codes 4/5 are program-lifecycle telemetry (repro_torch.core.syscore)
+
+
+@dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray               # (S_p,) int32
+    max_new: int = 16
+    arrival_time: float = 0.0        # engine-clock time at which it may start
+    generated: List[int] = field(default_factory=list)
+    done: bool = False
+    prompt_len: int = 0
+    slot: int = -1
+    t_submit: float = 0.0            # wall-clock timestamps
+    t_first: Optional[float] = None  # None until the request is placed
+    t_done: Optional[float] = None   # None until it finishes
+
+    @property
+    def ttft_s(self) -> Optional[float]:
+        if self.t_first is None:
+            return None
+        return self.t_first - self.t_submit
+
+
+def resolve_device(device: Optional[str]) -> torch.device:
+    """``None`` is the card.  A CUDA device without a card raises."""
+    dev = torch.device(device or "cuda")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "the serving engine runs on the card by default and no CUDA "
+            "device is available; pass device='cpu' to run on the CPU")
+    return dev
+
+
+class ServingEngine:
+    """Continuous-batching engine over hot-loaded programs.
+
+    ``params``: a parameter tree already on ``device`` (e.g. from
+    :func:`repro_torch.bridge.params_from_numpy`), else ``config.seed``
+    draws one.  ``device`` overrides ``config.device``; both ``None`` means
+    ``"cuda"``.
+    """
+
+    def __init__(self, arch: str, config: Optional[EngineConfig] = None, *,
+                 params=None, device: Optional[str] = None):
+        config = config if config is not None else EngineConfig()
+        self.device = resolve_device(device or config.device)
+        self.config = config.replace(device=str(self.device))
+        self.arch = arch
+        self.reduced = config.reduced
+        self.cfg = registry.get_config(arch, reduced=config.reduced)
+        transformer.check_supported(self.cfg)
+        self.batch = config.batch
+        self.max_len = config.max_len
+        self.prefill_len = config.resolved_prefill_len
+        self.eos_id = config.eos_id
+        self.max_queue = config.max_queue
+        self.clock = config.clock
+        self.syscore = Syscore()
+        if self.device.type == "cuda":
+            # the programs' kernels are built (or found current) at boot,
+            # the port's counterpart of the reference's program compile
+            t0 = time.perf_counter()
+            _build.library()
+            self.syscore.hostcalls.dispatch(
+                CALL_METRIC, METRIC_PROGRAM_COMPILE_MS,
+                1e3 * (time.perf_counter() - t0))
+        self.params = params if params is not None else \
+            transformer.init_params(self.cfg, config.seed, device=self.device)
+
+        specs = steps_lib.serve_program_specs(self.cfg, self.config)
+        self.programs = {name: self.syscore.hot_load(spec)
+                         for name, spec in specs.items()}
+        self._prefill_slot = self.programs["prefill_slot"]
+        self._decode = self.programs["decode"]
+        self.caches = transformer.init_cache(self.cfg, self.batch,
+                                             self.max_len, device=self.device)
+
+        self.slots: List[Optional[Request]] = [None] * self.batch
+        self.queue: List[Request] = []
+        self.completed: List[Request] = []
+        self.steps = 0                 # engine iterations (incl. idle ticks)
+        self.decode_steps = 0          # decode-program dispatches
+        self.decode_tokens = 0         # tokens emitted by the decode path
+        self.admitted = 0
+        self.rejected = 0
+        self.refill_admissions = 0     # admissions while other slots active
+        self._n_submitted = 0
+        self._t0 = time.perf_counter()
+
+    # -- clock ----------------------------------------------------------------
+    def now(self) -> float:
+        if self.clock == "step":
+            return float(self.steps)
+        return time.perf_counter() - self._t0
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # -- request management ---------------------------------------------------
+    def submit(self, prompt: np.ndarray, max_new: int = 16,
+               arrival_time: float = 0.0,
+               rid: Optional[int] = None) -> Optional[Request]:
+        """Enqueue a request; None if the bounded admission queue is full."""
+        if len(self.queue) >= self.max_queue:
+            self.rejected += 1
+            return None
+        prompt = np.asarray(prompt, np.int32)[-self.prefill_len:]
+        max_new = min(max_new, self.max_len - len(prompt))
+        if rid is None:
+            rid = self._n_submitted
+        req = Request(rid=int(rid), prompt=prompt, max_new=max_new,
+                      arrival_time=arrival_time, prompt_len=len(prompt),
+                      t_submit=time.perf_counter())
+        self._n_submitted = max(self._n_submitted, int(rid) + 1)
+        bisect.insort(self.queue, req, key=lambda r: (r.arrival_time, r.rid))
+        return req
+
+    def _place(self, slot: int, req: Request, last_logits: np.ndarray):
+        """Post-prefill bookkeeping of an admission."""
+        first = int(np.argmax(last_logits[: self.cfg.vocab_size]))
+        req.generated.append(first)
+        req.t_first = time.perf_counter()
+        req.slot = slot
+        self.slots[slot] = req
+        self.admitted += 1
+        if any(s is not None and s is not req and len(s.generated) > 1
+               for s in self.slots):
+            self.refill_admissions += 1
+        self.syscore.hostcalls.dispatch(
+            CALL_METRIC, METRIC_TTFT_MS, 1e3 * req.ttft_s)
+        self._maybe_finish(req)   # max_new == 1 or instant EOS
+
+    def _tokens(self, rows: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(rows).to(self.device)
+
+    def _admit_one(self, slot: int, req: Request):
+        """Prefill ``req`` into ``slot`` of the live batch (a re-execution
+        of the hot-loaded prefill_slot program)."""
+        tokens = np.zeros((1, self.prefill_len), np.int32)
+        tokens[0, :req.prompt_len] = req.prompt
+        self.caches, last = self._prefill_slot(
+            self.params, self.caches, self._tokens(tokens), slot,
+            req.prompt_len)
+        self._place(slot, req, last.float().cpu().numpy())
+
+    def _admit(self):
+        """Refill free slots from the queue, earliest arrival first."""
+        t = self.now()
+        for i, s in enumerate(self.slots):
+            if s is not None:
+                continue
+            if not self.queue or self.queue[0].arrival_time > t:
+                break
+            self._admit_one(i, self.queue.pop(0))
+
+    def _maybe_finish(self, req: Request):
+        hit_eos = self.eos_id is not None and req.generated and \
+            req.generated[-1] == self.eos_id
+        full = req.prompt_len + len(req.generated) >= self.max_len
+        if len(req.generated) >= req.max_new or hit_eos or full:
+            req.done = True
+            req.t_done = time.perf_counter()
+            self.completed.append(req)
+            if req.slot >= 0:
+                self.slots[req.slot] = None
+
+    def _step_metrics(self, dt: float, occupancy: float):
+        """ONE aggregated hostcall round trip per engine step (CALL_BATCH)."""
+        self.syscore.hostcalls.dispatch(CALL_BATCH, [
+            (CALL_METRIC, METRIC_DECODE_MS, 1e3 * dt),
+            (CALL_METRIC, METRIC_OCCUPANCY, occupancy),
+            (CALL_STEP_REPORT, self.decode_steps, dt, time.perf_counter())])
+
+    def _decode_once(self):
+        tokens = np.zeros((self.batch, 1), np.int32)
+        for i, req in enumerate(self.slots):
+            if req is not None:
+                tokens[i, 0] = req.generated[-1]
+        active = sum(s is not None for s in self.slots)
+        t1 = time.perf_counter()
+        self.caches, next_tok, _ = self._decode(
+            self.params, self.caches, self._tokens(tokens))
+        nt = next_tok.cpu().numpy()       # waits for the device result
+        dt = time.perf_counter() - t1
+        self.decode_steps += 1
+        self.decode_tokens += active
+        self._step_metrics(dt, active / self.batch)
+        for i, req in enumerate(self.slots):
+            if req is None:
+                continue
+            req.generated.append(int(nt[i, 0]))
+            self._maybe_finish(req)
+        return dt
+
+    @property
+    def has_work(self) -> bool:
+        """True while any request is queued or occupies a slot."""
+        return bool(self.queue) or any(s is not None for s in self.slots)
+
+    def tick(self) -> bool:
+        """One supervised engine iteration (the step-level API)."""
+        return self.step()
+
+    def snapshot(self) -> Dict[str, object]:
+        """Point-in-time load view, host bookkeeping only."""
+        active = [s for s in self.slots if s is not None]
+        return {
+            "steps": self.steps,
+            "batch": self.batch,
+            "active": len(active),
+            "queue_depth": len(self.queue),
+            "max_queue": self.max_queue,
+            "inflight_rids": sorted([r.rid for r in active] +
+                                    [r.rid for r in self.queue]),
+            "completed": len(self.completed),
+        }
+
+    def step(self) -> bool:
+        """One engine iteration: admit into free slots, then one decode step
+        for every active slot.  Returns False when no work remains."""
+        if not self.has_work:
+            return False
+        self._admit()
+        if any(s is not None for s in self.slots):
+            self._decode_once()
+        elif self.clock == "wall" and self.queue:
+            wait = self.queue[0].arrival_time - self.now()
+            time.sleep(min(max(wait, 1e-4), 1e-2))
+        self.steps += 1
+        return True
+
+    def run(self, max_steps: int = 10_000) -> Dict[str, float]:
+        """Serve until the queue and slots drain (or ``max_steps`` engine
+        iterations pass).  Counters and metric windows are relative to this
+        call."""
+        metrics = self.syscore.hostcalls.metrics
+        start_steps, done0 = self.steps, len(self.completed)
+        n_dec0 = len(metrics.get(METRIC_DECODE_MS, []))
+        n_ttft0 = len(metrics.get(METRIC_TTFT_MS, []))
+        n_occ0 = len(metrics.get(METRIC_OCCUPANCY, []))
+        dec_steps0, dec_toks0 = self.decode_steps, self.decode_tokens
+        adm0, ref0 = self.admitted, self.refill_admissions
+        self._sync()
+        t0 = time.perf_counter()
+        while self.steps - start_steps < max_steps and self.step():
+            pass
+        self._sync()
+        wall = time.perf_counter() - t0
+        completed = self.completed[done0:]
+        toks = sum(len(r.generated) for r in completed)
+        decode_ms = sorted(metrics.get(METRIC_DECODE_MS, [])[n_dec0:])
+        ttft_ms = metrics.get(METRIC_TTFT_MS, [])[n_ttft0:]
+        occ = metrics.get(METRIC_OCCUPANCY, [])[n_occ0:]
+        dec_toks = self.decode_tokens - dec_toks0
+        return {
+            "requests": len(completed),
+            "tokens": toks,
+            "wall_s": wall,
+            "tok_per_s": toks / wall if wall else 0.0,
+            "decode_p50_ms": (decode_ms[len(decode_ms) // 2]
+                              if decode_ms else None),
+            "ttft_ms": (sum(ttft_ms) / len(ttft_ms) if ttft_ms else None),
+            "occupancy": sum(occ) / max(len(occ), 1),
+            "decode_steps": self.decode_steps - dec_steps0,
+            "decode_tokens": dec_toks,
+            "dispatches_per_token": (self.decode_steps - dec_steps0)
+                                    / max(dec_toks, 1),
+            "admitted": self.admitted - adm0,
+            "rejected": self.rejected,
+            "refill_admissions": self.refill_admissions - ref0,
+        }
+
+    def drain_completed(self) -> List[Request]:
+        """Hand finished requests to the caller and release engine-side
+        history (metric channels other than program lifecycle, step
+        reports)."""
+        done, self.completed = self.completed, []
+        hc = self.syscore.hostcalls
+        hc.drain_metrics(keep=(METRIC_PROGRAM_COMPILE_MS,
+                               METRIC_PROGRAM_LOAD_MS))
+        hc.step_times.clear()
+        hc.step_stamps.clear()
+        return done
+
+    # -- reference path -------------------------------------------------------
+    def reference_generate(self, prompt: np.ndarray, max_new: int) -> List[int]:
+        """Batch-of-1 greedy decode of ``prompt`` with this engine's params —
+        the oracle each slot's output must match token for token.  The
+        reference engine is built once and re-used: admission rewrites its
+        single slot completely."""
+        ref = getattr(self, "_ref_engine", None)
+        if ref is None:
+            ref_config = self.config.replace(
+                batch=1, prefill_len=self.prefill_len, clock="step")
+            ref = self._ref_engine = ServingEngine(
+                self.arch, ref_config, params=self.params)
+        req = ref.submit(prompt, max_new)
+        ref.run()
+        ref.drain_completed()
+        return req.generated
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(
+        description="Serve random prompts through the port's engine.")
+    ap.add_argument("--arch", default="qwen3-0.6b")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--full", action="store_true",
+                    help="the published config instead of the reduced one")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+    config = EngineConfig(reduced=not args.full, batch=args.batch,
+                          max_len=512 if args.full else 128,
+                          device=args.device)
+    eng = ServingEngine(args.arch, config)
+    rng = np.random.default_rng(0)
+    for _ in range(args.requests):
+        eng.submit(rng.integers(0, eng.cfg.vocab_size, size=8), args.max_new)
+    print(eng.run())
+    print(eng.syscore.report()["programs"])
+
+
+if __name__ == "__main__":
+    main()

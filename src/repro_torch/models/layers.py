@@ -1,0 +1,107 @@
+"""Shared model layers: norms, RoPE, embeddings, the LM head, the MLP and
+parameter initialisation (port of ``repro/models/layers.py``).
+
+Every matrix product goes through K2 (``kernels.ops.matmul``).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+
+Params = Dict[str, Any]
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return DTYPES[name]
+
+
+# ---------------------------------------------------------------------------
+# norms and rotary embeddings
+# ---------------------------------------------------------------------------
+
+def apply_rmsnorm(scale: torch.Tensor, x: torch.Tensor,
+                  eps: float) -> torch.Tensor:
+    """RMSNorm in fp32, scaled by ``1 + scale``, cast back to x's dtype."""
+    dtype = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * (1.0 + scale.float())).to(dtype)
+
+
+def rope_frequencies(head_dim: int, theta: float,
+                     device=None) -> torch.Tensor:
+    half = head_dim // 2
+    return 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                         device=device) / half))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """Half-split rotation (not interleaved), angles in fp32.
+    x: (..., S, H, D) or (..., S, D); positions: (..., S)."""
+    freqs = rope_frequencies(x.shape[-1], theta, device=x.device)
+    angles = positions.unsqueeze(-1).float() * freqs
+    if x.dim() == angles.dim() + 1:        # has a heads axis
+        angles = angles.unsqueeze(-2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# embeddings, LM head, MLP
+# ---------------------------------------------------------------------------
+
+def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(..., K) @ (K, N) through K2."""
+    lead = x.shape[:-1]
+    out = ops.matmul(x.reshape(-1, x.shape[-1]), w)
+    return out.reshape(*lead, w.shape[1])
+
+
+def apply_embedding(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    return table[ids]
+
+
+def apply_lm_head(table: torch.Tensor, x: torch.Tensor,
+                  transpose: bool = False) -> torch.Tensor:
+    """x: (B, S, d) -> logits (B, S, V).  With ``transpose`` the table is the
+    tied (V, d) embedding, read in place by K2 as a (d, V) view."""
+    return linear(x, table.t() if transpose else table)
+
+
+def apply_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU: silu(x @ w_gate) * (x @ w_up) @ w_down, all three through K2."""
+    h = F.silu(linear(x, p["w_gate"])) * linear(x, p["w_up"])
+    return linear(h, p["w_down"])
+
+
+# ---------------------------------------------------------------------------
+# parameter initialisation
+# ---------------------------------------------------------------------------
+
+def init_params(shapes, generator: torch.Generator, dtype: torch.dtype,
+                device) -> Any:
+    """Nested dict of shape tuples -> tensors, with the distribution of the
+    reference's ``materialize``: leaves of rank <= 1 are zeros; others are
+    normal * fan_in ** -0.5 with fan_in = shape[-2] (so layer-stacked norm
+    scales of shape (L, d) are drawn too).  Drawn in fp32 on the CPU from
+    ``generator`` in sorted key order, so one seed gives the same weights on
+    every device, then cast and moved."""
+    if isinstance(shapes, dict):
+        return {k: init_params(shapes[k], generator, dtype, device)
+                for k in sorted(shapes)}
+    shape = tuple(shapes)
+    if len(shape) <= 1:
+        return torch.zeros(shape, dtype=dtype, device=device)
+    std = 1.0 / (shape[-2] ** 0.5)
+    t = torch.randn(shape, generator=generator, dtype=torch.float32) * std
+    return t.to(dtype=dtype).to(device)

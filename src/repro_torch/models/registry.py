@@ -1,0 +1,24 @@
+"""Architecture registry of the port: the archs it serves so far."""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.models.config import ModelConfig
+
+# archs whose config and model path the port carries; the reference serves
+# ten (ROADMAP Queue 1 item 8 brings the rest)
+PORTED_ARCHS = ("qwen3-0.6b",)
+
+
+def _module_name(arch_id: str) -> str:
+    return arch_id.replace("-", "_").replace(".", "_")
+
+
+def get_config(arch_id: str, reduced: bool = False) -> ModelConfig:
+    if arch_id not in PORTED_ARCHS:
+        raise NotImplementedError(
+            f"arch {arch_id!r} is not yet ported to repro_torch "
+            f"(ported: {', '.join(PORTED_ARCHS)}; see ROADMAP Queue 1)")
+    mod = importlib.import_module(
+        f"repro_torch.configs.{_module_name(arch_id)}")
+    return mod.REDUCED if reduced else mod.CONFIG

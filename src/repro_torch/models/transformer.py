@@ -1,0 +1,333 @@
+"""Decoder-only language model, "G" (global attention) layers
+(port of ``repro/models/transformer.py``).
+
+Parameter and cache trees keep the reference's nested-dict layout and key
+paths: layers of the repeating unit are stacked along a leading axis under
+``groups/slot{i}``, remainder layers sit under ``tail``, and the cache tree
+carries each batch row's next decode position in ``pos``.
+
+Unlike the reference, which is functional, cache writes here are made in
+place: ``forward(mode="prefill")`` and ``decode_step`` fill the cache
+tensors they are given and return the same tree (with a new ``pos``).
+Callers that need the old cache keep a copy.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import layers
+from repro_torch.models.layers import (apply_embedding, apply_lm_head,
+                                       apply_mlp, apply_rmsnorm, apply_rope,
+                                       linear, torch_dtype)
+
+Params = Dict[str, Any]
+
+ATTN_KINDS = ("G",)
+
+
+def check_supported(cfg):
+    """Raise for what the port does not carry yet, naming the ROADMAP item
+    that brings it."""
+    if cfg.is_encdec:
+        raise NotImplementedError(
+            "encoder-decoder models are not ported yet (ROADMAP Queue 1 "
+            "item 8.6)")
+    if cfg.family == "moe" or cfg.n_experts:
+        raise NotImplementedError(
+            "MoE layers are not ported yet (ROADMAP Queue 1 item 8.2, "
+            "kernel K3)")
+    if cfg.frontend != "none":
+        raise NotImplementedError(
+            "frontend prefix embeddings are not ported yet (ROADMAP Queue 1 "
+            "item 8.5)")
+    if cfg.scale_embeddings:
+        raise NotImplementedError(
+            "scaled embeddings (gemma) are not ported yet (ROADMAP Queue 1 "
+            "item 8.1)")
+    if not cfg.tie_embeddings:
+        raise NotImplementedError(
+            "an untied LM head is not ported yet (ROADMAP Queue 1 item 2: "
+            "the other dense configs)")
+    if cfg.decode_cache_heads not in (0, cfg.n_kv_heads):
+        raise NotImplementedError(
+            "decode_cache_heads folding belongs to tensor-parallel serving "
+            "(ROADMAP Queue 1 item 13)")
+    for kind in cfg.pattern_for_layers():
+        if kind not in ATTN_KINDS:
+            raise NotImplementedError(
+                f"layer kind {kind!r} is not ported yet (ROADMAP Queue 1 "
+                f"item 8: 'L' gemma3, 'M' mamba2, 'R' recurrentgemma)")
+
+
+def split_layers(cfg) -> Tuple[Tuple[str, ...], int, Tuple[str, ...]]:
+    """(repeating unit, number of stacked groups, remainder tail kinds)."""
+    unit = cfg.layer_pattern or ("G",)
+    n_groups = cfg.n_layers // len(unit)
+    tail = tuple(unit[i % len(unit)]
+                 for i in range(n_groups * len(unit), cfg.n_layers))
+    return unit, n_groups, tail
+
+
+def _stack(tree, n: int):
+    if isinstance(tree, dict):
+        return {k: _stack(v, n) for k, v in tree.items()}
+    return (n,) + tuple(tree)
+
+
+# ---------------------------------------------------------------------------
+# parameter and cache trees
+# ---------------------------------------------------------------------------
+
+def _attn_shapes(cfg) -> Params:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    p = {"ln": (d,), "wq": (d, cfg.n_heads * hd),
+         "wk": (d, cfg.n_kv_heads * hd), "wv": (d, cfg.n_kv_heads * hd),
+         "wo": (cfg.n_heads * hd, d)}
+    if cfg.qk_norm:
+        p["q_norm"] = (hd,)
+        p["k_norm"] = (hd,)
+    return p
+
+
+def layer_shapes(cfg) -> Params:
+    p = {"mix": _attn_shapes(cfg)}
+    if cfg.d_ff > 0:
+        d = cfg.d_model
+        p["ffn_ln"] = (d,)
+        p["mlp"] = {"w_gate": (d, cfg.d_ff), "w_up": (d, cfg.d_ff),
+                    "w_down": (cfg.d_ff, d)}
+    return p
+
+
+def abstract_params(cfg) -> Params:
+    """The parameter tree as shapes (the reference's LogicalArray tree)."""
+    check_supported(cfg)
+    unit, n_groups, tail = split_layers(cfg)
+    group = {f"slot{i}": layer_shapes(cfg) for i, _ in enumerate(unit)}
+    return {
+        "embed": (cfg.padded_vocab, cfg.d_model),
+        "groups": _stack(group, n_groups),
+        "tail": {f"tail{i}": layer_shapes(cfg) for i, _ in enumerate(tail)},
+        "final_norm": (cfg.d_model,),
+    }
+
+
+def _attn_cache_shape(cfg, batch: int, cache_len: int):
+    return {"k": (batch, cache_len, cfg.n_kv_heads, cfg.resolved_head_dim),
+            "v": (batch, cache_len, cfg.n_kv_heads, cfg.resolved_head_dim)}
+
+
+def abstract_cache(cfg, batch: int, cache_len: int) -> Params:
+    """Decode-state tree as shapes: per-layer KV buffers of ``cache_len``
+    slots plus the per-slot ``pos`` vector (B,).  (The reference's ``ring``
+    argument shapes windowed layers, which are not ported yet.)"""
+    check_supported(cfg)
+    unit, n_groups, tail = split_layers(cfg)
+    group = {f"slot{i}": _attn_cache_shape(cfg, batch, cache_len)
+             for i, _ in enumerate(unit)}
+    return {
+        "pos": (batch,),
+        "groups": _stack(group, n_groups),
+        "tail": {f"tail{i}": _attn_cache_shape(cfg, batch, cache_len)
+                 for i, _ in enumerate(tail)},
+    }
+
+
+def init_params(cfg, seed: int = 0, *, device="cpu") -> Params:
+    """Random weights with the reference's distribution, in ``cfg.dtype``.
+    One seed gives the same weights on every device."""
+    return layers.init_params(abstract_params(cfg),
+                              torch.Generator().manual_seed(seed),
+                              torch_dtype(cfg.dtype), device)
+
+
+def init_cache(cfg, batch: int, cache_len: int, *, device="cpu") -> Params:
+    def zeros(tree):
+        if isinstance(tree, dict):
+            return {k: zeros(v) for k, v in tree.items()}
+        return torch.zeros(tree, dtype=torch_dtype(cfg.dtype), device=device)
+
+    tree = abstract_cache(cfg, batch, cache_len)
+    out = zeros({"groups": tree["groups"], "tail": tree["tail"]})
+    out["pos"] = torch.zeros((batch,), dtype=torch.int32, device=device)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# attention layer
+# ---------------------------------------------------------------------------
+
+def _write_prefill_cache(cache_kv: torch.Tensor,
+                         full: torch.Tensor) -> torch.Tensor:
+    """Write prefill keys/values (B,S,..) into a cache buffer (B,C,..), in
+    place, and return the buffer.  Slots beyond a row's length hold
+    whatever the padded positions produced; decode masks them by its
+    per-slot valid length.  (The reference's ring rule for windowed layers
+    is not ported yet.)"""
+    n = min(full.shape[1], cache_kv.shape[1])
+    cache_kv[:, :n].copy_(full[:, :n])
+    return cache_kv
+
+
+def _write_decode_cache(cache_kv: torch.Tensor, new: torch.Tensor,
+                        pos_b: torch.Tensor):
+    """Write row b's new key/value (B, Hkv, D) at slot ``pos_b[b] % C``, in
+    place.  A position >= C (an idle slot left ticking) drops its write
+    instead of wrapping onto slot 0, as the reference's non-ring rule does
+    (``transformer.py:216-234``).  A dropped row rewrites slot 0 with its
+    own current bytes, so no host sync is needed to find the dropped rows."""
+    b, c = cache_kv.shape[0], cache_kv.shape[1]
+    rows = torch.arange(b, device=cache_kv.device)
+    hit = pos_b < c
+    slot = torch.where(hit, pos_b % c, torch.zeros_like(pos_b)).long()
+    old = cache_kv[rows, slot]
+    cache_kv[rows, slot] = torch.where(hit[:, None, None],
+                                       new.to(cache_kv.dtype), old)
+
+
+def _apply_attn(cfg, p: Params, x: torch.Tensor, *, mode: str, cache,
+                pos: torch.Tensor):
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim
+    theta = cfg.rope_theta
+    residual = x
+    xn = apply_rmsnorm(p["ln"], x, cfg.norm_eps)
+    q = linear(xn, p["wq"]).reshape(b, s, cfg.n_heads, hd)
+    k = linear(xn, p["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
+    v = linear(xn, p["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        q = apply_rmsnorm(p["q_norm"], q, cfg.norm_eps)
+        k = apply_rmsnorm(p["k_norm"], k, cfg.norm_eps)
+
+    if mode == "decode":
+        pos_b = pos.to(torch.int32).expand(b) if pos.dim() == 0 else pos
+        q = apply_rope(q, pos_b[:, None], theta)
+        k = apply_rope(k, pos_b[:, None], theta)
+        _write_decode_cache(cache["k"], k[:, 0], pos_b)
+        _write_decode_cache(cache["v"], v[:, 0], pos_b)
+        out = attn_mod.decode_attention(q, cache["k"], cache["v"], pos_b + 1,
+                                        window=0, ring=False)
+    elif mode == "prefill":
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=x.device)[None].expand(b, s)
+        q = apply_rope(q, positions, theta)
+        k = apply_rope(k, positions, theta)
+        # padded positions never reach a valid query under the causal mask
+        _write_prefill_cache(cache["k"], k)
+        _write_prefill_cache(cache["v"], v)
+        out = attn_mod.prefill_attention(q, k, v, causal=True, window=0)
+    else:
+        raise NotImplementedError(
+            f"mode {mode!r}: the training forward is not ported yet "
+            f"(ROADMAP Queue 1 item 14)")
+    out = linear(out.reshape(b, s, cfg.n_heads * hd), p["wo"])
+    return residual + out, cache
+
+
+# ---------------------------------------------------------------------------
+# full layer and stack
+# ---------------------------------------------------------------------------
+
+def apply_layer(cfg, kind: str, p: Params, x, *, mode: str, cache, pos):
+    if kind not in ATTN_KINDS:
+        raise NotImplementedError(f"layer kind {kind!r} is not ported yet "
+                                  f"(ROADMAP Queue 1 item 8)")
+    x, new_cache = _apply_attn(cfg, p["mix"], x, mode=mode, cache=cache,
+                               pos=pos)
+    if cfg.d_ff > 0:
+        xn = apply_rmsnorm(p["ffn_ln"], x, cfg.norm_eps)
+        x = x + apply_mlp(p["mlp"], xn)
+    return x, new_cache
+
+
+def _index(tree, i: int):
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _run_stack(cfg, params, x, *, mode: str, caches, pos):
+    """The reference scans the layer-stacked groups; here a Python loop
+    walks the same stacked tensors layer by layer (views, no copies)."""
+    unit, n_groups, tail = split_layers(cfg)
+    for layer in range(n_groups):
+        gp = _index(params["groups"], layer)
+        gc = _index(caches["groups"], layer)
+        for i, kind in enumerate(unit):
+            slot = f"slot{i}"
+            x, _ = apply_layer(cfg, kind, gp[slot], x, mode=mode,
+                               cache=gc[slot], pos=pos)
+    for i, kind in enumerate(tail):
+        name = f"tail{i}"
+        x, _ = apply_layer(cfg, kind, params["tail"][name], x, mode=mode,
+                           cache=caches["tail"][name], pos=pos)
+    return x, caches
+
+
+def logits_from_hidden(cfg, params, x):
+    x = apply_rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return apply_lm_head(params["embed"], x, transpose=True)   # tied head
+
+
+def forward(cfg, params, tokens, *, mode: str = "prefill", caches=None,
+            lengths=None):
+    """tokens: (B, S).  Prefill mode fills ``caches`` in place and sets its
+    ``pos`` to ``lengths`` (B,), each right-padded row's valid length
+    (default: S), i.e. each row's next decode position.
+
+    Returns (logits (B, S, V_padded), caches)."""
+    check_supported(cfg)
+    if mode != "prefill" or caches is None:
+        raise NotImplementedError(
+            "forward runs in prefill mode with a cache; the training forward "
+            "is not ported yet (ROADMAP Queue 1 item 14)")
+    x = apply_embedding(params["embed"], tokens)
+    b, s = tokens.shape
+    if lengths is None:
+        pos = torch.full((b,), s, dtype=torch.int32, device=tokens.device)
+    else:
+        pos = torch.as_tensor(lengths, dtype=torch.int32,
+                              device=tokens.device).expand(b).clone()
+    x, caches = _run_stack(cfg, params, x, mode=mode, caches=caches, pos=pos)
+    logits = logits_from_hidden(cfg, params, x)
+    caches["pos"] = pos
+    return logits, caches
+
+
+def greedy_token(cfg, logits: torch.Tensor) -> torch.Tensor:
+    """THE greedy argmax: vocab padding masked, first maximum on ties.
+    (..., V_padded) -> (...) int32."""
+    valid = torch.arange(logits.shape[-1], device=logits.device) \
+        < cfg.vocab_size
+    masked = torch.where(valid, logits,
+                         torch.full_like(logits, float("-inf")))
+    return torch.argmax(masked, dim=-1).to(torch.int32)
+
+
+def decode_step(cfg, params, caches, token, pos=None, *, live=None):
+    """token: (B, 1) int; pos: () or (B,) absolute positions, defaulting to
+    the per-slot ``pos`` carried in the cache tree.  Writes each row's KV at
+    its own slot in place and returns (logits (B, 1, V_padded), caches) with
+    ``pos`` advanced by one."""
+    check_supported(cfg)
+    if live is not None:
+        raise NotImplementedError(
+            "live-masked decode belongs to fused decode horizons "
+            "(ROADMAP Queue 1 item 5)")
+    if "block_table" in caches:
+        raise NotImplementedError(
+            "paged KV caches are not ported yet (ROADMAP Queue 1 item 4)")
+    b = token.shape[0]
+    if pos is None:
+        pos = caches["pos"]
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=token.device)
+    pos = pos.expand(b) if pos.dim() == 0 else pos
+    x = apply_embedding(params["embed"], token)
+    x, caches = _run_stack(cfg, params, x, mode="decode", caches=caches,
+                           pos=pos)
+    logits = logits_from_hidden(cfg, params, x)
+    caches["pos"] = pos + 1
+    return logits, caches
