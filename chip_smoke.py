@@ -10,19 +10,28 @@ and the script exits non-zero:
 
 1. device   the card (``nvidia-smi`` name and power limit), CUDA and torch
             versions; TF32 is switched off for matmul and cuDNN;
-2. build    compiles the CUDA kernels from ``kernels/csrc`` with nvcc;
-3. matmul   K2 against ``matmul_ref`` at the serving path's shapes, bf16
-            and f32, with kernel, plain, library (``torch.matmul``, a
-            yardstick only) and bound times;
-4. flash    K1 against ``flash_attention_ref`` over GQA, causal, window,
-            ragged and right-aligned cases, with the same times (library:
-            ``scaled_dot_product_attention``);
-5. serve    the slice at full width: qwen3-0.6b (28 layers, d 1024, vocab
-            153,600) in bf16 serving 8 staggered requests; every stream
-            must equal ``reference_generate``, and both kernels must have
-            launched the expected number of times;
-6. parity   reduced qwen3-0.6b in fp32 on the card and on the CPU, same
-            seed: the greedy streams must be equal.
+2. build    compiles the CUDA kernels from ``kernels/csrc`` with nvcc, one
+            process per source, all started together;
+3. matmul   K2 against ``matmul_ref`` at the shapes of both served paths
+            (qwen3-0.6b and olmoe-1b-7b), bf16 and f32, with kernel, plain,
+            library (``torch.matmul``, a yardstick only) and bound times;
+4. flash    K1 against ``flash_attention_ref`` over GQA, MHA, causal,
+            window, ragged and right-aligned cases, with the same times
+            (library: ``scaled_dot_product_attention``);
+5. moe_ffn  K3 against ``moe_ffn_ref`` at the olmoe shapes (C = 1, 4, 37,
+            40), small ragged shapes, and with per-expert row counts that
+            leave experts empty, bf16 and f32;
+6. serve    qwen3-0.6b at full width (28 layers, d 1024, vocab 153,600) in
+            bf16 serving 8 staggered requests; every stream must equal
+            ``reference_generate``, and K1 and K2 must have launched
+            exactly the expected number of times;
+7. serve_olmoe  olmoe-1b-7b at full width (16 layers, d 2048, 64 experts
+            top-8, untied head over vocab 51,200) in bf16 serving 6
+            staggered requests, with the same checks for K1, K2 and K3;
+            then K3 timed on the inputs the path gave it;
+8. parity   reduced qwen3-0.6b and olmoe-1b-7b in fp32 on the card and on
+            the CPU, with weights drawn once: the greedy streams must be
+            equal.
 
 Then a ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.  The full record is also written to
@@ -50,9 +59,13 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # tolerances of tests/test_kernels.py (matmul :41, flash attention :72, :75)
 MATMUL_TOL = {"float32": 2e-3, "bfloat16": 2e-2}
 FLASH_TOL = {"float32": 3e-4, "bfloat16": 3e-2}
+# tolerances of tests/test_kernels.py (moe_ffn :189 f32, :202 bf16)
+MOE_TOL = {"float32": 3e-4, "bfloat16": 5e-2}
 
-# the serving run of phase 5: qwen3-0.6b at full width
-BATCH, MAX_LEN, PREFILL_LEN, MAX_NEW = 4, 512, 256, 32
+# the serving runs of phases 6 and 7 at full width: batch 4 keeps every
+# decode-time capacity at its floor of 4 (no token is dropped), so the
+# engine's olmoe streams can equal the batch-1 reference
+BATCH, MAX_LEN, PREFILL_LEN, MAX_NEW, MOE_MAX_NEW = 4, 512, 256, 32, 16
 
 RECORD = {"phases": []}
 
@@ -119,13 +132,20 @@ def max_violation(got, want, tol):
     return float((err - (tol + tol * w.abs())).max()), float(err.max())
 
 
+def to_device(tree, device):
+    """A nested dict of tensors, copied to ``device``."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
 def profile_decode(torch, eng, dev, steps=5):
     """Decode executions of the live engine, each ended by a sync: their
     host wall time without the profiler, then their device time by kernel
-    family under torch.profiler (K2, K1, PyTorch's own kernels).  The idle
-    share is one minus the profiled device time over the unprofiled wall
-    time of a step; under the profiler the wall time grows, so its own
-    idle share is given apart.  None where the profiler saw no device
+    family under torch.profiler (K2, K1, K3, PyTorch's own kernels).  The
+    idle share is one minus the profiled device time over the unprofiled
+    wall time of a step; under the profiler the wall time grows, so its
+    own idle share is given apart.  None where the profiler saw no device
     time."""
     from torch.profiler import ProfilerActivity, profile
     tokens = torch.zeros((eng.batch, 1), dtype=torch.int32, device=dev)
@@ -148,7 +168,7 @@ def profile_decode(torch, eng, dev, steps=5):
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     fam = {"matmul_kernel": 0.0, "flash_attention_kernel": 0.0,
-           "torch": 0.0}
+           "moe_ffn_kernel": 0.0, "torch": 0.0}
     n_kernels = 0
     for e in prof.key_averages():
         if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
@@ -167,6 +187,7 @@ def profile_decode(torch, eng, dev, steps=5):
             "device_ms_per_step": busy / steps,
             "matmul_ms_per_step": fam["matmul_kernel"] / steps,
             "flash_ms_per_step": fam["flash_attention_kernel"] / steps,
+            "moe_ffn_ms_per_step": fam["moe_ffn_kernel"] / steps,
             "torch_ms_per_step": fam["torch"] / steps,
             "kernels_per_step": n_kernels / steps,
             "idle_share": max(0.0, 1.0 - busy / steps / wall_unprofiled),
@@ -190,6 +211,7 @@ def main():
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_ref)
     from repro_torch.kernels.matmul import matmul, matmul_ref
+    from repro_torch.kernels.moe_dispatch import moe_ffn, moe_ffn_ref
 
     dev = torch.device("cuda")
     dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -235,8 +257,28 @@ def main():
     per_layer = [((d_model, heads * hd), 1), ((d_model, kv_heads * hd), 2),
                  ((heads * hd, d_model), 1), ((d_model, d_ff), 2),
                  ((d_ff, d_model), 1)]
-    proj = sorted({kn for kn, _ in per_layer})
     per_step = n_layers * sum(c for _, c in per_layer) + 1
+    # olmoe-1b-7b: wq, wk, wv (MHA) and wo of (d, d), the router (d, E);
+    # the expert FFN is K3's; the untied head is a row-major (d, vocab)
+    moe = registry.get_config("olmoe-1b-7b")
+    moe_d, moe_hd = moe.d_model, moe.resolved_head_dim
+    moe_vocab = moe.padded_vocab
+    moe_layer = [((moe_d, moe.n_heads * moe_hd), 1),
+                 ((moe_d, moe.n_kv_heads * moe_hd), 2),
+                 ((moe.n_heads * moe_hd, moe_d), 1),
+                 ((moe_d, moe.n_experts), 1)]
+    moe_per_step = moe.n_layers * sum(c for _, c in moe_layer) + 1
+    # (K, N, head kind) per M: qwen3's at four batch sizes, olmoe's at the
+    # two its path runs (decode batch, one admission)
+    cases = []
+    for m in (BATCH, 1, PREFILL_LEN, 37):
+        cases += [(m, k, n, None) for k, n in sorted({kn for kn, _ in
+                                                      per_layer})]
+        cases.append((m, d_model, vocab, "tied"))
+    for m in (BATCH, PREFILL_LEN):
+        cases += [(m, k, n, None) for k, n in sorted({kn for kn, _ in
+                                                      moe_layer})]
+        cases.append((m, moe_d, moe_vocab, "untied"))
     mm = {}
     with phase("matmul") as out:
         checks = []
@@ -244,48 +286,50 @@ def main():
                  for name, dt in dtypes.items()}
         for dname, dt in dtypes.items():
             tol = MATMUL_TOL[dname]
-            for m in (BATCH, 1, PREFILL_LEN, 37):
-                for k, n in proj + [(d_model, vocab)]:
-                    head = n == vocab
-                    # outputs of unit scale against the tolerance: the
-                    # head's input is a final-norm output (unit scale) and
-                    # its table is drawn at 0.02; the projections' weights
-                    # are unit normal
-                    x = randn((m, k), dt, 1.0 if head else 1.0 / math.sqrt(k))
-                    w = table[dname].t() if head else randn((k, n), dt)
-                    got = matmul(x, w)
-                    want = matmul_ref(x, w)
-                    torch.cuda.synchronize()
-                    viol, err = max_violation(got, want, tol)
-                    if viol > 0:
-                        raise AssertionError(
-                            f"matmul {dname} M={m} K={k} N={n}: max err "
-                            f"{err} exceeds tol {tol}")
-                    # rotate weight copies past the 50 MB L2 so each call
-                    # streams its weights from memory, as a decode step does
-                    nbytes_w = k * n * x.element_size()
-                    copies = [w] + [w.clone() for _ in range(
-                        min(63, (128 << 20) // nbytes_w))] if not head else [w]
-                    it = {"i": 0}
+            for m, k, n, head in cases:
+                # outputs of unit scale against the tolerance: a head's
+                # input is a final-norm output (unit scale) and its table
+                # is drawn at 0.02; the projections' weights are unit normal
+                x = randn((m, k), dt, 1.0 / math.sqrt(k) if head is None
+                          else 1.0)
+                if head == "tied":
+                    w = table[dname].t()
+                else:
+                    w = randn((k, n), dt, 1.0 if head is None else 0.02)
+                got = matmul(x, w)
+                want = matmul_ref(x, w)
+                torch.cuda.synchronize()
+                viol, err = max_violation(got, want, tol)
+                if viol > 0:
+                    raise AssertionError(
+                        f"matmul {dname} M={m} K={k} N={n}: max err "
+                        f"{err} exceeds tol {tol}")
+                # rotate weight copies past the 50 MB L2 so each call
+                # streams its weights from memory, as a decode step does
+                nbytes_w = k * n * x.element_size()
+                copies = [w] + [w.clone() for _ in range(
+                    min(63, (128 << 20) // nbytes_w))] if head is None \
+                    else [w]
+                it = {"i": 0}
 
-                    def nxt():
-                        it["i"] += 1
-                        return copies[it["i"] % len(copies)]
+                def nxt():
+                    it["i"] += 1
+                    return copies[it["i"] % len(copies)]
 
-                    ms = cuda_ms(torch, lambda: matmul(x, nxt()))
-                    plain = cuda_ms(torch, lambda: matmul_ref(x, nxt()))
-                    lib = cuda_ms(torch, lambda: torch.matmul(x, nxt()))
-                    del copies
-                    b_ms, b_by = bound_ms(
-                        (m * k + k * n + m * n) * x.element_size(),
-                        2 * m * n * k, dname)
-                    row = {"dtype": dname, "M": m, "K": k, "N": n,
-                           "tied_head": head, "max_abs_err": err,
-                           "tol": tol, "ms": ms, "plain_ms": plain,
-                           "library_ms": lib, "bound_ms": b_ms,
-                           "bound_by": b_by}
-                    checks.append(row)
-                    mm[(dname, m, k, n)] = row
+                ms = cuda_ms(torch, lambda: matmul(x, nxt()))
+                plain = cuda_ms(torch, lambda: matmul_ref(x, nxt()))
+                lib = cuda_ms(torch, lambda: torch.matmul(x, nxt()))
+                del copies, w
+                b_ms, b_by = bound_ms(
+                    (m * k + k * n + m * n) * x.element_size(),
+                    2 * m * n * k, dname)
+                row = {"dtype": dname, "M": m, "K": k, "N": n,
+                       "head": head, "max_abs_err": err,
+                       "tol": tol, "ms": ms, "plain_ms": plain,
+                       "library_ms": lib, "bound_ms": b_ms,
+                       "bound_by": b_by}
+                checks.append(row)
+                mm[(dname, m, k, n)] = row
         del table
         out["detail"] = checks
         out["checks"] = len(checks)
@@ -293,15 +337,16 @@ def main():
         for c in checks:
             emit({"matmul": {key: (round(v, 5) if isinstance(v, float)
                                    else v) for key, v in c.items()}})
+    matmul_err = out["max_abs_err"]
 
-    def k2_aggregate(dname, m):
-        """K2 numbers for one serving pass at batch rows ``m``: the 7
-        products of each layer plus the tied head."""
+    def k2_aggregate(dname, m, layer_products, layers, head):
+        """K2 numbers for one serving pass at batch rows ``m``: each
+        layer's products, ``layers`` times, plus the head's (K, N)."""
         agg = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                "bound_ms": 0.0}
         nbytes = flops = 0
-        for (k, n), c in per_layer + [((d_model, vocab), None)]:
-            times = n_layers * c if c is not None else 1
+        for (k, n), c in layer_products + [(head, None)]:
+            times = layers * c if c is not None else 1
             row = mm[(dname, m, k, n)]
             for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
                 agg[key] += times * row[key]
@@ -315,7 +360,8 @@ def main():
     with phase("flash_attention") as out:
         checks = []
         cases = []
-        for h, kv, d in ((heads, kv_heads, hd), (4, 2, 16)):
+        for h, kv, d in ((heads, kv_heads, hd),
+                         (moe.n_heads, moe.n_kv_heads, moe_hd), (4, 2, 16)):
             for causal, window in ((True, 0), (True, 64)):
                 for sq, sk in ((PREFILL_LEN, PREFILL_LEN), (200, 200),
                                (37, PREFILL_LEN)):
@@ -341,15 +387,20 @@ def main():
                        "causal": causal, "window": window, "Sq": sq,
                        "Sk": sk, "max_abs_err": err, "tol": tol}
                 checks.append(row)
-        # times at the path's shape: one layer's prefill of one admission
-        kv, d, s = kv_heads, hd, PREFILL_LEN
-        for dname, dt in dtypes.items():
-            q = randn((heads, s, d), dt)
+        # times at the paths' shapes: one layer's prefill of one admission
+        # (bf16 and f32 for qwen3, bf16 for olmoe)
+        d, s = hd, PREFILL_LEN
+        for key, dname, heads_, kv in (
+                ("bfloat16", "bfloat16", heads, kv_heads),
+                ("float32", "float32", heads, kv_heads),
+                ("olmoe", "bfloat16", moe.n_heads, moe.n_kv_heads)):
+            dt = dtypes[dname]
+            q = randn((heads_, s, d), dt)
             k = randn((kv, s, d), dt)
             v = randn((kv, s, d), dt)
-            qs = q.reshape(1, heads, s, d)
-            ks = k.repeat_interleave(heads // kv, 0).reshape(1, heads, s, d)
-            vs = v.repeat_interleave(heads // kv, 0).reshape(1, heads, s, d)
+            qs = q.reshape(1, heads_, s, d)
+            ks = k.repeat_interleave(heads_ // kv, 0).reshape(1, heads_, s, d)
+            vs = v.repeat_interleave(heads_ // kv, 0).reshape(1, heads_, s, d)
             ms = cuda_ms(torch, lambda: flash_attention(q, k, v), iters=50)
             plain = cuda_ms(torch, lambda: flash_attention_ref(q, k, v),
                             iters=50)
@@ -358,13 +409,13 @@ def main():
                                                         is_causal=True),
                           iters=50)
             pairs = s * (s + 1) // 2
-            b_ms, b_by = bound_ms((2 * heads + 2 * kv) * s * d
+            b_ms, b_by = bound_ms((2 * heads_ + 2 * kv) * s * d
                                   * q.element_size(),
-                                  4 * d * pairs * heads, dname)
-            fa[dname] = {"dtype": dname, "H": heads, "Hk": kv, "D": d,
-                         "S": s, "causal": True, "ms": ms, "plain_ms": plain,
-                         "library_ms": lib, "bound_ms": b_ms,
-                         "bound_by": b_by}
+                                  4 * d * pairs * heads_, dname)
+            fa[key] = {"dtype": dname, "H": heads_, "Hk": kv, "D": d,
+                       "S": s, "causal": True, "ms": ms, "plain_ms": plain,
+                       "library_ms": lib, "bound_ms": b_ms,
+                       "bound_by": b_by}
         out["detail"] = checks
         out["checks"] = len(checks)
         out["max_abs_err"] = max(c["max_abs_err"] for c in checks)
@@ -372,29 +423,84 @@ def main():
         for c in checks:
             emit({"flash_attention": {key: (round(v, 6) if isinstance(
                 v, float) else v) for key, v in c.items()}})
+    flash_err = out["max_abs_err"]
 
-    # -- 5. the slice at full width ----------------------------------------
+    # -- 5. K3 moe_ffn ---------------------------------------------------
+    moe_e, moe_f = moe.n_experts, moe.d_ff
+    cgen = torch.Generator(device=dev).manual_seed(0)
+
+    def crandn(shape, dtype, scale=1.0):
+        """Drawn on the card: the olmoe expert stacks are 0.4-1.6 GB."""
+        return (torch.randn(shape, generator=cgen, device=dev)
+                * scale).to(dtype)
+
+    with phase("moe_ffn") as out:
+        checks = []
+        groups = [((moe_e, moe_d, moe_f), (1, BATCH, 37, 40)),
+                  ((3, 96, 80), (5,)), ((2, 33, 17), (20,)),
+                  ((5, 40, 24), (3,))]
+        for dname, dt in dtypes.items():
+            tol = MOE_TOL[dname]
+            for (e, d, f), cs in groups:
+                w1 = crandn((e, d, f), dt, d ** -0.5)
+                w3 = crandn((e, d, f), dt, d ** -0.5)
+                w2 = crandn((e, f, d), dt, f ** -0.5)
+                for c in cs:
+                    buf = crandn((e, c, d), dt)
+                    # row counts: every other expert empty, the rest filled
+                    # to a random depth; rows past the count are zero, as
+                    # the dispatch leaves them
+                    cnt = torch.randint(0, c + 1, (e,), generator=gen,
+                                        dtype=torch.int32)
+                    cnt[::2] = 0
+                    cnt = cnt.to(dev)
+                    live = torch.arange(c, device=dev)[None] < cnt[:, None]
+                    for counts, b in ((None, buf),
+                                      (cnt, buf * live[..., None].to(dt))):
+                        got = moe_ffn(b, w1, w3, w2, counts)
+                        want = moe_ffn_ref(b, w1, w3, w2, counts)
+                        torch.cuda.synchronize()
+                        viol, err = max_violation(got, want, tol)
+                        if viol > 0:
+                            raise AssertionError(
+                                f"moe_ffn {dname} E={e} C={c} d={d} f={f} "
+                                f"counts={counts is not None}: max err "
+                                f"{err} exceeds tol {tol}")
+                        checks.append({"dtype": dname, "E": e, "C": c,
+                                       "d": d, "f": f,
+                                       "counts": counts is not None,
+                                       "max_abs_err": err, "tol": tol})
+                del w1, w3, w2
+        out["detail"] = checks
+        out["checks"] = len(checks)
+        out["max_abs_err"] = max(c["max_abs_err"] for c in checks)
+        for c in checks:
+            emit({"moe_ffn": {key: (round(v, 6) if isinstance(v, float)
+                                    else v) for key, v in c.items()}})
+    k3_err = out["max_abs_err"]
+
+    # -- 6, 7. the served paths at full width --------------------------------
     from repro_torch.engine_config import EngineConfig
     from repro_torch.launch.serve import ServingEngine
     from repro_torch.models import transformer
 
-    launches = {}
-    with phase("serve") as out:
+    def serve_full(out, arch, plens, arrivals, max_new, per_pass):
+        """Serve staggered requests through one full-width bf16 engine;
+        hold every stream against ``reference_generate`` and the kernel
+        launches of the run against ``per_pass``: {kernel: (per decode
+        step, per admission)}.  Returns the engine and the launches."""
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        eng = ServingEngine("qwen3-0.6b", EngineConfig(
+        eng = ServingEngine(arch, EngineConfig(
             reduced=False, batch=BATCH, max_len=MAX_LEN,
             prefill_len=PREFILL_LEN, clock="step", seed=0), device="cuda")
-        cfg = eng.cfg
-        assert (cfg.n_layers, cfg.d_model, cfg.padded_vocab) == \
-            (28, 1024, 153_600), cfg
-        assert eng.params["embed"].dtype == torch.bfloat16
+        torch.cuda.synchronize()
         boot_s = time.perf_counter() - t0
+        cfg = eng.cfg
+        assert eng.params["embed"].dtype == torch.bfloat16
         rng = np.random.default_rng(0)
-        plens = [16, 200, 57, 120, 31, 180, 90, 140]
-        arrivals = [0, 0, 0, 0, 3, 9, 20, 40]
         reqs = [eng.submit(rng.integers(1, cfg.vocab_size, size=p),
-                           max_new=MAX_NEW, arrival_time=a)
+                           max_new=max_new, arrival_time=a)
                 for p, a in zip(plens, arrivals)]
         ops.reset_launch_counts()
         stats = eng.run()
@@ -403,12 +509,11 @@ def main():
         assert stats["requests"] == len(reqs), stats
         assert stats["refill_admissions"] >= 1, stats
         admissions = stats["admitted"]
-        k2_want = per_step * (stats["decode_steps"] + admissions)
-        k1_want = n_layers * admissions
-        if launches["matmul"] != k2_want or \
-                launches["flash_attention"] != k1_want:
+        want = {name: step * stats["decode_steps"] + adm * admissions
+                for name, (step, adm) in per_pass.items()}
+        if launches != want:
             raise AssertionError(f"kernel launches {launches}, expected "
-                                 f"matmul {k2_want}, flash {k1_want}")
+                                 f"{want}")
         mism = []
         for r in reqs:
             ref = eng.reference_generate(r.prompt, r.max_new)
@@ -416,18 +521,19 @@ def main():
                 mism.append({"rid": r.rid, "engine": r.generated,
                              "reference": ref})
         if mism:
-            RECORD["stream_mismatch"] = mism
+            RECORD.setdefault("stream_mismatch", {})[arch] = mism
             raise AssertionError(f"{len(mism)} of {len(reqs)} streams differ "
                                  f"from reference_generate: {mism[0]}")
         # what comes out is finite and of the expected shape
+        pad = [0] * (PREFILL_LEN - reqs[0].prompt_len)
         tokens = torch.from_numpy(np.asarray(
-            [reqs[0].prompt.tolist() + [0] * (PREFILL_LEN - reqs[0].prompt_len)],
-            np.int32)).to(dev)
+            [reqs[0].prompt.tolist() + pad], np.int32)).to(dev)
         logits, _ = transformer.forward(
             cfg, eng.params, tokens, mode="prefill",
             caches=transformer.init_cache(cfg, 1, MAX_LEN, device=dev),
             lengths=torch.tensor([reqs[0].prompt_len]))
-        assert logits.shape == (1, PREFILL_LEN, vocab), logits.shape
+        assert logits.shape == (1, PREFILL_LEN, cfg.padded_vocab), \
+            logits.shape
         assert bool(logits.isfinite().all()), "non-finite logits"
         first = int(torch.argmax(
             logits[0, reqs[0].prompt_len - 1, :cfg.vocab_size].float()))
@@ -435,81 +541,205 @@ def main():
         # one admission (prefill_slot of a 200-token prompt) on the host
         # clock with a sync, and where the device time of decode goes
         long = next(r for r in reqs if r.prompt_len == 200)
-        tokens = torch.zeros((1, PREFILL_LEN), dtype=torch.int32)
-        tokens[0, :200] = torch.from_numpy(long.prompt)
-        tokens = tokens.to(dev)
+        long_tokens = torch.zeros((1, PREFILL_LEN), dtype=torch.int32)
+        long_tokens[0, :200] = torch.from_numpy(long.prompt)
+        long_tokens = long_tokens.to(dev)
         admit_ms = []
         for _ in range(4):
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            eng.programs["prefill_slot"](eng.params, eng.caches, tokens, 0,
-                                         200)
+            eng.programs["prefill_slot"](eng.params, eng.caches, long_tokens,
+                                         0, 200)
             torch.cuda.synchronize()
             admit_ms.append(1e3 * (time.perf_counter() - t1))
         profile = profile_decode(torch, eng, dev)
         out.update(
-            admission_ms=sorted(admit_ms[1:])[1], profile=profile)
-        out.update(
-            model="qwen3-0.6b", dtype="bfloat16", layers=cfg.n_layers,
+            model=arch, dtype="bfloat16", layers=cfg.n_layers,
             d_model=cfg.d_model, padded_vocab=cfg.padded_vocab,
             batch=BATCH, max_len=MAX_LEN, prefill_len=PREFILL_LEN,
-            requests=len(reqs), prompt_lens=plens, max_new=MAX_NEW,
-            boot_s=round(boot_s, 3),
+            requests=len(reqs), prompt_lens=plens, arrivals=arrivals,
+            max_new=max_new, boot_s=round(boot_s, 3),
             tok_per_s=stats["tok_per_s"], ttft_ms=stats["ttft_ms"],
             decode_p50_ms=stats["decode_p50_ms"], wall_s=stats["wall_s"],
             tokens=stats["tokens"], decode_steps=stats["decode_steps"],
             admitted=admissions,
             refill_admissions=stats["refill_admissions"],
             occupancy=stats["occupancy"], launches=launches,
-            matmul_per_decode_step=per_step,
-            flash_attention_per_admission=n_layers,
+            launches_per_pass=per_pass,
+            admission_ms=sorted(admit_ms[1:])[1], profile=profile,
             peak_mem_gib=round(peak / 2 ** 30, 3),
             streams_equal_reference=True, card=smi)
+        return eng, long_tokens, launches
+
+    path_launches = {}
+    with phase("serve") as out:
+        eng, _, path_launches["qwen3-0.6b"] = serve_full(
+            out, "qwen3-0.6b", [16, 200, 57, 120, 31, 180, 90, 140],
+            [0, 0, 0, 0, 3, 9, 20, 40], MAX_NEW,
+            {"matmul": (per_step, per_step),
+             "flash_attention": (0, n_layers), "moe_ffn": (0, 0)})
+        assert (eng.cfg.n_layers, eng.cfg.d_model, eng.cfg.padded_vocab) == \
+            (28, 1024, 153_600), eng.cfg
         del eng
 
-    # -- 6. card against CPU -----------------------------------------------
-    with phase("parity") as out:
-        streams = {}
-        for device in ("cuda", "cpu"):
-            eng = ServingEngine("qwen3-0.6b", EngineConfig(
-                reduced=True, batch=2, max_len=64, clock="step", seed=7),
-                device=device)
-            rng = np.random.default_rng(1)
-            reqs = [eng.submit(rng.integers(1, eng.cfg.vocab_size, size=p),
-                               max_new=n, arrival_time=a)
-                    for p, n, a in ((5, 12, 0), (17, 20, 0), (9, 16, 3))]
-            eng.run()
-            streams[device] = [r.generated for r in reqs]
-        if streams["cuda"] != streams["cpu"]:
-            raise AssertionError(f"card and CPU streams differ: {streams}")
-        out.update(dtype="float32", streams=len(streams["cuda"]),
-                   tokens=sum(len(s) for s in streams["cuda"]), equal=True)
+    k3 = {}
+    with phase("serve_olmoe") as out:
+        eng, long_tokens, path_launches["olmoe-1b-7b"] = serve_full(
+            out, "olmoe-1b-7b", [16, 200, 57, 120, 31, 180],
+            [0, 0, 0, 2, 3, 9], MOE_MAX_NEW,
+            {"matmul": (moe_per_step, moe_per_step),
+             "flash_attention": (0, moe.n_layers),
+             "moe_ffn": (moe.n_layers, moe.n_layers)})
+        cfg = eng.cfg
+        assert (cfg.n_layers, cfg.d_model, cfg.n_experts,
+                cfg.experts_per_token, cfg.padded_vocab) == \
+            (16, 2048, 64, 8, 51_200), cfg
+        assert "lm_head" in eng.params and not cfg.tie_embeddings
+        # K3 on the inputs the path gives it: record every call of one
+        # decode step (C = 4) and one admission (C = 40), then time each
+        # set cycling through its 16 layers, so every call streams its
+        # own layer's experts from memory as the path does
+        real = ops.moe_ffn
+        seen = []
 
-    k2 = k2_aggregate("bfloat16", BATCH)
-    k2_prefill = k2_aggregate("bfloat16", PREFILL_LEN)
+        def record(*args):
+            seen.append(args)
+            return real(*args)
+
+        ops.moe_ffn = record
+        try:
+            eng.programs["decode"](
+                eng.params, eng.caches,
+                torch.zeros((BATCH, 1), dtype=torch.int32, device=dev))
+            n_dec = len(seen)
+            eng.programs["prefill_slot"](eng.params, eng.caches,
+                                         long_tokens, 0, 200)
+        finally:
+            ops.moe_ffn = real
+        torch.cuda.synchronize()
+        for name, calls in (("decode", seen[:n_dec]),
+                            ("admission", seen[n_dec:])):
+            assert len(calls) == moe.n_layers, len(calls)
+            it = {"i": 0}
+
+            def nxt():
+                it["i"] += 1
+                return calls[it["i"] % len(calls)]
+
+            def bmm3(buf, w1, w3, w2, counts):
+                h = torch.nn.functional.silu(torch.bmm(buf, w1)) \
+                    * torch.bmm(buf, w3)
+                return torch.bmm(h, w2)
+
+            ms = cuda_ms(torch, lambda: moe_ffn(*nxt()), iters=32)
+            plain = cuda_ms(torch, lambda: moe_ffn_ref(*nxt()), iters=32)
+            yard = cuda_ms(torch, lambda: bmm3(*nxt()), iters=32)
+            nbytes = flops = 0
+            live_experts = rows = 0
+            for buf, w1, _, _, counts in calls:
+                e, c, d = buf.shape
+                f = w1.shape[2]
+                n_live = int((counts > 0).sum())
+                n_rows = int(counts.sum())
+                live_experts += n_live
+                rows += n_rows
+                nbytes += 2 * e * c * d * 2 + n_live * 3 * d * f * 2 + e * 4
+                flops += 6 * n_rows * d * f
+            b_ms, b_by = bound_ms(nbytes / len(calls), flops / len(calls),
+                                  "bfloat16")
+            k3[name] = {"dtype": "bfloat16", "E": e, "C": c, "d": d, "f": f,
+                        "live_experts_per_call": live_experts / len(calls),
+                        "rows_per_call": rows / len(calls),
+                        "ms": ms, "plain_ms": plain,
+                        "yardstick_bmm_ms": yard, "bound_ms": b_ms,
+                        "bound_by": b_by}
+        out["k3_timed"] = k3
+        del eng, seen, calls
+
+    # -- 8. card against CPU -----------------------------------------------
+    with phase("parity") as out:
+        equal = {}
+        for arch in ("qwen3-0.6b", "olmoe-1b-7b"):
+            config = EngineConfig(reduced=True, batch=2, max_len=64,
+                                  clock="step")
+            # drawn once on the CPU: the card's generator draws other bits
+            params = transformer.init_params(
+                registry.get_config(arch, reduced=True), 7)
+            streams = {}
+            for device in ("cuda", "cpu"):
+                eng = ServingEngine(arch, config, device=device,
+                                    params=to_device(params, device))
+                rng = np.random.default_rng(1)
+                reqs = [eng.submit(rng.integers(1, eng.cfg.vocab_size,
+                                                size=p),
+                                   max_new=n, arrival_time=a)
+                        for p, n, a in ((5, 12, 0), (17, 20, 0), (9, 16, 3))]
+                eng.run()
+                streams[device] = [r.generated for r in reqs]
+            if streams["cuda"] != streams["cpu"]:
+                raise AssertionError(f"{arch}: card and CPU streams differ: "
+                                     f"{streams}")
+            equal[arch] = sum(len(s) for s in streams["cuda"])
+        out.update(dtype="float32", streams=3, tokens=equal, equal=True)
+
+    def total(name):
+        return sum(path[name] for path in path_launches.values())
+
+    def by_path(name):
+        return {arch: path[name] for arch, path in path_launches.items()}
+
+    k2 = k2_aggregate("bfloat16", BATCH, per_layer, n_layers,
+                      (d_model, vocab))
+    k2_prefill = k2_aggregate("bfloat16", PREFILL_LEN, per_layer, n_layers,
+                              (d_model, vocab))
+    k2_moe = k2_aggregate("bfloat16", BATCH, moe_layer, moe.n_layers,
+                          (moe_d, moe_vocab))
+    k2_moe_prefill = k2_aggregate("bfloat16", PREFILL_LEN, moe_layer,
+                                  moe.n_layers, (moe_d, moe_vocab))
     kernels = [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:84",
-         "launches": launches["flash_attention"],
-         "max_abs_err": RECORD["phases"][3]["max_abs_err"],
+         "launches": total("flash_attention"),
+         "launches_by_path": by_path("flash_attention"),
+         "max_abs_err": flash_err,
          "ms": fa["bfloat16"]["ms"], "plain_ms": fa["bfloat16"]["plain_ms"],
          "bound_ms": fa["bfloat16"]["bound_ms"],
          "bound_by": fa["bfloat16"]["bound_by"],
          "library_ms": fa["bfloat16"]["library_ms"],
          "per": f"one call: bf16 causal prefill S={PREFILL_LEN}, "
-                f"H={heads}, Hk={kv_heads}, D={hd}"},
+                f"H={heads}, Hk={kv_heads}, D={hd}",
+         "olmoe": fa["olmoe"]},
         {"name": "matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/matmul.cu",
          "replaces": "src/repro/kernels/matmul.py:33",
-         "launches": launches["matmul"],
-         "max_abs_err": RECORD["phases"][2]["max_abs_err"],
+         "launches": total("matmul"),
+         "launches_by_path": by_path("matmul"),
+         "max_abs_err": matmul_err,
          "ms": k2["ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
          "library_ms": k2["library_ms"],
-         "per": f"one decode step: bf16 M={BATCH}, {n_layers}x7 "
-                "projections + tied head",
-         "prefill_per_admission": k2_prefill},
+         "per": f"one qwen3-0.6b decode step: bf16 M={BATCH}, "
+                f"{n_layers}x7 projections + tied head",
+         "prefill_per_admission": k2_prefill,
+         "olmoe_per_decode_step": k2_moe,
+         "olmoe_prefill_per_admission": k2_moe_prefill},
+        {"name": "moe_ffn", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/moe_ffn.cu",
+         "replaces": "src/repro/kernels/moe_dispatch.py:38",
+         "launches": total("moe_ffn"),
+         "launches_by_path": by_path("moe_ffn"),
+         "max_abs_err": k3_err,
+         "ms": k3["decode"]["ms"], "plain_ms": k3["decode"]["plain_ms"],
+         "bound_ms": k3["decode"]["bound_ms"],
+         "bound_by": k3["decode"]["bound_by"],
+         "library_ms": None,
+         "yardstick_bmm_ms": k3["decode"]["yardstick_bmm_ms"],
+         "per": f"one call at olmoe-1b-7b decode: bf16 E={moe_e}, "
+                f"C={k3['decode']['C']}, d={moe_d}, f={moe_f}, the path's "
+                f"own inputs ({k3['decode']['live_experts_per_call']} live "
+                "experts per call)",
+         "admission": k3["admission"]},
     ]
     RECORD["kernels"] = kernels
     _write_record()

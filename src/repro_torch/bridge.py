@@ -1,14 +1,16 @@
 """Carry weights and caches between the reference and the port.
 
 Trees travel as nested dicts of numpy arrays with the reference's key
-paths: parameters ``embed``, ``final_norm`` and
-``groups/slot0/{mix/{ln,wq,wk,wv,wo,q_norm,k_norm},ffn_ln,mlp/{w_gate,w_up,
-w_down}}`` with the layer on the leading axis; caches ``pos`` and
-``groups/slot0/{k,v}``.  bfloat16 arrives as a numpy array whose
-``dtype.name == "bfloat16"`` (numpy has no such type of its own): its bytes
-are viewed as 16-bit integers and reinterpreted by torch, so the round trip
-is bit-exact.  Going back, bfloat16 leaves come out as ``uint16`` bit
-patterns.
+paths: parameters ``embed``, ``final_norm``, ``lm_head`` (untied heads
+only) and ``groups/slot0/{mix/{ln,wq,wk,wv,wo,q_norm,k_norm},ffn_ln,
+mlp/{w_gate,w_up,w_down}}``, or ``moe/{router,w_gate,w_up,w_down}`` in
+place of ``mlp`` for the MoE family, with the layer on the leading axis;
+caches ``pos`` and ``groups/slot0/{k,v}``.  The expected keys and shapes
+are ``transformer.abstract_params`` and ``abstract_cache``.  bfloat16
+arrives as a numpy array whose ``dtype.name == "bfloat16"`` (numpy has no
+such type of its own): its bytes are viewed as 16-bit integers and
+reinterpreted by torch, so the round trip is bit-exact.  Going back,
+bfloat16 leaves come out as ``uint16`` bit patterns.
 """
 from __future__ import annotations
 

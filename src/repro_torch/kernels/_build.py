@@ -142,6 +142,8 @@ def _bind(cdll: ctypes.CDLL):
     cdll.repro_flash_attention.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
                                            i, p]
     cdll.repro_flash_attention.restype = i
+    cdll.repro_moe_ffn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
+    cdll.repro_moe_ffn.restype = i
 
 
 def check(err: int, what: str):

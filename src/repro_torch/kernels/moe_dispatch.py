@@ -1,0 +1,95 @@
+"""K3: the grouped expert FFN of every MoE layer.
+
+``moe_ffn(buf, w1, w3, w2)`` replaces the Pallas kernel
+``repro/kernels/moe_dispatch.py:moe_ffn`` with the CUDA C++ kernel in
+``csrc/moe_ffn.cu`` (its header says what bounds it and how it keeps each
+token's result independent of the batch).  buf is (E, C, d), w1 and w3 are
+(E, d, f), w2 is (E, f, d); the result is (E, C, d) in buf's dtype.
+``counts`` (optional, (E,) int32) gives each expert's live rows: rows at
+or past ``counts[e]`` come out as zeros and the kernel reads no weights
+for an expert without rows.  CPU tensors take :func:`moe_ffn_ref`; CUDA
+tensors launch the kernel or raise (also where one block's shared memory
+cannot hold the hidden: (32 + f) x 16 rows of fp32 must fit in 227 KB, so
+f <= 3,600).  ``moe_ffn.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import _build
+
+
+def moe_ffn_ref(buf: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
+                w2: torch.Tensor,
+                counts: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain version with the Pallas kernel's numerics
+    (``repro/kernels/moe_dispatch.py:_kernel``): fp32 products, silu and
+    gating in fp32, the hidden cast to buf's dtype before the w2 product,
+    which accumulates in fp32 again."""
+    x = buf.float()
+    g = torch.matmul(x, w1.float())
+    u = torch.matmul(x, w3.float())
+    h = (F.silu(g) * u).to(buf.dtype)
+    out = torch.matmul(h.float(), w2.float()).to(buf.dtype)
+    if counts is not None:
+        rows = torch.arange(buf.shape[1], device=buf.device)
+        live = rows[None, :] < counts.to(buf.device)[:, None]
+        out = torch.where(live[..., None], out, torch.zeros_like(out))
+    return out
+
+
+def _check(buf, w1, w3, w2, counts):
+    if buf.dim() != 3 or w1.dim() != 3 or w3.dim() != 3 or w2.dim() != 3:
+        raise ValueError(f"moe_ffn takes buf (E,C,d), w1/w3 (E,d,f) and w2 "
+                         f"(E,f,d); got ranks {buf.dim()}, {w1.dim()}, "
+                         f"{w3.dim()}, {w2.dim()}")
+    e, _, d = buf.shape
+    f = w1.shape[2]
+    if tuple(w1.shape) != (e, d, f) or tuple(w3.shape) != (e, d, f) or \
+            tuple(w2.shape) != (e, f, d):
+        raise ValueError(f"moe_ffn shapes differ in E, d or f: buf "
+                         f"{tuple(buf.shape)}, w1 {tuple(w1.shape)}, w3 "
+                         f"{tuple(w3.shape)}, w2 {tuple(w2.shape)}")
+    if not (buf.dtype == w1.dtype == w3.dtype == w2.dtype) or \
+            buf.dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"moe_ffn takes float32 or bfloat16 operands of one "
+                        f"dtype, got {buf.dtype}, {w1.dtype}, {w3.dtype}, "
+                        f"{w2.dtype}")
+    if not (buf.device == w1.device == w3.device == w2.device):
+        raise ValueError("moe_ffn operands on different devices")
+    if not all(t.is_contiguous() for t in (buf, w1, w3, w2)):
+        raise ValueError("moe_ffn needs contiguous buf, w1, w3 and w2")
+    if counts is not None and (counts.shape != (e,) or
+                               counts.dtype != torch.int32 or
+                               counts.device != buf.device):
+        raise ValueError(f"moe_ffn counts must be ({e},) int32 on "
+                         f"{buf.device}, got {tuple(counts.shape)} "
+                         f"{counts.dtype} on {counts.device}")
+
+
+def moe_ffn(buf: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
+            w2: torch.Tensor,
+            counts: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(E,C,d) routed token rows -> (E,C,d) expert SwiGLU outputs."""
+    _check(buf, w1, w3, w2, counts)
+    if buf.device.type == "cpu":
+        return moe_ffn_ref(buf, w1, w3, w2, counts)
+    if buf.device.type != "cuda":
+        raise ValueError(f"moe_ffn has no route for device {buf.device}")
+    e, c, d = buf.shape
+    f = w1.shape[2]
+    lib = _build.library()
+    out = torch.empty_like(buf)
+    err = lib.repro_moe_ffn(
+        buf.data_ptr(), w1.data_ptr(), w3.data_ptr(), w2.data_ptr(),
+        counts.data_ptr() if counts is not None else None, out.data_ptr(),
+        e, c, d, f, _build.DTYPE_CODES[buf.dtype], _build.stream_handle())
+    _build.check(err, "moe_ffn")
+    moe_ffn.launches += 1
+    return out
+
+
+moe_ffn.launches = 0

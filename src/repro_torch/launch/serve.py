@@ -10,9 +10,12 @@ telemetry (TTFT, decode latency, occupancy) goes through the numbered
 hostcall table.
 
 Exactness: admission is per slot (a batch-1 prefill copied into the live
-cache) and K2 sums K in a fixed order whatever the number of rows, so every
-request's greedy stream equals a batch-of-1 decode of the same prompt
+cache), K2 and K3 sum in a fixed order whatever the number of rows, and
+the MoE routing and combine work row by row, so every request's greedy
+stream equals a batch-of-1 decode of the same prompt
 (:meth:`ServingEngine.reference_generate`), on the CPU and on the card.
+For MoE archs this holds while no decode step drops a token: a batch of at
+most 4 keeps the decode capacity at its floor of 4, as in the reference.
 
 The engine runs on the card unless asked otherwise: ``device=None`` means
 ``"cuda"``, and a missing card is an error, never a quiet move to the CPU.
@@ -347,7 +350,8 @@ class ServingEngine:
 def main(argv=None):
     ap = argparse.ArgumentParser(
         description="Serve random prompts through the port's engine.")
-    ap.add_argument("--arch", default="qwen3-0.6b")
+    ap.add_argument("--arch", default="qwen3-0.6b",
+                    choices=registry.PORTED_ARCHS)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=16)

@@ -93,9 +93,10 @@ def init_params(shapes, generator: torch.Generator, dtype: torch.dtype,
     """Nested dict of shape tuples -> tensors, with the distribution of the
     reference's ``materialize``: leaves of rank <= 1 are zeros; others are
     normal * fan_in ** -0.5 with fan_in = shape[-2] (so layer-stacked norm
-    scales of shape (L, d) are drawn too).  Drawn in fp32 on the CPU from
-    ``generator`` in sorted key order, so one seed gives the same weights on
-    every device, then cast and moved."""
+    scales of shape (L, d) are drawn too).  Drawn in fp32 on ``device``
+    from ``generator`` (a generator of that device) in sorted key order,
+    one leading-axis slice at a time into the leaf, so a layer-stacked
+    expert leaf never exists whole in fp32 nor on the host."""
     if isinstance(shapes, dict):
         return {k: init_params(shapes[k], generator, dtype, device)
                 for k in sorted(shapes)}
@@ -103,5 +104,8 @@ def init_params(shapes, generator: torch.Generator, dtype: torch.dtype,
     if len(shape) <= 1:
         return torch.zeros(shape, dtype=dtype, device=device)
     std = 1.0 / (shape[-2] ** 0.5)
-    t = torch.randn(shape, generator=generator, dtype=torch.float32) * std
-    return t.to(dtype=dtype).to(device)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for piece in (out if len(shape) >= 3 else (out,)):
+        piece.copy_(torch.randn(piece.shape, generator=generator,
+                                dtype=torch.float32, device=device) * std)
+    return out

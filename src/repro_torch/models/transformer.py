@@ -1,4 +1,5 @@
-"""Decoder-only language model, "G" (global attention) layers
+"""Decoder-only language model, "G" (global attention) layers with a
+SwiGLU MLP or a mixture of experts, and a tied or untied LM head
 (port of ``repro/models/transformer.py``).
 
 Parameter and cache trees keep the reference's nested-dict layout and key
@@ -19,6 +20,7 @@ import torch
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (apply_embedding, apply_lm_head,
                                        apply_mlp, apply_rmsnorm, apply_rope,
                                        linear, torch_dtype)
@@ -35,10 +37,6 @@ def check_supported(cfg):
         raise NotImplementedError(
             "encoder-decoder models are not ported yet (ROADMAP Queue 1 "
             "item 8.6)")
-    if cfg.family == "moe" or cfg.n_experts:
-        raise NotImplementedError(
-            "MoE layers are not ported yet (ROADMAP Queue 1 item 8.2, "
-            "kernel K3)")
     if cfg.frontend != "none":
         raise NotImplementedError(
             "frontend prefix embeddings are not ported yet (ROADMAP Queue 1 "
@@ -47,10 +45,6 @@ def check_supported(cfg):
         raise NotImplementedError(
             "scaled embeddings (gemma) are not ported yet (ROADMAP Queue 1 "
             "item 8.1)")
-    if not cfg.tie_embeddings:
-        raise NotImplementedError(
-            "an untied LM head is not ported yet (ROADMAP Queue 1 item 2: "
-            "the other dense configs)")
     if cfg.decode_cache_heads not in (0, cfg.n_kv_heads):
         raise NotImplementedError(
             "decode_cache_heads folding belongs to tensor-parallel serving "
@@ -97,8 +91,11 @@ def layer_shapes(cfg) -> Params:
     if cfg.d_ff > 0:
         d = cfg.d_model
         p["ffn_ln"] = (d,)
-        p["mlp"] = {"w_gate": (d, cfg.d_ff), "w_up": (d, cfg.d_ff),
-                    "w_down": (cfg.d_ff, d)}
+        if cfg.family == "moe":
+            p["moe"] = moe_mod.moe_shapes(cfg)
+        else:
+            p["mlp"] = {"w_gate": (d, cfg.d_ff), "w_up": (d, cfg.d_ff),
+                        "w_down": (cfg.d_ff, d)}
     return p
 
 
@@ -107,12 +104,15 @@ def abstract_params(cfg) -> Params:
     check_supported(cfg)
     unit, n_groups, tail = split_layers(cfg)
     group = {f"slot{i}": layer_shapes(cfg) for i, _ in enumerate(unit)}
-    return {
+    params = {
         "embed": (cfg.padded_vocab, cfg.d_model),
         "groups": _stack(group, n_groups),
         "tail": {f"tail{i}": layer_shapes(cfg) for i, _ in enumerate(tail)},
         "final_norm": (cfg.d_model,),
     }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = (cfg.d_model, cfg.padded_vocab)
+    return params
 
 
 def _attn_cache_shape(cfg, batch: int, cache_len: int):
@@ -137,10 +137,13 @@ def abstract_cache(cfg, batch: int, cache_len: int) -> Params:
 
 
 def init_params(cfg, seed: int = 0, *, device="cpu") -> Params:
-    """Random weights with the reference's distribution, in ``cfg.dtype``.
-    One seed gives the same weights on every device."""
+    """Random weights with the reference's distribution, in ``cfg.dtype``,
+    drawn on ``device`` by its own generator: one seed gives the same
+    weights on one kind of device, but the card's draw differs from the
+    CPU's.  To hold the two against each other, draw once and move."""
+    device = torch.device(device)
     return layers.init_params(abstract_params(cfg),
-                              torch.Generator().manual_seed(seed),
+                              torch.Generator(device).manual_seed(seed),
                               torch_dtype(cfg.dtype), device)
 
 
@@ -239,7 +242,11 @@ def apply_layer(cfg, kind: str, p: Params, x, *, mode: str, cache, pos):
                                pos=pos)
     if cfg.d_ff > 0:
         xn = apply_rmsnorm(p["ffn_ln"], x, cfg.norm_eps)
-        x = x + apply_mlp(p["mlp"], xn)
+        if cfg.family == "moe":
+            out, _ = moe_mod.apply_moe(cfg, p["moe"], xn)  # aux: training
+        else:
+            out = apply_mlp(p["mlp"], xn)
+        x = x + out
     return x, new_cache
 
 
@@ -269,7 +276,9 @@ def _run_stack(cfg, params, x, *, mode: str, caches, pos):
 
 def logits_from_hidden(cfg, params, x):
     x = apply_rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return apply_lm_head(params["embed"], x, transpose=True)   # tied head
+    if cfg.tie_embeddings:
+        return apply_lm_head(params["embed"], x, transpose=True)
+    return apply_lm_head(params["lm_head"], x)
 
 
 def forward(cfg, params, tokens, *, mode: str = "prefill", caches=None,

@@ -1,5 +1,6 @@
 """Serving step functions: the programs the Syscore hot-loads
-(port of the dense serving part of ``repro/steps.py``).
+(port of the dense-cache serving part of ``repro/steps.py``; dense and
+MoE archs share it).
 
 Each program works on the live cache tree in place and returns it, so the
 engine's call sites read as the reference's: ``caches, out = prog(...)``.
@@ -56,7 +57,7 @@ def make_serve_step(cfg):
 
 
 def serve_program_specs(cfg, config) -> Dict[str, ProgramSpec]:
-    """The dense serving programs for an :class:`EngineConfig`:
+    """The serving programs for an :class:`EngineConfig`:
     ``prefill_slot`` (one admission into a live batch) and ``decode`` (one
     greedy token for every slot)."""
     return {

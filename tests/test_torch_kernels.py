@@ -117,7 +117,13 @@ def test_wrappers_send_cpu_tensors_to_plain_version():
         (2, 8, 16)))
     assert torch.equal(ops.flash_attention(q, k, k),
                        ops.flash_attention_ref(q, k, k))
-    assert ops.launch_counts() == {"matmul": 0, "flash_attention": 0}
+    buf, w = _t(rng.standard_normal((2, 3, 16))), _t(rng.standard_normal(
+        (2, 16, 8)))
+    assert torch.equal(ops.moe_ffn(buf, w, w, w.transpose(1, 2).contiguous()),
+                       ops.moe_ffn_ref(buf, w, w,
+                                       w.transpose(1, 2).contiguous()))
+    assert ops.launch_counts() == {"matmul": 0, "flash_attention": 0,
+                                   "moe_ffn": 0}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
