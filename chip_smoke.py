@@ -12,26 +12,37 @@ and the script exits non-zero:
             versions; TF32 is switched off for matmul and cuDNN;
 2. build    compiles the CUDA kernels from ``kernels/csrc`` with nvcc, one
             process per source, all started together;
-3. matmul   K2 against ``matmul_ref`` at the shapes of both served paths
-            (qwen3-0.6b and olmoe-1b-7b), bf16 and f32, with kernel, plain,
-            library (``torch.matmul``, a yardstick only) and bound times;
+3. matmul   K2 against ``matmul_ref`` at the shapes of the served paths
+            (qwen3-0.6b, olmoe-1b-7b and mamba2-130m), bf16 and f32, with
+            kernel, plain, library (``torch.matmul``, a yardstick only) and
+            bound times;
 4. flash    K1 against ``flash_attention_ref`` over GQA, MHA, causal,
             window, ragged and right-aligned cases, with the same times
             (library: ``scaled_dot_product_attention``);
 5. moe_ffn  K3 against ``moe_ffn_ref`` at the olmoe shapes (C = 1, 4, 37,
             40), small ragged shapes, and with per-expert row counts that
             leave experts empty, bf16 and f32;
-6. serve    qwen3-0.6b at full width (28 layers, d 1024, vocab 153,600) in
+6. ssd_scan K4 against ``ssd_scan_ref`` at the mamba2 shape (B 1, S 256,
+            H 24, P 64, N 128), at B 2, at ragged S (1, 37, 129, 200, the
+            first two below one chunk), from a non-zero state h0 and at
+            small ragged P and N, bf16 and f32, on strided views as the
+            layer passes them; y and the final state are both compared;
+            then one call timed at the mamba2 shape (library: none, no
+            single PyTorch call computes the scan);
+7. serve    qwen3-0.6b at full width (28 layers, d 1024, vocab 153,600) in
             bf16 serving 8 staggered requests; every stream must equal
-            ``reference_generate``, and K1 and K2 must have launched
+            ``reference_generate``, and every kernel must have launched
             exactly the expected number of times;
-7. serve_olmoe  olmoe-1b-7b at full width (16 layers, d 2048, 64 experts
+8. serve_olmoe  olmoe-1b-7b at full width (16 layers, d 2048, 64 experts
             top-8, untied head over vocab 51,200) in bf16 serving 6
             staggered requests, with the same checks for K1, K2 and K3;
             then K3 timed on the inputs the path gave it;
-8. parity   reduced qwen3-0.6b and olmoe-1b-7b in fp32 on the card and on
-            the CPU, with weights drawn once: the greedy streams must be
-            equal.
+9. serve_mamba2  mamba2-130m at full width (24 SSM layers, d 768, N 128,
+            untied head over vocab 51,200) in bf16 serving 8 staggered
+            requests, with the same checks for K2 and K4;
+10. parity  reduced qwen3-0.6b, olmoe-1b-7b and mamba2-130m in fp32 on the
+            card and on the CPU, with weights drawn once: the greedy
+            streams must be equal.
 
 Then a ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.  The full record is also written to
@@ -41,6 +52,7 @@ the repository, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import os
@@ -61,8 +73,11 @@ MATMUL_TOL = {"float32": 2e-3, "bfloat16": 2e-2}
 FLASH_TOL = {"float32": 3e-4, "bfloat16": 3e-2}
 # tolerances of tests/test_kernels.py (moe_ffn :189 f32, :202 bf16)
 MOE_TOL = {"float32": 3e-4, "bfloat16": 5e-2}
+# the SSD tolerance of tests/test_kernels.py:132 in f32; in bf16 the
+# loosest of that file (:202)
+SSD_TOL = {"float32": 3e-3, "bfloat16": 5e-2}
 
-# the serving runs of phases 6 and 7 at full width: batch 4 keeps every
+# the serving runs of phases 7-9 at full width: batch 4 keeps every
 # decode-time capacity at its floor of 4 (no token is dropped), so the
 # engine's olmoe streams can equal the batch-1 reference
 BATCH, MAX_LEN, PREFILL_LEN, MAX_NEW, MOE_MAX_NEW = 4, 512, 256, 32, 16
@@ -142,7 +157,7 @@ def to_device(tree, device):
 def profile_decode(torch, eng, dev, steps=5):
     """Decode executions of the live engine, each ended by a sync: their
     host wall time without the profiler, then their device time by kernel
-    family under torch.profiler (K2, K1, K3, PyTorch's own kernels).  The
+    family under torch.profiler (K2, K1, K3, K4, PyTorch's own kernels).  The
     idle share is one minus the profiled device time over the unprofiled
     wall time of a step; under the profiler the wall time grows, so its
     own idle share is given apart.  None where the profiler saw no device
@@ -168,7 +183,7 @@ def profile_decode(torch, eng, dev, steps=5):
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     fam = {"matmul_kernel": 0.0, "flash_attention_kernel": 0.0,
-           "moe_ffn_kernel": 0.0, "torch": 0.0}
+           "moe_ffn_kernel": 0.0, "ssd_scan_kernel": 0.0, "torch": 0.0}
     n_kernels = 0
     for e in prof.key_averages():
         if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
@@ -188,6 +203,7 @@ def profile_decode(torch, eng, dev, steps=5):
             "matmul_ms_per_step": fam["matmul_kernel"] / steps,
             "flash_ms_per_step": fam["flash_attention_kernel"] / steps,
             "moe_ffn_ms_per_step": fam["moe_ffn_kernel"] / steps,
+            "ssd_scan_ms_per_step": fam["ssd_scan_kernel"] / steps,
             "torch_ms_per_step": fam["torch"] / steps,
             "kernels_per_step": n_kernels / steps,
             "idle_share": max(0.0, 1.0 - busy / steps / wall_unprofiled),
@@ -212,6 +228,7 @@ def main():
                                                      flash_attention_ref)
     from repro_torch.kernels.matmul import matmul, matmul_ref
     from repro_torch.kernels.moe_dispatch import moe_ffn, moe_ffn_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
 
     dev = torch.device("cuda")
     dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -268,17 +285,28 @@ def main():
                  ((moe.n_heads * moe_hd, moe_d), 1),
                  ((moe_d, moe.n_experts), 1)]
     moe_per_step = moe.n_layers * sum(c for _, c in moe_layer) + 1
-    # (K, N, head kind) per M: qwen3's at four batch sizes, olmoe's at the
-    # two its path runs (decode batch, one admission)
+    # mamba2-130m: w_in (d, 2 d_inner + 2 N + H) and w_out (d_inner, d);
+    # the scan is K4's; the untied head is a row-major (d, vocab)
+    ssm = registry.get_config("mamba2-130m")
+    ssm_d, ssm_vocab = ssm.d_model, ssm.padded_vocab
+    ssm_inner = ssm.ssm_expand * ssm_d
+    ssm_heads = ssm_inner // ssm.ssm_head_dim
+    ssm_layer = [((ssm_d, 2 * ssm_inner + 2 * ssm.ssm_state + ssm_heads), 1),
+                 ((ssm_inner, ssm_d), 1)]
+    ssm_per_step = ssm.n_layers * sum(c for _, c in ssm_layer) + 1
+    # (K, N, head kind) per M: qwen3's at four batch sizes, olmoe's and
+    # mamba2's at the two their paths run (decode batch, one admission)
     cases = []
     for m in (BATCH, 1, PREFILL_LEN, 37):
         cases += [(m, k, n, None) for k, n in sorted({kn for kn, _ in
                                                       per_layer})]
         cases.append((m, d_model, vocab, "tied"))
     for m in (BATCH, PREFILL_LEN):
-        cases += [(m, k, n, None) for k, n in sorted({kn for kn, _ in
-                                                      moe_layer})]
-        cases.append((m, moe_d, moe_vocab, "untied"))
+        for layer, d, v in ((moe_layer, moe_d, moe_vocab),
+                            (ssm_layer, ssm_d, ssm_vocab)):
+            cases += [(m, k, n, None) for k, n in sorted({kn for kn, _ in
+                                                          layer})]
+            cases.append((m, d, v, "untied"))
     mm = {}
     with phase("matmul") as out:
         checks = []
@@ -479,7 +507,96 @@ def main():
                                     else v) for key, v in c.items()}})
     k3_err = out["max_abs_err"]
 
-    # -- 6, 7. the served paths at full width --------------------------------
+    # -- 6. K4 ssd_scan --------------------------------------------------
+    def ssd_inputs(bsz, s, h, p, n, dt_, with_h0):
+        """x, b and c as strided views of one (B, S, H*P + 2N) tensor, as
+        the layer's conv output hands them over; dt post-softplus and a
+        negative in fp32 (scales of tests/test_kernels.py:123-128)."""
+        conv = randn((bsz, s, h * p + 2 * n), torch.float32)
+        conv[..., :h * p] *= 0.5
+        conv[..., h * p:] *= 0.3
+        conv = conv.to(dt_)
+        x = conv[..., :h * p].reshape(bsz, s, h, p)
+        b, c = conv[..., h * p:h * p + n], conv[..., h * p + n:]
+        dtv = torch.nn.functional.softplus(randn((bsz, s, h), torch.float32))
+        a = -torch.exp(randn((h,), torch.float32, 0.3))
+        h0 = randn((bsz, h, p, n), torch.float32, 0.5) if with_h0 else None
+        return x, dtv, a, b, c, h0
+
+    ssd_h, ssd_p = ssm_heads, ssm.ssm_head_dim
+    ssd_n = ssm.ssm_state
+    k4 = {}
+    with phase("ssd_scan") as out:
+        checks = []
+        # (B, S, H, P, N, chunk, h0): the mamba2 admission and its batch-2
+        # form, ragged S (1 and 37 below one chunk, 129 and 200 over), a
+        # non-zero state, small ragged P and N
+        cases = [(1, PREFILL_LEN, ssd_h, ssd_p, ssd_n, 128, False),
+                 (1, PREFILL_LEN, ssd_h, ssd_p, ssd_n, 128, True),
+                 (2, PREFILL_LEN, ssd_h, ssd_p, ssd_n, 128, True)]
+        cases += [(1, s, ssd_h, ssd_p, ssd_n, 128, True)
+                  for s in (1, 37, 129, 200)]
+        cases += [(2, 100, 3, 24, 40, 32, True), (3, 50, 2, 5, 7, 16, False),
+                  (1, 70, 2, 17, 130, 64, True)]
+        for dname, dt_ in dtypes.items():
+            tol = SSD_TOL[dname]
+            for bsz, s, h, p, n, chunk, with_h0 in cases:
+                args = ssd_inputs(bsz, s, h, p, n, dt_, with_h0)
+                got = ssd_scan(*args, chunk=chunk)
+                want = ssd_scan_ref(*args, chunk=chunk)
+                torch.cuda.synchronize()
+                errs = []
+                for what, g, w in zip(("y", "h_final"), got, want):
+                    viol, err = max_violation(g, w, tol)
+                    if viol > 0:
+                        raise AssertionError(
+                            f"ssd_scan {dname} B={bsz} S={s} H={h} P={p} "
+                            f"N={n} chunk={chunk} h0={with_h0}: {what} max "
+                            f"err {err} exceeds tol {tol}")
+                    errs.append(err)
+                checks.append({"dtype": dname, "B": bsz, "S": s, "H": h,
+                               "P": p, "N": n, "chunk": chunk,
+                               "h0": with_h0, "max_abs_err": max(errs),
+                               "y_err": errs[0], "h_final_err": errs[1],
+                               "tol": tol})
+        # one call at the mamba2 admission shape, from a state as the
+        # layer passes one
+        bsz, s, q = 1, PREFILL_LEN, 128
+        for dname in ("bfloat16", "float32"):
+            args = ssd_inputs(bsz, s, ssd_h, ssd_p, ssd_n, dtypes[dname],
+                              True)
+            ms = cuda_ms(torch, lambda: ssd_scan(*args, chunk=q), iters=50)
+            plain = cuda_ms(torch, lambda: ssd_scan_ref(*args, chunk=q),
+                            iters=20)
+            esize = args[0].element_size()
+            state = bsz * ssd_h * ssd_p * ssd_n * 4
+            nbytes = (2 * bsz * s * ssd_h * ssd_p * esize      # x, y
+                      + 2 * bsz * s * ssd_n * esize            # b, c
+                      + bsz * s * ssd_h * 4 + ssd_h * 4        # dt, a
+                      + 2 * state)                             # h0, h_final
+            flops = 0
+            for s0 in range(0, s, q):
+                c_len = min(q, s - s0)
+                tri = c_len * (c_len + 1) // 2
+                # C.B^T once per chunk; per head att.x, C.h^T and the
+                # state update
+                flops += bsz * (2 * tri * ssd_n + ssd_h * (
+                    2 * tri * ssd_p + 4 * c_len * ssd_p * ssd_n))
+            b_ms, b_by = bound_ms(nbytes, flops, dname)
+            k4[dname] = {"dtype": dname, "B": bsz, "S": s, "H": ssd_h,
+                         "P": ssd_p, "N": ssd_n, "chunk": q, "ms": ms,
+                         "plain_ms": plain, "bound_ms": b_ms,
+                         "bound_by": b_by, "bytes": nbytes, "flops": flops}
+        out["detail"] = checks
+        out["checks"] = len(checks)
+        out["max_abs_err"] = max(c["max_abs_err"] for c in checks)
+        out["timed"] = k4
+        for c in checks:
+            emit({"ssd_scan": {key: (round(v, 6) if isinstance(v, float)
+                                     else v) for key, v in c.items()}})
+    k4_err = out["max_abs_err"]
+
+    # -- 7-9. the served paths at full width ---------------------------------
     from repro_torch.engine_config import EngineConfig
     from repro_torch.launch.serve import ServingEngine
     from repro_torch.models import transformer
@@ -489,6 +606,8 @@ def main():
         hold every stream against ``reference_generate`` and the kernel
         launches of the run against ``per_pass``: {kernel: (per decode
         step, per admission)}.  Returns the engine and the launches."""
+        gc.collect()          # an earlier phase's engine may sit in a cycle
+        base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         eng = ServingEngine(arch, EngineConfig(
@@ -568,6 +687,7 @@ def main():
             launches_per_pass=per_pass,
             admission_ms=sorted(admit_ms[1:])[1], profile=profile,
             peak_mem_gib=round(peak / 2 ** 30, 3),
+            mem_at_start_gib=round(base / 2 ** 30, 3),
             streams_equal_reference=True, card=smi)
         return eng, long_tokens, launches
 
@@ -577,7 +697,8 @@ def main():
             out, "qwen3-0.6b", [16, 200, 57, 120, 31, 180, 90, 140],
             [0, 0, 0, 0, 3, 9, 20, 40], MAX_NEW,
             {"matmul": (per_step, per_step),
-             "flash_attention": (0, n_layers), "moe_ffn": (0, 0)})
+             "flash_attention": (0, n_layers), "moe_ffn": (0, 0),
+             "ssd_scan": (0, 0)})
         assert (eng.cfg.n_layers, eng.cfg.d_model, eng.cfg.padded_vocab) == \
             (28, 1024, 153_600), eng.cfg
         del eng
@@ -589,7 +710,7 @@ def main():
             [0, 0, 0, 2, 3, 9], MOE_MAX_NEW,
             {"matmul": (moe_per_step, moe_per_step),
              "flash_attention": (0, moe.n_layers),
-             "moe_ffn": (moe.n_layers, moe.n_layers)})
+             "moe_ffn": (moe.n_layers, moe.n_layers), "ssd_scan": (0, 0)})
         cfg = eng.cfg
         assert (cfg.n_layers, cfg.d_model, cfg.n_experts,
                 cfg.experts_per_token, cfg.padded_vocab) == \
@@ -654,12 +775,79 @@ def main():
                         "yardstick_bmm_ms": yard, "bound_ms": b_ms,
                         "bound_by": b_by}
         out["k3_timed"] = k3
-        del eng, seen, calls
+        # the loop names hold views of the expert stacks (GBs) past the phase
+        del eng, seen, calls, buf, w1, _
 
-    # -- 8. card against CPU -----------------------------------------------
+    with phase("serve_mamba2") as out:
+        # the engine decodes at batch 4, its reference at batch 1: the
+        # plain decode reductions must give a row the same bits at both
+        from repro_torch.models import layers, ssm as ssm_mod
+
+        def mean_rmsnorm(scale, x, eps):
+            """RMSNorm over a plain ``torch.mean``: recorded, not used."""
+            x32 = x.float()
+            x32 = x32 * torch.rsqrt(torch.mean(x32 * x32, -1, keepdim=True)
+                                    + eps)
+            return (x32 * (1.0 + scale.float())).to(x.dtype)
+
+        rows, plain_mean = {}, {}
+        for d in (ssm_d, d_model, ssm_inner, moe_d):
+            for dname, dt_ in dtypes.items():
+                # rows of a batch-4 norm that differ from the row alone,
+                # over 64 random batches: the port's norm and a plain mean
+                differ = {"port": 0, "torch_mean": 0}
+                for _ in range(64):
+                    x = randn((BATCH, 1, d), dt_)
+                    sc = randn((d,), dt_, 0.1)
+                    for key, fn in (("port", layers.apply_rmsnorm),
+                                    ("torch_mean", mean_rmsnorm)):
+                        full_b = fn(sc, x, 1e-6)
+                        differ[key] += sum(
+                            not torch.equal(full_b[i:i + 1],
+                                            fn(sc, x[i:i + 1], 1e-6))
+                            for i in range(BATCH))
+                rows[f"rmsnorm_{d}_{dname}"] = differ["port"] == 0
+                plain_mean[f"{d}_{dname}"] = differ["torch_mean"]
+        out["torch_mean_rows_differing_of_256"] = plain_mean
+        dec = [randn((BATCH, 1, ssd_h, ssd_p), torch.bfloat16),
+               torch.nn.functional.softplus(randn((BATCH, 1, ssd_h),
+                                                  torch.float32)),
+               -torch.exp(randn((ssd_h,), torch.float32, 0.3)),
+               randn((BATCH, 1, ssd_n), torch.bfloat16),
+               randn((BATCH, 1, ssd_n), torch.bfloat16),
+               randn((ssd_h,), torch.float32),
+               randn((BATCH, ssd_h, ssd_p, ssd_n), torch.float32)]
+        y4, h4 = ssm_mod.ssd_decode(*dec)
+        rows["ssd_decode"] = all(
+            torch.equal(y4[i:i + 1], y1) and torch.equal(h4[i:i + 1], h1)
+            for i in range(BATCH)
+            for y1, h1 in [ssm_mod.ssd_decode(
+                *[t if t.dim() == 1 else t[i:i + 1] for t in dec])])
+        out["batch_invariant"] = rows
+        if not all(rows.values()):
+            raise AssertionError(f"decode ops differ between batch "
+                                 f"{BATCH} and 1: {rows}")
+        # K4 runs once per layer at each admission; decode is the plain
+        # one-token update, so K4 launches nowhere else
+        eng, _, path_launches["mamba2-130m"] = serve_full(
+            out, "mamba2-130m", [16, 200, 57, 120, 31, 180, 90, 140],
+            [0, 0, 0, 0, 3, 9, 20, 40], MAX_NEW,
+            {"matmul": (ssm_per_step, ssm_per_step),
+             "flash_attention": (0, 0), "moe_ffn": (0, 0),
+             "ssd_scan": (0, ssm.n_layers)})
+        cfg = eng.cfg
+        assert (cfg.n_layers, cfg.d_model, cfg.padded_vocab,
+                cfg.tie_embeddings) == (24, 768, 51_200, False), cfg
+        assert "lm_head" in eng.params
+        layer0 = eng.caches["groups"]["slot0"]
+        assert layer0["state"].dtype == torch.float32
+        assert layer0["conv"].dtype == torch.bfloat16
+        del eng, layer0
+
+    # -- 10. card against CPU ----------------------------------------------
     with phase("parity") as out:
         equal = {}
-        for arch in ("qwen3-0.6b", "olmoe-1b-7b"):
+        for arch in ("qwen3-0.6b", "olmoe-1b-7b", "mamba2-130m"):
             config = EngineConfig(reduced=True, batch=2, max_len=64,
                                   clock="step")
             # drawn once on the CPU: the card's generator draws other bits
@@ -696,6 +884,10 @@ def main():
                           (moe_d, moe_vocab))
     k2_moe_prefill = k2_aggregate("bfloat16", PREFILL_LEN, moe_layer,
                                   moe.n_layers, (moe_d, moe_vocab))
+    k2_ssm = k2_aggregate("bfloat16", BATCH, ssm_layer, ssm.n_layers,
+                          (ssm_d, ssm_vocab))
+    k2_ssm_prefill = k2_aggregate("bfloat16", PREFILL_LEN, ssm_layer,
+                                  ssm.n_layers, (ssm_d, ssm_vocab))
     kernels = [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -723,7 +915,9 @@ def main():
                 f"{n_layers}x7 projections + tied head",
          "prefill_per_admission": k2_prefill,
          "olmoe_per_decode_step": k2_moe,
-         "olmoe_prefill_per_admission": k2_moe_prefill},
+         "olmoe_prefill_per_admission": k2_moe_prefill,
+         "mamba2_per_decode_step": k2_ssm,
+         "mamba2_prefill_per_admission": k2_ssm_prefill},
         {"name": "moe_ffn", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/moe_ffn.cu",
          "replaces": "src/repro/kernels/moe_dispatch.py:38",
@@ -740,6 +934,21 @@ def main():
                 f"own inputs ({k3['decode']['live_experts_per_call']} live "
                 "experts per call)",
          "admission": k3["admission"]},
+        {"name": "ssd_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+         "replaces": "src/repro/kernels/ssd_scan.py:65",
+         "launches": total("ssd_scan"),
+         "launches_by_path": by_path("ssd_scan"),
+         "max_abs_err": k4_err,
+         "ms": k4["bfloat16"]["ms"], "plain_ms": k4["bfloat16"]["plain_ms"],
+         "bound_ms": k4["bfloat16"]["bound_ms"],
+         "bound_by": k4["bfloat16"]["bound_by"],
+         "library_ms": None,
+         "library": "none: no single PyTorch call computes the SSD scan",
+         "per": f"one call at mamba2-130m admission: bf16 B=1, "
+                f"S={PREFILL_LEN} in chunks of 128, H={ssd_h}, P={ssd_p}, "
+                f"N={ssd_n}, from a state h0",
+         "float32": k4["float32"]},
     ]
     RECORD["kernels"] = kernels
     _write_record()

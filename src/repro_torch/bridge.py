@@ -4,13 +4,19 @@ Trees travel as nested dicts of numpy arrays with the reference's key
 paths: parameters ``embed``, ``final_norm``, ``lm_head`` (untied heads
 only) and ``groups/slot0/{mix/{ln,wq,wk,wv,wo,q_norm,k_norm},ffn_ln,
 mlp/{w_gate,w_up,w_down}}``, or ``moe/{router,w_gate,w_up,w_down}`` in
-place of ``mlp`` for the MoE family, with the layer on the leading axis;
-caches ``pos`` and ``groups/slot0/{k,v}``.  The expected keys and shapes
-are ``transformer.abstract_params`` and ``abstract_cache``.  bfloat16
-arrives as a numpy array whose ``dtype.name == "bfloat16"`` (numpy has no
-such type of its own): its bytes are viewed as 16-bit integers and
-reinterpreted by torch, so the round trip is bit-exact.  Going back,
-bfloat16 leaves come out as ``uint16`` bit patterns.
+place of ``mlp`` for the MoE family, or ``mix/{ln,w_in,conv_w,conv_b,
+a_log,d_skip,dt_bias,out_ln,w_out}`` for the SSM family, with the layer on
+the leading axis; caches ``pos`` and ``groups/slot0/{k,v}``, or
+``groups/slot0/{conv,state}`` for the SSM family.  The expected keys,
+shapes and dtypes are ``transformer.abstract_params`` and
+``abstract_cache``: a leaf that pins its dtype (the SSM's fp32
+``a_log``, ``d_skip``, ``dt_bias`` and ``state``, the int32 ``pos``) must
+arrive in it, and every other leaf in the tree's one model dtype, float32
+or bfloat16.  bfloat16 arrives as a numpy array whose
+``dtype.name == "bfloat16"`` (numpy has no such type of its own): its
+bytes are viewed as 16-bit integers and reinterpreted by torch, so the
+round trip is bit-exact.  Going back, bfloat16 leaves come out as
+``uint16`` bit patterns.
 """
 from __future__ import annotations
 
@@ -46,18 +52,33 @@ def to_numpy(tree) -> Any:
     return t.numpy()
 
 
-def _check_shapes(tree, shapes, path=""):
+def _check_shapes(tree, shapes, path="", model_dtypes=None):
+    """Keys, shapes and dtypes of a numpy tree against a :class:`Leaf`
+    tree (see the module docstring)."""
+    top = model_dtypes is None
+    model_dtypes = set() if top else model_dtypes
     if isinstance(shapes, dict):
         if not isinstance(tree, dict) or set(tree) != set(shapes):
             got = sorted(tree) if isinstance(tree, dict) else type(tree)
             raise ValueError(f"tree at {path or '/'} has keys {got}, "
                              f"expected {sorted(shapes)}")
         for k in shapes:
-            _check_shapes(tree[k], shapes[k], f"{path}/{k}")
-        return
-    if tuple(tree.shape) != tuple(shapes):
-        raise ValueError(f"leaf {path} has shape {tuple(tree.shape)}, "
-                         f"expected {tuple(shapes)}")
+            _check_shapes(tree[k], shapes[k], f"{path}/{k}", model_dtypes)
+    else:
+        if tuple(tree.shape) != shapes.shape:
+            raise ValueError(f"leaf {path} has shape {tuple(tree.shape)}, "
+                             f"expected {shapes.shape}")
+        got = np.asarray(tree).dtype.name
+        if shapes.dtype is None:
+            model_dtypes.add(got)
+        elif got != str(shapes.dtype).replace("torch.", ""):
+            raise ValueError(f"leaf {path} has dtype {got}, expected "
+                             f"{shapes.dtype}")
+    if top and (len(model_dtypes) > 1 or
+                not model_dtypes <= {"float32", "bfloat16"}):
+        raise ValueError(f"the tree's model-dtype leaves must share one "
+                         f"dtype, float32 or bfloat16: got "
+                         f"{sorted(model_dtypes)}")
 
 
 def params_from_numpy(tree, cfg, device) -> dict:

@@ -144,6 +144,9 @@ def _bind(cdll: ctypes.CDLL):
     cdll.repro_flash_attention.restype = i
     cdll.repro_moe_ffn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
     cdll.repro_moe_ffn.restype = i
+    cdll.repro_ssd_scan.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i,
+                                    ll, ll, ll, ll, ll, ll, ll, ll, ll, i, p]
+    cdll.repro_ssd_scan.restype = i
 
 
 def check(err: int, what: str):

@@ -5,7 +5,7 @@ Every matrix product goes through K2 (``kernels.ops.matmul``).
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -21,17 +21,40 @@ def torch_dtype(name: str) -> torch.dtype:
     return DTYPES[name]
 
 
+class Leaf(NamedTuple):
+    """One leaf of a parameter or cache shape tree: its shape, and its
+    dtype where the leaf pins one (the SSM's fp32 decay parameters and
+    state, the int32 positions); ``None`` is the model's ``cfg.dtype``."""
+    shape: Tuple[int, ...]
+    dtype: Optional[torch.dtype] = None
+
+
 # ---------------------------------------------------------------------------
 # norms and rotary embeddings
 # ---------------------------------------------------------------------------
+
+def mean_last(x: torch.Tensor) -> torch.Tensor:
+    """Mean over the last axis (kept), added in an order that does not
+    depend on how many rows the tensor has.
+
+    PyTorch's CUDA reduction chooses its thread split from the number of
+    outputs while there are fewer than 16, so a plain mean over one row of
+    a batch-1 decode and the same row in a batch-4 decode add in different
+    orders.  Where 16 divides the width, as in every served config, each
+    row is averaged here as 16 pieces first: at least 16 outputs per
+    reduction, whatever the batch, so one fixed split."""
+    d = x.shape[-1]
+    if d % 16 == 0:
+        x = x.reshape(*x.shape[:-1], 16, d // 16).mean(-1)
+    return x.mean(-1, keepdim=True)
+
 
 def apply_rmsnorm(scale: torch.Tensor, x: torch.Tensor,
                   eps: float) -> torch.Tensor:
     """RMSNorm in fp32, scaled by ``1 + scale``, cast back to x's dtype."""
     dtype = x.dtype
     x = x.float()
-    var = torch.mean(x * x, dim=-1, keepdim=True)
-    x = x * torch.rsqrt(var + eps)
+    x = x * torch.rsqrt(mean_last(x * x) + eps)
     return (x * (1.0 + scale.float())).to(dtype)
 
 
@@ -90,22 +113,32 @@ def apply_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
 
 def init_params(shapes, generator: torch.Generator, dtype: torch.dtype,
                 device) -> Any:
-    """Nested dict of shape tuples -> tensors, with the distribution of the
-    reference's ``materialize``: leaves of rank <= 1 are zeros; others are
-    normal * fan_in ** -0.5 with fan_in = shape[-2] (so layer-stacked norm
-    scales of shape (L, d) are drawn too).  Drawn in fp32 on ``device``
-    from ``generator`` (a generator of that device) in sorted key order,
-    one leading-axis slice at a time into the leaf, so a layer-stacked
-    expert leaf never exists whole in fp32 nor on the host."""
+    """Nested dict of :class:`Leaf` -> tensors, with the distribution of
+    the reference's ``materialize``: leaves of rank <= 1 are zeros; others
+    are normal * fan_in ** -0.5 with fan_in = shape[-2] (so layer-stacked
+    norm scales of shape (L, d) are drawn too).  Each leaf takes its pinned
+    dtype, else ``dtype``.  Drawn in fp32 on ``device`` from ``generator``
+    (a generator of that device) in sorted key order, one leading-axis
+    slice at a time into the leaf, so a layer-stacked expert leaf never
+    exists whole in fp32 nor on the host."""
     if isinstance(shapes, dict):
         return {k: init_params(shapes[k], generator, dtype, device)
                 for k in sorted(shapes)}
-    shape = tuple(shapes)
+    shape, leaf_dtype = shapes.shape, shapes.dtype or dtype
     if len(shape) <= 1:
-        return torch.zeros(shape, dtype=dtype, device=device)
+        return torch.zeros(shape, dtype=leaf_dtype, device=device)
     std = 1.0 / (shape[-2] ** 0.5)
-    out = torch.empty(shape, dtype=dtype, device=device)
+    out = torch.empty(shape, dtype=leaf_dtype, device=device)
     for piece in (out if len(shape) >= 3 else (out,)):
         piece.copy_(torch.randn(piece.shape, generator=generator,
                                 dtype=torch.float32, device=device) * std)
     return out
+
+
+def zeros(shapes, dtype: torch.dtype, device) -> Any:
+    """Nested dict of :class:`Leaf` -> zero tensors (pinned dtype, else
+    ``dtype``)."""
+    if isinstance(shapes, dict):
+        return {k: zeros(v, dtype, device) for k, v in shapes.items()}
+    return torch.zeros(shapes.shape, dtype=shapes.dtype or dtype,
+                       device=device)

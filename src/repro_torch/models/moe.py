@@ -26,6 +26,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.models.layers import Leaf
 
 Params = Dict[str, Any]
 
@@ -34,8 +35,8 @@ def moe_shapes(cfg) -> Params:
     """One MoE layer's parameter shapes (the reference's ``moe_abstract``;
     the layer stack adds the leading axis)."""
     e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
-    return {"router": (d, e), "w_gate": (e, d, f), "w_up": (e, d, f),
-            "w_down": (e, f, d)}
+    return {"router": Leaf((d, e)), "w_gate": Leaf((e, d, f)),
+            "w_up": Leaf((e, d, f)), "w_down": Leaf((e, f, d))}
 
 
 def _capacity(cfg, tokens_local: int) -> int:

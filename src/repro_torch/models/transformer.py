@@ -1,11 +1,13 @@
-"""Decoder-only language model, "G" (global attention) layers with a
-SwiGLU MLP or a mixture of experts, and a tied or untied LM head
-(port of ``repro/models/transformer.py``).
+"""Decoder-only language model, "G" (global attention) and "M" (Mamba-2
+SSD) layers with an optional SwiGLU MLP or a mixture of experts, and a
+tied or untied LM head (port of ``repro/models/transformer.py``).
 
 Parameter and cache trees keep the reference's nested-dict layout and key
 paths: layers of the repeating unit are stacked along a leading axis under
 ``groups/slot{i}``, remainder layers sit under ``tail``, and the cache tree
-carries each batch row's next decode position in ``pos``.
+carries each batch row's next decode position in ``pos``.  Shape trees
+hold :class:`~repro_torch.models.layers.Leaf` values, so the SSM's fp32
+leaves stay fp32 in a bf16 model.
 
 Unlike the reference, which is functional, cache writes here are made in
 place: ``forward(mode="prefill")`` and ``decode_step`` fill the cache
@@ -21,13 +23,15 @@ import torch
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.layers import (apply_embedding, apply_lm_head,
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.layers import (Leaf, apply_embedding, apply_lm_head,
                                        apply_mlp, apply_rmsnorm, apply_rope,
                                        linear, torch_dtype)
 
 Params = Dict[str, Any]
 
 ATTN_KINDS = ("G",)
+LAYER_KINDS = ATTN_KINDS + ("M",)
 
 
 def check_supported(cfg):
@@ -49,16 +53,25 @@ def check_supported(cfg):
         raise NotImplementedError(
             "decode_cache_heads folding belongs to tensor-parallel serving "
             "(ROADMAP Queue 1 item 13)")
-    for kind in cfg.pattern_for_layers():
-        if kind not in ATTN_KINDS:
+    unit, _, tail = split_layers(cfg)
+    for kind in unit + tail:
+        if kind not in LAYER_KINDS:
             raise NotImplementedError(
                 f"layer kind {kind!r} is not ported yet (ROADMAP Queue 1 "
-                f"item 8: 'L' gemma3, 'M' mamba2, 'R' recurrentgemma)")
+                f"item 8: 'L' gemma3, 'R' recurrentgemma)")
+
+
+def default_unit(cfg) -> Tuple[str, ...]:
+    """The repeating layer unit: the config's pattern, else ("M",) for the
+    SSM family and ("G",) for the rest."""
+    if cfg.layer_pattern:
+        return cfg.layer_pattern
+    return ("M",) if cfg.family == "ssm" else ("G",)
 
 
 def split_layers(cfg) -> Tuple[Tuple[str, ...], int, Tuple[str, ...]]:
     """(repeating unit, number of stacked groups, remainder tail kinds)."""
-    unit = cfg.layer_pattern or ("G",)
+    unit = default_unit(cfg)
     n_groups = cfg.n_layers // len(unit)
     tail = tuple(unit[i % len(unit)]
                  for i in range(n_groups * len(unit), cfg.n_layers))
@@ -68,7 +81,7 @@ def split_layers(cfg) -> Tuple[Tuple[str, ...], int, Tuple[str, ...]]:
 def _stack(tree, n: int):
     if isinstance(tree, dict):
         return {k: _stack(v, n) for k, v in tree.items()}
-    return (n,) + tuple(tree)
+    return Leaf((n,) + tree.shape, tree.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -77,62 +90,70 @@ def _stack(tree, n: int):
 
 def _attn_shapes(cfg) -> Params:
     d, hd = cfg.d_model, cfg.resolved_head_dim
-    p = {"ln": (d,), "wq": (d, cfg.n_heads * hd),
-         "wk": (d, cfg.n_kv_heads * hd), "wv": (d, cfg.n_kv_heads * hd),
-         "wo": (cfg.n_heads * hd, d)}
+    p = {"ln": Leaf((d,)), "wq": Leaf((d, cfg.n_heads * hd)),
+         "wk": Leaf((d, cfg.n_kv_heads * hd)),
+         "wv": Leaf((d, cfg.n_kv_heads * hd)),
+         "wo": Leaf((cfg.n_heads * hd, d))}
     if cfg.qk_norm:
-        p["q_norm"] = (hd,)
-        p["k_norm"] = (hd,)
+        p["q_norm"] = Leaf((hd,))
+        p["k_norm"] = Leaf((hd,))
     return p
 
 
-def layer_shapes(cfg) -> Params:
-    p = {"mix": _attn_shapes(cfg)}
+def layer_shapes(cfg, kind: str) -> Params:
+    p = {"mix": ssm_mod.ssm_shapes(cfg) if kind == "M"
+         else _attn_shapes(cfg)}
     if cfg.d_ff > 0:
         d = cfg.d_model
-        p["ffn_ln"] = (d,)
+        p["ffn_ln"] = Leaf((d,))
         if cfg.family == "moe":
             p["moe"] = moe_mod.moe_shapes(cfg)
         else:
-            p["mlp"] = {"w_gate": (d, cfg.d_ff), "w_up": (d, cfg.d_ff),
-                        "w_down": (cfg.d_ff, d)}
+            p["mlp"] = {"w_gate": Leaf((d, cfg.d_ff)),
+                        "w_up": Leaf((d, cfg.d_ff)),
+                        "w_down": Leaf((cfg.d_ff, d))}
     return p
 
 
 def abstract_params(cfg) -> Params:
-    """The parameter tree as shapes (the reference's LogicalArray tree)."""
+    """The parameter tree as :class:`Leaf` shapes (the reference's
+    LogicalArray tree)."""
     check_supported(cfg)
     unit, n_groups, tail = split_layers(cfg)
-    group = {f"slot{i}": layer_shapes(cfg) for i, _ in enumerate(unit)}
+    group = {f"slot{i}": layer_shapes(cfg, k) for i, k in enumerate(unit)}
     params = {
-        "embed": (cfg.padded_vocab, cfg.d_model),
+        "embed": Leaf((cfg.padded_vocab, cfg.d_model)),
         "groups": _stack(group, n_groups),
-        "tail": {f"tail{i}": layer_shapes(cfg) for i, _ in enumerate(tail)},
-        "final_norm": (cfg.d_model,),
+        "tail": {f"tail{i}": layer_shapes(cfg, k)
+                 for i, k in enumerate(tail)},
+        "final_norm": Leaf((cfg.d_model,)),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = (cfg.d_model, cfg.padded_vocab)
+        params["lm_head"] = Leaf((cfg.d_model, cfg.padded_vocab))
     return params
 
 
-def _attn_cache_shape(cfg, batch: int, cache_len: int):
-    return {"k": (batch, cache_len, cfg.n_kv_heads, cfg.resolved_head_dim),
-            "v": (batch, cache_len, cfg.n_kv_heads, cfg.resolved_head_dim)}
+def _layer_cache_shape(cfg, kind: str, batch: int, cache_len: int):
+    if kind == "M":
+        return ssm_mod.ssm_cache_shapes(cfg, batch)
+    shape = (batch, cache_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return {"k": Leaf(shape), "v": Leaf(shape)}
 
 
 def abstract_cache(cfg, batch: int, cache_len: int) -> Params:
-    """Decode-state tree as shapes: per-layer KV buffers of ``cache_len``
-    slots plus the per-slot ``pos`` vector (B,).  (The reference's ``ring``
-    argument shapes windowed layers, which are not ported yet.)"""
+    """Decode-state tree as :class:`Leaf` shapes: per-layer KV buffers of
+    ``cache_len`` slots or SSM conv and state buffers, plus the per-slot
+    int32 ``pos`` vector (B,).  (The reference's ``ring`` argument shapes
+    windowed layers, which are not ported yet.)"""
     check_supported(cfg)
     unit, n_groups, tail = split_layers(cfg)
-    group = {f"slot{i}": _attn_cache_shape(cfg, batch, cache_len)
-             for i, _ in enumerate(unit)}
+    group = {f"slot{i}": _layer_cache_shape(cfg, k, batch, cache_len)
+             for i, k in enumerate(unit)}
     return {
-        "pos": (batch,),
+        "pos": Leaf((batch,), torch.int32),
         "groups": _stack(group, n_groups),
-        "tail": {f"tail{i}": _attn_cache_shape(cfg, batch, cache_len)
-                 for i, _ in enumerate(tail)},
+        "tail": {f"tail{i}": _layer_cache_shape(cfg, k, batch, cache_len)
+                 for i, k in enumerate(tail)},
     }
 
 
@@ -148,15 +169,8 @@ def init_params(cfg, seed: int = 0, *, device="cpu") -> Params:
 
 
 def init_cache(cfg, batch: int, cache_len: int, *, device="cpu") -> Params:
-    def zeros(tree):
-        if isinstance(tree, dict):
-            return {k: zeros(v) for k, v in tree.items()}
-        return torch.zeros(tree, dtype=torch_dtype(cfg.dtype), device=device)
-
-    tree = abstract_cache(cfg, batch, cache_len)
-    out = zeros({"groups": tree["groups"], "tail": tree["tail"]})
-    out["pos"] = torch.zeros((batch,), dtype=torch.int32, device=device)
-    return out
+    return layers.zeros(abstract_cache(cfg, batch, cache_len),
+                        torch_dtype(cfg.dtype), device)
 
 
 # ---------------------------------------------------------------------------
@@ -235,11 +249,15 @@ def _apply_attn(cfg, p: Params, x: torch.Tensor, *, mode: str, cache,
 # ---------------------------------------------------------------------------
 
 def apply_layer(cfg, kind: str, p: Params, x, *, mode: str, cache, pos):
-    if kind not in ATTN_KINDS:
+    if kind == "M":
+        x, new_cache = ssm_mod.apply_ssm_layer(cfg, p["mix"], x, mode=mode,
+                                               cache=cache)
+    elif kind in ATTN_KINDS:
+        x, new_cache = _apply_attn(cfg, p["mix"], x, mode=mode, cache=cache,
+                                   pos=pos)
+    else:
         raise NotImplementedError(f"layer kind {kind!r} is not ported yet "
                                   f"(ROADMAP Queue 1 item 8)")
-    x, new_cache = _apply_attn(cfg, p["mix"], x, mode=mode, cache=cache,
-                               pos=pos)
     if cfg.d_ff > 0:
         xn = apply_rmsnorm(p["ffn_ln"], x, cfg.norm_eps)
         if cfg.family == "moe":

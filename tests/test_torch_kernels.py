@@ -122,8 +122,14 @@ def test_wrappers_send_cpu_tensors_to_plain_version():
     assert torch.equal(ops.moe_ffn(buf, w, w, w.transpose(1, 2).contiguous()),
                        ops.moe_ffn_ref(buf, w, w,
                                        w.transpose(1, 2).contiguous()))
+    x, dt = _t(rng.standard_normal((1, 5, 2, 4))), _t(
+        rng.uniform(0.1, 1.0, (1, 5, 2)))
+    a, b = _t(-rng.uniform(0.5, 1.5, 2)), _t(rng.standard_normal((1, 5, 3)))
+    for got, want in zip(ops.ssd_scan(x, dt, a, b, b, chunk=2),
+                         ops.ssd_scan_ref(x, dt, a, b, b, chunk=2)):
+        assert torch.equal(got, want)
     assert ops.launch_counts() == {"matmul": 0, "flash_attention": 0,
-                                   "moe_ffn": 0}
+                                   "moe_ffn": 0, "ssd_scan": 0}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
