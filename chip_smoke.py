@@ -13,12 +13,13 @@ and the script exits non-zero:
 2. build    compiles the CUDA kernels from ``kernels/csrc`` with nvcc, one
             process per source, all started together;
 3. matmul   K2 against ``matmul_ref`` at the shapes of the served paths
-            (qwen3-0.6b, olmoe-1b-7b and mamba2-130m), bf16 and f32, with
-            kernel, plain, library (``torch.matmul``, a yardstick only) and
-            bound times;
+            (qwen3-0.6b, olmoe-1b-7b, mamba2-130m and recurrentgemma-2b),
+            bf16 and f32, with kernel, plain, library (``torch.matmul``, a
+            yardstick only) and bound times;
 4. flash    K1 against ``flash_attention_ref`` over GQA, MHA, causal,
             window, ragged and right-aligned cases, with the same times
-            (library: ``scaled_dot_product_attention``);
+            (library: ``scaled_dot_product_attention``); at head dim 256
+            (recurrentgemma's MQA, 10 heads over 1) every case is timed;
 5. moe_ffn  K3 against ``moe_ffn_ref`` at the olmoe shapes (C = 1, 4, 37,
             40), small ragged shapes, and with per-expert row counts that
             leave experts empty, bf16 and f32;
@@ -29,20 +30,30 @@ and the script exits non-zero:
             layer passes them; y and the final state are both compared;
             then one call timed at the mamba2 shape (library: none, no
             single PyTorch call computes the scan);
-7. serve    qwen3-0.6b at full width (28 layers, d 1024, vocab 153,600) in
+7. rglru_scan  K5 against ``rglru_scan_ref`` at the recurrentgemma-2b
+            admission shape (B 1, S 256, L 2560), at B 2, at S 1, 37 and
+            200, at a ragged L of 40, from zero and from a state h0; h and
+            the final state are both compared; then one call timed at the
+            admission shape (library: none);
+8. serve    qwen3-0.6b at full width (28 layers, d 1024, vocab 153,600) in
             bf16 serving 8 staggered requests; every stream must equal
             ``reference_generate``, and every kernel must have launched
             exactly the expected number of times;
-8. serve_olmoe  olmoe-1b-7b at full width (16 layers, d 2048, 64 experts
+9. serve_olmoe  olmoe-1b-7b at full width (16 layers, d 2048, 64 experts
             top-8, untied head over vocab 51,200) in bf16 serving 6
             staggered requests, with the same checks for K1, K2 and K3;
             then K3 timed on the inputs the path gave it;
-9. serve_mamba2  mamba2-130m at full width (24 SSM layers, d 768, N 128,
+10. serve_mamba2  mamba2-130m at full width (24 SSM layers, d 768, N 128,
             untied head over vocab 51,200) in bf16 serving 8 staggered
             requests, with the same checks for K2 and K4;
-10. parity  reduced qwen3-0.6b, olmoe-1b-7b and mamba2-130m in fp32 on the
-            card and on the CPU, with weights drawn once: the greedy
-            streams must be equal.
+11. serve_recurrentgemma  recurrentgemma-2b at full width (26 layers =
+            8 x (R, R, L) + R, R; d 2560, MQA 10 x 256 over 1 KV head,
+            window 2048, tied head over vocab 256,000) in bf16 serving 8
+            staggered requests, with the same checks for K1, K2 and K5,
+            after a batch-4-vs-1 bit check of its decode layers;
+12. parity  reduced qwen3-0.6b, olmoe-1b-7b, mamba2-130m and
+            recurrentgemma-2b in fp32 on the card and on the CPU, with
+            weights drawn once: the greedy streams must be equal.
 
 Then a ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.  The full record is also written to
@@ -76,8 +87,10 @@ MOE_TOL = {"float32": 3e-4, "bfloat16": 5e-2}
 # the SSD tolerance of tests/test_kernels.py:132 in f32; in bf16 the
 # loosest of that file (:202)
 SSD_TOL = {"float32": 3e-3, "bfloat16": 5e-2}
+# the RG-LRU tolerance of tests/test_kernels.py:160 (K5 is fp32 only)
+RGLRU_TOL = 2e-4
 
-# the serving runs of phases 7-9 at full width: batch 4 keeps every
+# the serving runs of phases 8-11 at full width: batch 4 keeps every
 # decode-time capacity at its floor of 4 (no token is dropped), so the
 # engine's olmoe streams can equal the batch-1 reference
 BATCH, MAX_LEN, PREFILL_LEN, MAX_NEW, MOE_MAX_NEW = 4, 512, 256, 32, 16
@@ -157,11 +170,11 @@ def to_device(tree, device):
 def profile_decode(torch, eng, dev, steps=5):
     """Decode executions of the live engine, each ended by a sync: their
     host wall time without the profiler, then their device time by kernel
-    family under torch.profiler (K2, K1, K3, K4, PyTorch's own kernels).  The
-    idle share is one minus the profiled device time over the unprofiled
-    wall time of a step; under the profiler the wall time grows, so its
-    own idle share is given apart.  None where the profiler saw no device
-    time."""
+    family under torch.profiler (K2, K1, K3, K4, K5, PyTorch's own kernels).
+    The idle share is one minus the profiled device time over the
+    unprofiled wall time of a step; under the profiler the wall time grows,
+    so its own idle share is given apart.  None where the profiler saw no
+    device time."""
     from torch.profiler import ProfilerActivity, profile
     tokens = torch.zeros((eng.batch, 1), dtype=torch.int32, device=dev)
     decode = eng.programs["decode"]
@@ -183,7 +196,8 @@ def profile_decode(torch, eng, dev, steps=5):
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     fam = {"matmul_kernel": 0.0, "flash_attention_kernel": 0.0,
-           "moe_ffn_kernel": 0.0, "ssd_scan_kernel": 0.0, "torch": 0.0}
+           "moe_ffn_kernel": 0.0, "ssd_scan_kernel": 0.0,
+           "rglru_scan_kernel": 0.0, "torch": 0.0}
     n_kernels = 0
     for e in prof.key_averages():
         if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
@@ -204,6 +218,7 @@ def profile_decode(torch, eng, dev, steps=5):
             "flash_ms_per_step": fam["flash_attention_kernel"] / steps,
             "moe_ffn_ms_per_step": fam["moe_ffn_kernel"] / steps,
             "ssd_scan_ms_per_step": fam["ssd_scan_kernel"] / steps,
+            "rglru_scan_ms_per_step": fam["rglru_scan_kernel"] / steps,
             "torch_ms_per_step": fam["torch"] / steps,
             "kernels_per_step": n_kernels / steps,
             "idle_share": max(0.0, 1.0 - busy / steps / wall_unprofiled),
@@ -228,6 +243,7 @@ def main():
                                                      flash_attention_ref)
     from repro_torch.kernels.matmul import matmul, matmul_ref
     from repro_torch.kernels.moe_dispatch import moe_ffn, moe_ffn_ref
+    from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_ref
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
 
     dev = torch.device("cuda")
@@ -294,8 +310,26 @@ def main():
     ssm_layer = [((ssm_d, 2 * ssm_inner + 2 * ssm.ssm_state + ssm_heads), 1),
                  ((ssm_inner, ssm_d), 1)]
     ssm_per_step = ssm.n_layers * sum(c for _, c in ssm_layer) + 1
-    # (K, N, head kind) per M: qwen3's at four batch sizes, olmoe's and
-    # mamba2's at the two their paths run (decode batch, one admission)
+    # recurrentgemma-2b: each "R" layer's w_x, w_gate (d, lru) and w_out
+    # (lru, d), each "L" layer's wq (d, H hd), wk, wv (d, hd) and wo; the
+    # MLP of every layer; the tied head is (d_model, padded vocab)
+    rg = registry.get_config("recurrentgemma-2b")
+    rg_d, rg_lru, rg_ff, rg_vocab = (rg.d_model, rg.lru_width, rg.d_ff,
+                                     rg.padded_vocab)
+    rg_hd, rg_h, rg_kv = rg.resolved_head_dim, rg.n_heads, rg.n_kv_heads
+    rg_kinds = rg.pattern_for_layers()
+    rg_r, rg_l = rg_kinds.count("R"), rg_kinds.count("L")
+    rg_mlp = [((rg_d, rg_ff), 2), ((rg_ff, rg_d), 1)]
+    rg_r_layer = [((rg_d, rg_lru), 2), ((rg_lru, rg_d), 1)] + rg_mlp
+    rg_l_layer = [((rg_d, rg_h * rg_hd), 1), ((rg_d, rg_kv * rg_hd), 2),
+                  ((rg_h * rg_hd, rg_d), 1)] + rg_mlp
+    # one pass as (K, N) with the count over all 26 layers
+    rg_pass = [(kn, c * rg_r) for kn, c in rg_r_layer] + \
+        [(kn, c * rg_l) for kn, c in rg_l_layer]
+    rg_per_step = sum(c for _, c in rg_pass) + 1
+    # (K, N, head kind) per M: qwen3's at four batch sizes, olmoe's,
+    # mamba2's and recurrentgemma's at the two their paths run (decode
+    # batch, one admission)
     cases = []
     for m in (BATCH, 1, PREFILL_LEN, 37):
         cases += [(m, k, n, None) for k, n in sorted({kn for kn, _ in
@@ -307,11 +341,24 @@ def main():
             cases += [(m, k, n, None) for k, n in sorted({kn for kn, _ in
                                                           layer})]
             cases.append((m, d, v, "untied"))
+        cases += [(m, k, n, None) for k, n in sorted({kn for kn, _ in
+                                                      rg_pass})]
+        cases.append((m, rg_d, rg_vocab, "tied"))
+    cgen = torch.Generator(device=dev).manual_seed(0)
+
+    def crandn(shape, dtype, scale=1.0):
+        """Drawn on the card: the olmoe expert stacks are 0.4-1.6 GB, the
+        recurrentgemma head table 1.3-2.6 GB."""
+        return (torch.randn(shape, generator=cgen, device=dev)
+                * scale).to(dtype)
+
     mm = {}
     with phase("matmul") as out:
         checks = []
         table = {name: randn((vocab, d_model), dt, 0.02)
                  for name, dt in dtypes.items()}
+        # the (V, d) tables of the tied heads, by dtype and d_model
+        tables = {(name, d_model): t for name, t in table.items()}
         for dname, dt in dtypes.items():
             tol = MATMUL_TOL[dname]
             for m, k, n, head in cases:
@@ -321,7 +368,9 @@ def main():
                 x = randn((m, k), dt, 1.0 / math.sqrt(k) if head is None
                           else 1.0)
                 if head == "tied":
-                    w = table[dname].t()
+                    if (dname, k) not in tables:
+                        tables[(dname, k)] = crandn((n, k), dt, 0.02)
+                    w = tables[(dname, k)].t()
                 else:
                     w = randn((k, n), dt, 1.0 if head is None else 0.02)
                 got = matmul(x, w)
@@ -358,7 +407,7 @@ def main():
                        "bound_by": b_by}
                 checks.append(row)
                 mm[(dname, m, k, n)] = row
-        del table
+        del table, tables
         out["detail"] = checks
         out["checks"] = len(checks)
         out["max_abs_err"] = max(c["max_abs_err"] for c in checks)
@@ -369,7 +418,9 @@ def main():
 
     def k2_aggregate(dname, m, layer_products, layers, head):
         """K2 numbers for one serving pass at batch rows ``m``: each
-        layer's products, ``layers`` times, plus the head's (K, N)."""
+        layer's products, ``layers`` times, plus the head's (K, N).  (A
+        pass with layers of two kinds gives its products counted over the
+        whole depth and ``layers`` 1.)"""
         agg = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                "bound_ms": 0.0}
         nbytes = flops = 0
@@ -394,6 +445,13 @@ def main():
                 for sq, sk in ((PREFILL_LEN, PREFILL_LEN), (200, 200),
                                (37, PREFILL_LEN)):
                     cases.append((h, kv, d, causal, window, sq, sk))
+        # recurrentgemma's "L" layers: MQA, 10 heads over 1 of 256, its
+        # window of 2048 (no effect at S 256) and one of 64 that bites
+        rg_fa = [(rg_h, rg_kv, rg_hd, True, window, sq, sk)
+                 for window in (rg.local_window, 64)
+                 for sq, sk in ((PREFILL_LEN, PREFILL_LEN), (200, 200),
+                                (37, PREFILL_LEN))]
+        cases += rg_fa
         for dname, dt in dtypes.items():
             tol = FLASH_TOL[dname]
             for h, kv, d, causal, window, sq, sk in cases:
@@ -444,24 +502,58 @@ def main():
                        "S": s, "causal": True, "ms": ms, "plain_ms": plain,
                        "library_ms": lib, "bound_ms": b_ms,
                        "bound_by": b_by}
+        # every head-dim-256 case timed at one admission's batch of 1,
+        # SDPA given the same boolean mask as the yardstick
+        fa_rg = []
+        for dname, dt in dtypes.items():
+            for h, kv, d, _, window, sq, sk in rg_fa:
+                q = randn((h, sq, d), dt)
+                k = randn((kv, sk, d), dt)
+                v = randn((kv, sk, d), dt)
+                q_pos = torch.arange(sq, device=dev)[:, None] + (sk - sq)
+                k_pos = torch.arange(sk, device=dev)[None, :]
+                mask = (q_pos >= k_pos) & (q_pos - k_pos < window)
+                qs = q[None]
+                ks = k.repeat_interleave(h // kv, 0)[None]
+                vs = v.repeat_interleave(h // kv, 0)[None]
+                ms = cuda_ms(torch, lambda: flash_attention(
+                    q, k, v, window=window), iters=20)
+                plain = cuda_ms(torch, lambda: flash_attention_ref(
+                    q, k, v, window=window), iters=20)
+                lib = cuda_ms(torch, lambda: torch.nn.functional
+                              .scaled_dot_product_attention(
+                                  qs, ks, vs, attn_mask=mask), iters=20)
+                pairs = int(mask.sum())
+                b_ms, b_by = bound_ms((2 * h * sq + 2 * kv * sk) * d
+                                      * q.element_size(),
+                                      4 * d * pairs * h, dname)
+                fa_rg.append({"dtype": dname, "H": h, "Hk": kv, "D": d,
+                              "causal": True, "window": window, "Sq": sq,
+                              "Sk": sk, "ms": ms, "plain_ms": plain,
+                              "library_ms": lib, "bound_ms": b_ms,
+                              "bound_by": b_by})
+        # the path's shape: S 256 under the window of 2048
+        for row in fa_rg:
+            if row["window"] == rg.local_window and \
+                    row["Sq"] == row["Sk"] == PREFILL_LEN:
+                key = "recurrentgemma" + \
+                    ("" if row["dtype"] == "bfloat16" else "_float32")
+                fa[key] = row
         out["detail"] = checks
         out["checks"] = len(checks)
         out["max_abs_err"] = max(c["max_abs_err"] for c in checks)
         out["timed"] = fa
+        out["timed_head_dim_256"] = fa_rg
         for c in checks:
             emit({"flash_attention": {key: (round(v, 6) if isinstance(
+                v, float) else v) for key, v in c.items()}})
+        for c in fa_rg:
+            emit({"flash_attention_d256": {key: (round(v, 6) if isinstance(
                 v, float) else v) for key, v in c.items()}})
     flash_err = out["max_abs_err"]
 
     # -- 5. K3 moe_ffn ---------------------------------------------------
     moe_e, moe_f = moe.n_experts, moe.d_ff
-    cgen = torch.Generator(device=dev).manual_seed(0)
-
-    def crandn(shape, dtype, scale=1.0):
-        """Drawn on the card: the olmoe expert stacks are 0.4-1.6 GB."""
-        return (torch.randn(shape, generator=cgen, device=dev)
-                * scale).to(dtype)
-
     with phase("moe_ffn") as out:
         checks = []
         groups = [((moe_e, moe_d, moe_f), (1, BATCH, 37, 40)),
@@ -596,7 +688,64 @@ def main():
                                      else v) for key, v in c.items()}})
     k4_err = out["max_abs_err"]
 
-    # -- 7-9. the served paths at full width ---------------------------------
+    # -- 7. K5 rglru_scan ------------------------------------------------
+    def rglru_inputs(bsz, s, l, with_h0):
+        """a = sigmoid(normal), b = 0.3 normal (tests/test_kernels.py:
+        156-157), h0 normal, all fp32."""
+        a = torch.sigmoid(randn((bsz, s, l), torch.float32))
+        b = randn((bsz, s, l), torch.float32, 0.3)
+        h0 = randn((bsz, l), torch.float32) if with_h0 else None
+        return a, b, h0
+
+    k5 = {}
+    with phase("rglru_scan") as out:
+        checks = []
+        # (B, S, L): the recurrentgemma admission and its batch-2 form,
+        # S of 1, 37 and 200, a ragged L of 40; each from zero and from h0
+        for bsz, s, l in ((1, PREFILL_LEN, rg_lru), (2, PREFILL_LEN, rg_lru),
+                          (1, 1, rg_lru), (1, 37, rg_lru), (1, 200, rg_lru),
+                          (3, 50, 40)):
+            for with_h0 in (False, True):
+                args = rglru_inputs(bsz, s, l, with_h0)
+                got = rglru_scan(*args)
+                want = rglru_scan_ref(*args)
+                torch.cuda.synchronize()
+                errs = []
+                for what, g, w in zip(("h", "h_final"), got, want):
+                    viol, err = max_violation(g, w, RGLRU_TOL)
+                    if viol > 0:
+                        raise AssertionError(
+                            f"rglru_scan B={bsz} S={s} L={l} h0={with_h0}: "
+                            f"{what} max err {err} exceeds tol {RGLRU_TOL}")
+                    errs.append(err)
+                checks.append({"dtype": "float32", "B": bsz, "S": s, "L": l,
+                               "h0": with_h0, "max_abs_err": max(errs),
+                               "h_err": errs[0], "h_final_err": errs[1],
+                               "bit_equal": all(torch.equal(g, w) for g, w
+                                                in zip(got, want)),
+                               "tol": RGLRU_TOL})
+        # one call at the admission shape, from a state as the layer
+        # passes one (zeros there; the kernel reads it all the same)
+        bsz, s, l = 1, PREFILL_LEN, rg_lru
+        args = rglru_inputs(bsz, s, l, True)
+        ms = cuda_ms(torch, lambda: rglru_scan(*args), iters=50)
+        plain = cuda_ms(torch, lambda: rglru_scan_ref(*args), iters=5)
+        nbytes = 3 * bsz * s * l * 4 + 2 * bsz * l * 4   # a, b, h; h0, hf
+        b_ms, b_by = bound_ms(nbytes, 2 * bsz * s * l, "float32")
+        k5 = {"dtype": "float32", "B": bsz, "S": s, "L": l, "ms": ms,
+              "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+              "bytes": nbytes}
+        out["detail"] = checks
+        out["checks"] = len(checks)
+        out["max_abs_err"] = max(c["max_abs_err"] for c in checks)
+        out["bit_equal"] = all(c["bit_equal"] for c in checks)
+        out["timed"] = k5
+        for c in checks:
+            emit({"rglru_scan": {key: (round(v, 6) if isinstance(v, float)
+                                       else v) for key, v in c.items()}})
+    k5_err = out["max_abs_err"]
+
+    # -- 8-11. the served paths at full width --------------------------------
     from repro_torch.engine_config import EngineConfig
     from repro_torch.launch.serve import ServingEngine
     from repro_torch.models import transformer
@@ -698,7 +847,7 @@ def main():
             [0, 0, 0, 0, 3, 9, 20, 40], MAX_NEW,
             {"matmul": (per_step, per_step),
              "flash_attention": (0, n_layers), "moe_ffn": (0, 0),
-             "ssd_scan": (0, 0)})
+             "ssd_scan": (0, 0), "rglru_scan": (0, 0)})
         assert (eng.cfg.n_layers, eng.cfg.d_model, eng.cfg.padded_vocab) == \
             (28, 1024, 153_600), eng.cfg
         del eng
@@ -710,7 +859,8 @@ def main():
             [0, 0, 0, 2, 3, 9], MOE_MAX_NEW,
             {"matmul": (moe_per_step, moe_per_step),
              "flash_attention": (0, moe.n_layers),
-             "moe_ffn": (moe.n_layers, moe.n_layers), "ssd_scan": (0, 0)})
+             "moe_ffn": (moe.n_layers, moe.n_layers), "ssd_scan": (0, 0),
+             "rglru_scan": (0, 0)})
         cfg = eng.cfg
         assert (cfg.n_layers, cfg.d_model, cfg.n_experts,
                 cfg.experts_per_token, cfg.padded_vocab) == \
@@ -834,7 +984,7 @@ def main():
             [0, 0, 0, 0, 3, 9, 20, 40], MAX_NEW,
             {"matmul": (ssm_per_step, ssm_per_step),
              "flash_attention": (0, 0), "moe_ffn": (0, 0),
-             "ssd_scan": (0, ssm.n_layers)})
+             "ssd_scan": (0, ssm.n_layers), "rglru_scan": (0, 0)})
         cfg = eng.cfg
         assert (cfg.n_layers, cfg.d_model, cfg.padded_vocab,
                 cfg.tie_embeddings) == (24, 768, 51_200, False), cfg
@@ -844,10 +994,84 @@ def main():
         assert layer0["conv"].dtype == torch.bfloat16
         del eng, layer0
 
-    # -- 10. card against CPU ----------------------------------------------
+    with phase("serve_recurrentgemma") as out:
+        # the engine decodes at batch 4, its reference at batch 1: one "R"
+        # and one "L" layer at full width, every leaf drawn (the gates and
+        # biases too, which the model's own draw zeroes in its tail), must
+        # give a row the same bits at both, output and cache; the "L"
+        # layer's MQA decode attention has b x 1 rows in its batched
+        # product, b = 4 in the engine and 1 in the reference
+        from repro_torch.models import layers
+        rows = {}
+        for lkind in ("R", "L"):
+            p = layers.init_params(transformer.layer_shapes(rg, lkind), cgen,
+                                   torch.bfloat16, dev)
+            for name, leaf in p["mix"].items():
+                if leaf.dim() == 1:
+                    p["mix"][name] = crandn(leaf.shape, leaf.dtype, 0.5)
+            p["ffn_ln"] = crandn(p["ffn_ln"].shape, torch.bfloat16, 0.1)
+            shapes = transformer._layer_cache_shape(rg, lkind, BATCH,
+                                                    MAX_LEN)
+            differ = 0
+            for _ in range(16):
+                x = randn((BATCH, 1, rg_d), torch.bfloat16)
+                cache = {k: crandn(v.shape, v.dtype or torch.bfloat16)
+                         for k, v in shapes.items()}
+                pos = torch.randint(1, MAX_LEN, (BATCH,), generator=gen,
+                                    dtype=torch.int32).to(dev)
+                c4 = {k: v.clone() for k, v in cache.items()}
+                y4, _ = transformer.apply_layer(rg, lkind, p, x,
+                                                mode="decode", cache=c4,
+                                                pos=pos)
+                for i in range(BATCH):
+                    c1 = {k: v[i:i + 1].clone() for k, v in cache.items()}
+                    y1, _ = transformer.apply_layer(
+                        rg, lkind, p, x[i:i + 1], mode="decode", cache=c1,
+                        pos=pos[i:i + 1])
+                    differ += not (torch.equal(y4[i:i + 1], y1) and all(
+                        torch.equal(c4[k][i:i + 1], c1[k]) for k in c1))
+            rows[f"{lkind}_layer_rows_differing_of_{16 * BATCH}"] = differ
+        del p, cache, c4, c1
+        out["batch_invariant"] = rows
+        if any(rows.values()):
+            raise AssertionError(f"recurrentgemma decode layers differ "
+                                 f"between batch {BATCH} and 1: {rows}")
+        # K5 runs once per "R" layer at each admission and K1 once per "L"
+        # layer; decode is the plain one-token update and cache attention
+        eng, _, path_launches["recurrentgemma-2b"] = serve_full(
+            out, "recurrentgemma-2b", [16, 200, 57, 120, 31, 180, 90, 140],
+            [0, 0, 0, 0, 3, 9, 20, 40], MAX_NEW,
+            {"matmul": (rg_per_step, rg_per_step),
+             "flash_attention": (0, rg_l), "moe_ffn": (0, 0),
+             "ssd_scan": (0, 0), "rglru_scan": (0, rg_r)})
+        cfg = eng.cfg
+        assert (cfg.n_layers, cfg.d_model, cfg.resolved_head_dim,
+                cfg.n_kv_heads, cfg.local_window, cfg.padded_vocab,
+                cfg.tie_embeddings) == (26, 2560, 256, 1, 2048, 256_000,
+                                        True), cfg
+        assert (rg_r, rg_l, rg_per_step) == (18, 8, 165)
+        assert "lm_head" not in eng.params
+        for layer in (eng.params["groups"]["slot0"]["mix"],
+                      eng.params["tail"]["tail1"]["mix"]):
+            for name in ("lam", "w_a", "b_a", "w_i", "b_i"):
+                assert layer[name].dtype == torch.float32, name
+            assert layer["w_x"].dtype == torch.bfloat16
+        for layer in (eng.caches["groups"]["slot1"],
+                      eng.caches["tail"]["tail0"]):
+            assert layer["h"].dtype == torch.float32
+            assert layer["conv"].dtype == torch.bfloat16
+        attn = eng.caches["groups"]["slot2"]
+        for leaf in ("k", "v"):
+            # max_len 512 < window 2048: the flat windowed layout
+            assert attn[leaf].dtype == torch.bfloat16
+            assert tuple(attn[leaf].shape) == (rg_l, BATCH, MAX_LEN, 1, 256)
+        del eng, layer, attn
+
+    # -- 12. card against CPU ----------------------------------------------
     with phase("parity") as out:
         equal = {}
-        for arch in ("qwen3-0.6b", "olmoe-1b-7b", "mamba2-130m"):
+        for arch in ("qwen3-0.6b", "olmoe-1b-7b", "mamba2-130m",
+                     "recurrentgemma-2b"):
             config = EngineConfig(reduced=True, batch=2, max_len=64,
                                   clock="step")
             # drawn once on the CPU: the card's generator draws other bits
@@ -888,6 +1112,9 @@ def main():
                           (ssm_d, ssm_vocab))
     k2_ssm_prefill = k2_aggregate("bfloat16", PREFILL_LEN, ssm_layer,
                                   ssm.n_layers, (ssm_d, ssm_vocab))
+    k2_rg = k2_aggregate("bfloat16", BATCH, rg_pass, 1, (rg_d, rg_vocab))
+    k2_rg_prefill = k2_aggregate("bfloat16", PREFILL_LEN, rg_pass, 1,
+                                 (rg_d, rg_vocab))
     kernels = [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -901,7 +1128,8 @@ def main():
          "library_ms": fa["bfloat16"]["library_ms"],
          "per": f"one call: bf16 causal prefill S={PREFILL_LEN}, "
                 f"H={heads}, Hk={kv_heads}, D={hd}",
-         "olmoe": fa["olmoe"]},
+         "olmoe": fa["olmoe"], "recurrentgemma": fa["recurrentgemma"],
+         "recurrentgemma_float32": fa["recurrentgemma_float32"]},
         {"name": "matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/matmul.cu",
          "replaces": "src/repro/kernels/matmul.py:33",
@@ -917,7 +1145,9 @@ def main():
          "olmoe_per_decode_step": k2_moe,
          "olmoe_prefill_per_admission": k2_moe_prefill,
          "mamba2_per_decode_step": k2_ssm,
-         "mamba2_prefill_per_admission": k2_ssm_prefill},
+         "mamba2_prefill_per_admission": k2_ssm_prefill,
+         "recurrentgemma_per_decode_step": k2_rg,
+         "recurrentgemma_prefill_per_admission": k2_rg_prefill},
         {"name": "moe_ffn", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/moe_ffn.cu",
          "replaces": "src/repro/kernels/moe_dispatch.py:38",
@@ -949,6 +1179,19 @@ def main():
                 f"S={PREFILL_LEN} in chunks of 128, H={ssd_h}, P={ssd_p}, "
                 f"N={ssd_n}, from a state h0",
          "float32": k4["float32"]},
+        {"name": "rglru_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+         "replaces": "src/repro/kernels/rglru_scan.py:45",
+         "launches": total("rglru_scan"),
+         "launches_by_path": by_path("rglru_scan"),
+         "max_abs_err": k5_err,
+         "ms": k5["ms"], "plain_ms": k5["plain_ms"],
+         "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
+         "library_ms": None,
+         "library": "none: no single PyTorch call computes a linear "
+                    "recurrence",
+         "per": f"one call at recurrentgemma-2b admission: f32 B=1, "
+                f"S={PREFILL_LEN}, L={rg_lru}, from a state h0"},
     ]
     RECORD["kernels"] = kernels
     _write_record()

@@ -7,12 +7,19 @@ mlp/{w_gate,w_up,w_down}}``, or ``moe/{router,w_gate,w_up,w_down}`` in
 place of ``mlp`` for the MoE family, or ``mix/{ln,w_in,conv_w,conv_b,
 a_log,d_skip,dt_bias,out_ln,w_out}`` for the SSM family, with the layer on
 the leading axis; caches ``pos`` and ``groups/slot0/{k,v}``, or
-``groups/slot0/{conv,state}`` for the SSM family.  The expected keys,
-shapes and dtypes are ``transformer.abstract_params`` and
-``abstract_cache``: a leaf that pins its dtype (the SSM's fp32
-``a_log``, ``d_skip``, ``dt_bias`` and ``state``, the int32 ``pos``) must
-arrive in it, and every other leaf in the tree's one model dtype, float32
-or bfloat16.  bfloat16 arrives as a numpy array whose
+``groups/slot0/{conv,state}`` for the SSM family.  The hybrid family
+(recurrentgemma, pattern R, R, L) has a recurrent layer's
+``mix/{ln,w_x,w_gate,conv_w,conv_b,lam,w_a,b_a,w_i,b_i,w_out}`` and an
+``ffn_ln`` and ``mlp`` under ``groups/slot0``, ``groups/slot1`` and, with
+no leading axis, the remainder layers ``tail/tail0`` and ``tail/tail1``,
+an attention layer under ``groups/slot2``; its caches are ``{conv, h}``
+under the recurrent layers' paths and ``{k, v}`` under ``groups/slot2``.
+The expected keys, shapes and dtypes are ``transformer.abstract_params``
+and ``abstract_cache``: a leaf that pins its dtype (the SSM's fp32
+``a_log``, ``d_skip``, ``dt_bias`` and ``state``, the RG-LRU's fp32
+``lam``, ``w_a``, ``b_a``, ``w_i``, ``b_i`` and ``h``, the int32 ``pos``)
+must arrive in it, and every other leaf in the tree's one model dtype,
+float32 or bfloat16.  bfloat16 arrives as a numpy array whose
 ``dtype.name == "bfloat16"`` (numpy has no such type of its own): its
 bytes are viewed as 16-bit integers and reinterpreted by torch, so the
 round trip is bit-exact.  Going back, bfloat16 leaves come out as

@@ -147,6 +147,8 @@ def _bind(cdll: ctypes.CDLL):
     cdll.repro_ssd_scan.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i,
                                     ll, ll, ll, ll, ll, ll, ll, ll, ll, i, p]
     cdll.repro_ssd_scan.restype = i
+    cdll.repro_rglru_scan.argtypes = [p, p, p, p, p, i, i, i, p]
+    cdll.repro_rglru_scan.restype = i
 
 
 def check(err: int, what: str):

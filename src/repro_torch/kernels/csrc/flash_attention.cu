@@ -21,6 +21,13 @@
 // masked here (the Pallas kernel asserts divisibility): keys past Sk get
 // probability 0, rows past Sq are computed but never stored.
 //
+// Shared memory: the three fp32 tiles take 4 * (BQ*D + BK*(D+1) + BK*D)
+// bytes, 82,048 at D = 256 (recurrentgemma's heads), over the 48 KB a
+// static array may hold, so they are one dynamic buffer and the launch
+// opts in to more (cudaFuncAttributeMaxDynamicSharedMemorySize) where a
+// head dim needs it.  At D = 256 each thread stages 32 keys and 32 values
+// in registers beside 16 accumulators.
+//
 // What bounds it on the serving path: prefill of qwen3-0.6b at S = 256 (16
 // query heads, 8 KV heads, D = 128, causal) is ~0.27 GFLOP over ~3.1 MB,
 // ~1 us at 3.35 TB/s, so launch latency dominates the bound.  The scores
@@ -60,9 +67,11 @@ __global__ void __launch_bounds__(THREADS)
                            int Sq, int Sk, int G, int causal, int window,
                            float scale) {
   constexpr int ACC = (D + 31) / 32;
-  __shared__ float qs[BQ][D];
-  __shared__ float ks[BK][D + 1];  // +1: lane j reads row j conflict-free
-  __shared__ float vs[BK][D];
+  extern __shared__ float smem[];
+  float* qs = smem;               // [BQ][D]
+  float* ks = qs + BQ * D;        // [BK][D + 1]: +1, lane j reads row j
+                                  // conflict-free
+  float* vs = ks + BK * (D + 1);  // [BK][D]
 
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
@@ -81,8 +90,9 @@ __global__ void __launch_bounds__(THREADS)
   for (int t = 0; t < Q_PT; ++t) {
     const int i = threadIdx.x + t * THREADS;
     const int r = i / D, c = i % D;
-    qs[r][c] = (q0 + r < Sq) ? repro::to_f32(qb[(long long)(q0 + r) * D + c])
-                             : 0.f;
+    qs[r * D + c] = (q0 + r < Sq)
+                        ? repro::to_f32(qb[(long long)(q0 + r) * D + c])
+                        : 0.f;
   }
 
   float m[ROWS], l[ROWS], acc[ROWS][ACC];
@@ -119,8 +129,8 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
     for (int t = 0; t < KV_PT; ++t) {
       const int i = threadIdx.x + t * THREADS;
-      ks[i / D][i % D] = kr[t];
-      vs[i / D][i % D] = vr[t];
+      ks[(i / D) * (D + 1) + i % D] = kr[t];
+      vs[i] = vr[t];
     }
     __syncthreads();
 #pragma unroll
@@ -130,7 +140,8 @@ __global__ void __launch_bounds__(THREADS)
       const int kpos = k0 + lane;
       float s = 0.f;
 #pragma unroll 16
-      for (int d = 0; d < D; ++d) s = fmaf(qs[r][d], ks[lane][d], s);
+      for (int d = 0; d < D; ++d)
+        s = fmaf(qs[r * D + d], ks[lane * (D + 1) + d], s);
       s *= scale;
       bool valid = true;
       if (causal) valid = valid && qpos >= kpos;
@@ -149,7 +160,7 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
         for (int a = 0; a < ACC; ++a) {
           const int d = lane + 32 * a;
-          if (d < D) acc[rr][a] = fmaf(pj, vs[j][d], acc[rr][a]);
+          if (d < D) acc[rr][a] = fmaf(pj, vs[j * D + d], acc[rr][a]);
         }
       }
       m[rr] = m_new;
@@ -175,8 +186,16 @@ template <typename T, int D>
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* out,
                      int BH, int BHk, int Sq, int Sk, int causal, int window,
                      cudaStream_t stream) {
+  constexpr size_t smem = sizeof(float) * (BQ * D + BK * (D + 1) + BK * D);
+  static_assert(smem <= 232448, "tiles fit one block's shared memory");
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_attention_kernel<T, D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
   const dim3 grid((Sq + BQ - 1) / BQ, BH);
-  flash_attention_kernel<T, D><<<grid, THREADS, 0, stream>>>(
+  flash_attention_kernel<T, D><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, BH / BHk,
       causal, window, 1.f / sqrtf((float)D));
@@ -196,6 +215,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
       return launch_d<T, 64>(q, k, v, out, BH, BHk, Sq, Sk, causal, window, stream);
     case 128:
       return launch_d<T, 128>(q, k, v, out, BH, BHk, Sq, Sk, causal, window, stream);
+    case 256:
+      return launch_d<T, 256>(q, k, v, out, BH, BHk, Sq, Sk, causal, window, stream);
     default:
       return cudaErrorInvalidValue;
   }

@@ -17,7 +17,16 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
+BQ, BK = 16, 32    # query and key tile rows: csrc/flash_attention.cu
+SMEM_LIMIT = 232448
+
+
+def smem_bytes(d: int) -> int:
+    """Dynamic shared memory of one block at head dim ``d``
+    (csrc/flash_attention.cu ``launch_d``): the query tile, the key tile
+    padded to d + 1 columns and the value tile, all fp32."""
+    return 4 * (BQ * d + BK * (d + 1) + BK * d)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

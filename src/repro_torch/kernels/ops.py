@@ -2,8 +2,8 @@
 
 There is no implementation switch: the device of the tensors decides.  A
 CPU tensor takes the kernel's plain PyTorch version; a CUDA tensor launches
-the hand-written Hopper kernel or raises.  The hybrid family's kernel
-(``rglru_scan``) is not ported yet (ROADMAP Queue 2).
+the hand-written Hopper kernel or raises.  Every TPU kernel of the
+reference has its counterpart here (K1-K5).
 """
 from __future__ import annotations
 
@@ -13,14 +13,17 @@ from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_ref)
 from repro_torch.kernels.matmul import matmul, matmul_ref
 from repro_torch.kernels.moe_dispatch import moe_ffn, moe_ffn_ref
+from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_ref
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
 
 KERNELS = {"matmul": matmul, "flash_attention": flash_attention,
-           "moe_ffn": moe_ffn, "ssd_scan": ssd_scan}
+           "moe_ffn": moe_ffn, "ssd_scan": ssd_scan,
+           "rglru_scan": rglru_scan}
 
 __all__ = ["matmul", "matmul_ref", "flash_attention", "flash_attention_ref",
-           "moe_ffn", "moe_ffn_ref", "ssd_scan", "ssd_scan_ref", "KERNELS",
-           "launch_counts", "reset_launch_counts"]
+           "moe_ffn", "moe_ffn_ref", "ssd_scan", "ssd_scan_ref",
+           "rglru_scan", "rglru_scan_ref", "KERNELS", "launch_counts",
+           "reset_launch_counts"]
 
 
 def launch_counts() -> Dict[str, int]:

@@ -101,6 +101,31 @@ def apply_lm_head(table: torch.Tensor, x: torch.Tensor,
     return linear(x, table.t() if transpose else table)
 
 
+def causal_conv(x: torch.Tensor, w: torch.Tensor,
+                b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv of x (B,S,C) with w (W,C), plus bias b (C,);
+    the taps are added one after another in x's dtype.  The Mamba-2 and
+    RG-LRU blocks share it (the SSM adds a SiLU after it)."""
+    wd, s = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, wd - 1, 0))
+    out = xp[:, :s] * w[0]
+    for i in range(1, wd):
+        out = out + xp[:, i:i + s] * w[i]
+    return out + b
+
+
+def conv_step(window: torch.Tensor, w: torch.Tensor,
+              b: torch.Tensor) -> torch.Tensor:
+    """One decode step of :func:`causal_conv`: window (B,W,C) holds the
+    last W inputs.  The taps are summed in fp32 one after another
+    (elementwise, so a row's result does not depend on the batch), then
+    rounded to the window's dtype and biased.  Returns (B,C)."""
+    acc = window[:, 0].float() * w[0].float()
+    for i in range(1, w.shape[0]):
+        acc = acc + window[:, i].float() * w[i].float()
+    return acc.to(window.dtype) + b
+
+
 def apply_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU: silu(x @ w_gate) * (x @ w_up) @ w_down, all three through K2."""
     h = F.silu(linear(x, p["w_gate"])) * linear(x, p["w_up"])

@@ -27,7 +27,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import Leaf, apply_rmsnorm, linear
+from repro_torch.models.layers import (Leaf, apply_rmsnorm, causal_conv,
+                                       conv_step, linear)
 
 Params = Dict[str, Any]
 
@@ -75,16 +76,6 @@ def _split_in(cfg, proj):
             proj[..., 2 * d_inner + 2 * n:])
 
 
-def _causal_conv(x, w, b):
-    """x: (B,S,C), w: (W,C) depthwise causal, returns (B,S,C)."""
-    wd, s = w.shape[0], x.shape[1]
-    xp = F.pad(x, (0, 0, wd - 1, 0))
-    out = xp[:, :s] * w[0]
-    for i in range(1, wd):
-        out = out + xp[:, i:i + s] * w[i]
-    return F.silu(out + b)
-
-
 def ssd_chunked(x, dt, a, b, c, d_skip, h0=None, chunk: int = SSD_CHUNK):
     """Chunked SSD scan plus the D-skip.
 
@@ -123,13 +114,10 @@ def apply_ssm_layer(cfg, p: Params, x: torch.Tensor, *, mode: str,
     if mode == "decode":
         full = torch.cat([cache["conv"], conv_in.to(cache["conv"].dtype)],
                          dim=1)                                   # (B,W,C)
-        acc = full[:, 0].float() * p["conv_w"][0].float()
-        for i in range(1, w + 1):
-            acc = acc + full[:, i].float() * p["conv_w"][i].float()
-        conv_out = F.silu(acc.to(x.dtype) + p["conv_b"])[:, None]
+        conv_out = F.silu(conv_step(full, p["conv_w"], p["conv_b"]))[:, None]
         new_conv = full[:, 1:]
     elif mode == "prefill":
-        conv_out = _causal_conv(conv_in, p["conv_w"], p["conv_b"])
+        conv_out = F.silu(causal_conv(conv_in, p["conv_w"], p["conv_b"]))
         new_conv = F.pad(conv_in, (0, 0, w, 0))[:, -w:]
     else:
         raise NotImplementedError(

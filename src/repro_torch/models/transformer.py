@@ -1,6 +1,7 @@
-"""Decoder-only language model, "G" (global attention) and "M" (Mamba-2
-SSD) layers with an optional SwiGLU MLP or a mixture of experts, and a
-tied or untied LM head (port of ``repro/models/transformer.py``).
+"""Decoder-only language model: "G" (global attention), "L" (sliding-
+window attention), "M" (Mamba-2 SSD) and "R" (RG-LRU) layers with an
+optional SwiGLU MLP or a mixture of experts, and a tied or untied LM head
+(port of ``repro/models/transformer.py``).
 
 Parameter and cache trees keep the reference's nested-dict layout and key
 paths: layers of the repeating unit are stacked along a leading axis under
@@ -8,6 +9,12 @@ paths: layers of the repeating unit are stacked along a leading axis under
 carries each batch row's next decode position in ``pos``.  Shape trees
 hold :class:`~repro_torch.models.layers.Leaf` values, so the SSM's fp32
 leaves stay fp32 in a bf16 model.
+
+A windowed ("L") layer whose cache has exactly ``local_window`` slots is a
+ring: position p lives in slot p % window.  With fewer slots than the
+window (a short ``max_len``) its cache is flat, addressed by absolute
+position like a "G" layer's, and reads keep only the last ``window``
+positions.
 
 Unlike the reference, which is functional, cache writes here are made in
 place: ``forward(mode="prefill")`` and ``decode_step`` fill the cache
@@ -21,6 +28,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import hybrid as hybrid_mod
 from repro_torch.models import layers
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -30,8 +38,8 @@ from repro_torch.models.layers import (Leaf, apply_embedding, apply_lm_head,
 
 Params = Dict[str, Any]
 
-ATTN_KINDS = ("G",)
-LAYER_KINDS = ATTN_KINDS + ("M",)
+ATTN_KINDS = ("G", "L")
+LAYER_KINDS = ATTN_KINDS + ("M", "R")
 
 
 def check_supported(cfg):
@@ -45,10 +53,6 @@ def check_supported(cfg):
         raise NotImplementedError(
             "frontend prefix embeddings are not ported yet (ROADMAP Queue 1 "
             "item 8.5)")
-    if cfg.scale_embeddings:
-        raise NotImplementedError(
-            "scaled embeddings (gemma) are not ported yet (ROADMAP Queue 1 "
-            "item 8.1)")
     if cfg.decode_cache_heads not in (0, cfg.n_kv_heads):
         raise NotImplementedError(
             "decode_cache_heads folding belongs to tensor-parallel serving "
@@ -57,8 +61,8 @@ def check_supported(cfg):
     for kind in unit + tail:
         if kind not in LAYER_KINDS:
             raise NotImplementedError(
-                f"layer kind {kind!r} is not ported yet (ROADMAP Queue 1 "
-                f"item 8: 'L' gemma3, 'R' recurrentgemma)")
+                f"layer kind {kind!r} is not one the port carries "
+                f"({', '.join(LAYER_KINDS)}; the reference has no other)")
 
 
 def default_unit(cfg) -> Tuple[str, ...]:
@@ -100,9 +104,11 @@ def _attn_shapes(cfg) -> Params:
     return p
 
 
+_MIX_SHAPES = {"M": ssm_mod.ssm_shapes, "R": hybrid_mod.rglru_shapes}
+
+
 def layer_shapes(cfg, kind: str) -> Params:
-    p = {"mix": ssm_mod.ssm_shapes(cfg) if kind == "M"
-         else _attn_shapes(cfg)}
+    p = {"mix": _MIX_SHAPES.get(kind, _attn_shapes)(cfg)}
     if cfg.d_ff > 0:
         d = cfg.d_model
         p["ffn_ln"] = Leaf((d,))
@@ -136,15 +142,21 @@ def abstract_params(cfg) -> Params:
 def _layer_cache_shape(cfg, kind: str, batch: int, cache_len: int):
     if kind == "M":
         return ssm_mod.ssm_cache_shapes(cfg, batch)
-    shape = (batch, cache_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    if kind == "R":
+        return hybrid_mod.rglru_cache_shapes(cfg, batch)
+    c = cache_len
+    if kind == "L" and cfg.local_window:
+        c = min(cfg.local_window, cache_len)
+    shape = (batch, c, cfg.n_kv_heads, cfg.resolved_head_dim)
     return {"k": Leaf(shape), "v": Leaf(shape)}
 
 
 def abstract_cache(cfg, batch: int, cache_len: int) -> Params:
     """Decode-state tree as :class:`Leaf` shapes: per-layer KV buffers of
-    ``cache_len`` slots or SSM conv and state buffers, plus the per-slot
-    int32 ``pos`` vector (B,).  (The reference's ``ring`` argument shapes
-    windowed layers, which are not ported yet.)"""
+    ``cache_len`` slots (``min(local_window, cache_len)`` for windowed
+    layers, the reference's ``ring=True`` layout), SSM conv and state
+    buffers or RG-LRU conv and state buffers, plus the per-slot int32
+    ``pos`` vector (B,)."""
     check_supported(cfg)
     unit, n_groups, tail = split_layers(cfg)
     group = {f"slot{i}": _layer_cache_shape(cfg, k, batch, cache_len)
@@ -177,28 +189,45 @@ def init_cache(cfg, batch: int, cache_len: int, *, device="cpu") -> Params:
 # attention layer
 # ---------------------------------------------------------------------------
 
-def _write_prefill_cache(cache_kv: torch.Tensor,
-                         full: torch.Tensor) -> torch.Tensor:
+def _write_prefill_cache(cache_kv: torch.Tensor, full: torch.Tensor,
+                         window: int, lengths: torch.Tensor) -> torch.Tensor:
     """Write prefill keys/values (B,S,..) into a cache buffer (B,C,..), in
-    place, and return the buffer.  Slots beyond a row's length hold
-    whatever the padded positions produced; decode masks them by its
-    per-slot valid length.  (The reference's ring rule for windowed layers
-    is not ported yet.)"""
-    n = min(full.shape[1], cache_kv.shape[1])
+    place, and return the buffer.
+
+    ``lengths`` (B,) is each row's valid (un-padded) length.  A ring
+    (C == window <= S) keeps the reference's invariant: slot j holds the
+    latest valid position p with p % window == j, gathered per row, since
+    right-padded rows end at different positions (``transformer.py:
+    114-141``); a row shorter than j + 1 positions reads position 0 there,
+    which decode masks.  Otherwise the first C positions are copied.  Slots
+    beyond a row's length hold whatever the padded positions produced;
+    decode masks them by its per-slot valid length."""
+    b, s = full.shape[0], full.shape[1]
+    c = cache_kv.shape[1]
+    if window and c == window and s >= window:
+        lens = lengths.to(device=full.device, dtype=torch.long).reshape(b, 1)
+        j = torch.arange(window, device=full.device)[None, :]
+        p = torch.clamp(lens - 1 - torch.remainder(lens - 1 - j, window),
+                        0, s - 1)                                  # (B, W)
+        rows = torch.arange(b, device=full.device)[:, None]
+        cache_kv.copy_(full[rows, p])
+        return cache_kv
+    n = min(s, c)
     cache_kv[:, :n].copy_(full[:, :n])
     return cache_kv
 
 
 def _write_decode_cache(cache_kv: torch.Tensor, new: torch.Tensor,
-                        pos_b: torch.Tensor):
+                        pos_b: torch.Tensor, *, ring: bool = False):
     """Write row b's new key/value (B, Hkv, D) at slot ``pos_b[b] % C``, in
-    place.  A position >= C (an idle slot left ticking) drops its write
-    instead of wrapping onto slot 0, as the reference's non-ring rule does
-    (``transformer.py:216-234``).  A dropped row rewrites slot 0 with its
-    own current bytes, so no host sync is needed to find the dropped rows."""
+    place.  A ring wraps and never drops.  A flat buffer drops a position
+    >= C (an idle slot left ticking) instead of wrapping onto slot 0, as
+    the reference's non-ring rule does (``transformer.py:216-234``); a
+    dropped row rewrites slot 0 with its own current bytes, so no host sync
+    is needed to find the dropped rows."""
     b, c = cache_kv.shape[0], cache_kv.shape[1]
     rows = torch.arange(b, device=cache_kv.device)
-    hit = pos_b < c
+    hit = torch.ones_like(pos_b, dtype=torch.bool) if ring else pos_b < c
     slot = torch.where(hit, pos_b % c, torch.zeros_like(pos_b)).long()
     old = cache_kv[rows, slot]
     cache_kv[rows, slot] = torch.where(hit[:, None, None],
@@ -206,10 +235,13 @@ def _write_decode_cache(cache_kv: torch.Tensor, new: torch.Tensor,
 
 
 def _apply_attn(cfg, p: Params, x: torch.Tensor, *, mode: str, cache,
-                pos: torch.Tensor):
+                pos: torch.Tensor, kind: str):
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
+    window = cfg.local_window if kind == "L" else 0
     theta = cfg.rope_theta
+    if kind == "L" and cfg.rope_theta_local is not None:
+        theta = cfg.rope_theta_local
     residual = x
     xn = apply_rmsnorm(p["ln"], x, cfg.norm_eps)
     q = linear(xn, p["wq"]).reshape(b, s, cfg.n_heads, hd)
@@ -223,19 +255,21 @@ def _apply_attn(cfg, p: Params, x: torch.Tensor, *, mode: str, cache,
         pos_b = pos.to(torch.int32).expand(b) if pos.dim() == 0 else pos
         q = apply_rope(q, pos_b[:, None], theta)
         k = apply_rope(k, pos_b[:, None], theta)
-        _write_decode_cache(cache["k"], k[:, 0], pos_b)
-        _write_decode_cache(cache["v"], v[:, 0], pos_b)
+        ring = bool(window) and cache["k"].shape[1] == window
+        _write_decode_cache(cache["k"], k[:, 0], pos_b, ring=ring)
+        _write_decode_cache(cache["v"], v[:, 0], pos_b, ring=ring)
         out = attn_mod.decode_attention(q, cache["k"], cache["v"], pos_b + 1,
-                                        window=0, ring=False)
+                                        window=window, ring=ring)
     elif mode == "prefill":
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device)[None].expand(b, s)
         q = apply_rope(q, positions, theta)
         k = apply_rope(k, positions, theta)
-        # padded positions never reach a valid query under the causal mask
-        _write_prefill_cache(cache["k"], k)
-        _write_prefill_cache(cache["v"], v)
-        out = attn_mod.prefill_attention(q, k, v, causal=True, window=0)
+        # padded positions never reach a valid query under the causal mask;
+        # in prefill mode ``pos`` carries the per-row valid lengths
+        _write_prefill_cache(cache["k"], k, window, pos)
+        _write_prefill_cache(cache["v"], v, window, pos)
+        out = attn_mod.prefill_attention(q, k, v, causal=True, window=window)
     else:
         raise NotImplementedError(
             f"mode {mode!r}: the training forward is not ported yet "
@@ -252,12 +286,15 @@ def apply_layer(cfg, kind: str, p: Params, x, *, mode: str, cache, pos):
     if kind == "M":
         x, new_cache = ssm_mod.apply_ssm_layer(cfg, p["mix"], x, mode=mode,
                                                cache=cache)
+    elif kind == "R":
+        x, new_cache = hybrid_mod.apply_rglru_layer(cfg, p["mix"], x,
+                                                    mode=mode, cache=cache)
     elif kind in ATTN_KINDS:
         x, new_cache = _apply_attn(cfg, p["mix"], x, mode=mode, cache=cache,
-                                   pos=pos)
+                                   pos=pos, kind=kind)
     else:
-        raise NotImplementedError(f"layer kind {kind!r} is not ported yet "
-                                  f"(ROADMAP Queue 1 item 8)")
+        raise NotImplementedError(f"layer kind {kind!r} is not one the port "
+                                  f"carries ({', '.join(LAYER_KINDS)})")
     if cfg.d_ff > 0:
         xn = apply_rmsnorm(p["ffn_ln"], x, cfg.norm_eps)
         if cfg.family == "moe":
@@ -292,6 +329,17 @@ def _run_stack(cfg, params, x, *, mode: str, caches, pos):
     return x, caches
 
 
+def embed(cfg, params, tokens):
+    """Token embeddings, times sqrt(d_model) for gemma configs: the scale
+    is rounded to the model dtype first, as the reference does (50.5 in
+    bf16 at d_model 2560, not 50.596)."""
+    x = apply_embedding(params["embed"], tokens)
+    if cfg.scale_embeddings:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
+                             device=x.device)
+    return x
+
+
 def logits_from_hidden(cfg, params, x):
     x = apply_rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if cfg.tie_embeddings:
@@ -311,7 +359,7 @@ def forward(cfg, params, tokens, *, mode: str = "prefill", caches=None,
         raise NotImplementedError(
             "forward runs in prefill mode with a cache; the training forward "
             "is not ported yet (ROADMAP Queue 1 item 14)")
-    x = apply_embedding(params["embed"], tokens)
+    x = embed(cfg, params, tokens)
     b, s = tokens.shape
     if lengths is None:
         pos = torch.full((b,), s, dtype=torch.int32, device=tokens.device)
@@ -352,7 +400,7 @@ def decode_step(cfg, params, caches, token, pos=None, *, live=None):
         pos = caches["pos"]
     pos = torch.as_tensor(pos, dtype=torch.int32, device=token.device)
     pos = pos.expand(b) if pos.dim() == 0 else pos
-    x = apply_embedding(params["embed"], token)
+    x = embed(cfg, params, token)
     x, caches = _run_stack(cfg, params, x, mode="decode", caches=caches,
                            pos=pos)
     logits = logits_from_hidden(cfg, params, x)

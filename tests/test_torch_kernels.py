@@ -128,8 +128,13 @@ def test_wrappers_send_cpu_tensors_to_plain_version():
     for got, want in zip(ops.ssd_scan(x, dt, a, b, b, chunk=2),
                          ops.ssd_scan_ref(x, dt, a, b, b, chunk=2)):
         assert torch.equal(got, want)
+    a, b = _t(rng.uniform(0.1, 0.9, (2, 5, 3))), _t(rng.standard_normal(
+        (2, 5, 3)))
+    for got, want in zip(ops.rglru_scan(a, b), ops.rglru_scan_ref(a, b)):
+        assert torch.equal(got, want)
     assert ops.launch_counts() == {"matmul": 0, "flash_attention": 0,
-                                   "moe_ffn": 0, "ssd_scan": 0}
+                                   "moe_ffn": 0, "ssd_scan": 0,
+                                   "rglru_scan": 0}
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():

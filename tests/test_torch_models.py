@@ -252,5 +252,5 @@ def test_unported_paths_raise():
                         live=torch.ones(1, dtype=torch.bool))
     with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
         ttf.forward(cfg, params, tok, mode="train")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ttf.check_supported(cfg.replace(layer_pattern=("L", "G")))
+    with pytest.raises(NotImplementedError, match="item 8.5"):
+        ttf.check_supported(cfg.replace(frontend="vision"))

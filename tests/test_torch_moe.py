@@ -306,7 +306,8 @@ def test_engine_streams_equal_reference_generate_and_jax_engine(arch):
     assert stats["requests"] == len(TRAFFIC)
     assert stats["refill_admissions"] >= 1
     assert ops.launch_counts() == {"matmul": 0, "flash_attention": 0,
-                                   "moe_ffn": 0, "ssd_scan": 0}  # CPU: plain
+                                   "moe_ffn": 0, "ssd_scan": 0,
+                                   "rglru_scan": 0}  # CPU: plain
     jeng = JServingEngine(arch, JEngineConfig(batch=2, max_len=64,
                                               clock="step"), params=jparams)
     jreqs = _submit(jeng, jeng.cfg.vocab_size)
