@@ -11,11 +11,18 @@ and the script exits non-zero:
 1. device   the card (``nvidia-smi`` name and power limit), CUDA and torch
             versions; TF32 is switched off for matmul and cuDNN;
 2. build    compiles the CUDA kernels from ``kernels/csrc`` with nvcc, one
-            process per source, all started together;
+            process per source, all started together; prints K2's kernels'
+            registers, shared memory and spills (``-Xptxas -v``) and fails
+            unless each bf16 kernel's SASS holds HGMMA (``cuobjdump``);
 3. matmul   K2 against ``matmul_ref`` at the shapes of the served paths
             (qwen3-0.6b, olmoe-1b-7b, mamba2-130m and recurrentgemma-2b),
             bf16 and f32, with kernel, plain, library (``torch.matmul``, a
-            yardstick only) and bound times;
+            yardstick only) and bound times (device time: a sleep kernel
+            holds the card while the calls queue), the wrapper's host us
+            per call, and the plan (S, tiles) of each product; then at every
+            served (K, N), heads included, rows of a bf16 product at M in
+            {1, 2, 4, 8} must equal the rows computed alone (M = 37 and 256
+            reported);
 4. flash    K1 against ``flash_attention_ref`` over GQA, MHA, causal,
             window, ragged and right-aligned cases, with the same times
             (library: ``scaled_dot_product_attention``); at head dim 256
@@ -38,7 +45,8 @@ and the script exits non-zero:
 8. serve    qwen3-0.6b at full width (28 layers, d 1024, vocab 153,600) in
             bf16 serving 8 staggered requests; every stream must equal
             ``reference_generate``, and every kernel must have launched
-            exactly the expected number of times;
+            exactly the expected number of times; the boot's peak memory
+            and serving's own are reported apart (as in 9-11);
 9. serve_olmoe  olmoe-1b-7b at full width (16 layers, d 2048, 64 experts
             top-8, untied head over vocab 51,200) in bf16 serving 6
             staggered requests, with the same checks for K1, K2 and K3;
@@ -130,18 +138,57 @@ def _write_record():
 
 def cuda_ms(torch, fn, iters=10, warmup=2):
     """Mean device time of ``fn`` in ms, by CUDA events around ``iters``
-    back-to-back calls after ``warmup`` calls."""
+    back-to-back calls after ``warmup`` calls.  A sleep kernel holds the
+    card while the host queues the calls, so the events time the device
+    and not the host's launches (timed apart, :func:`host_us`)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    # cycles at up to 2 GHz for 1.5x the host's queueing time, capped
+    torch.cuda._sleep(int(min(2e9 * (1.5 * enqueue_s * iters + 1e-4), 4e8)))
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_us(torch, fn, iters=50):
+    """Mean host time of one call of ``fn`` in us, without waiting for the
+    card (what the host spends to queue it)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = 1e6 * (time.perf_counter() - t0) / iters
+    torch.cuda.synchronize()
+    return us
+
+
+def sass_counts(library, opcode):
+    """Lines of ``opcode`` in each function of ``library``'s SASS
+    (``cuobjdump -sass``), by mangled name."""
+    cuobjdump = "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(cuobjdump):
+        cuobjdump = "cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(library)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    fn, counts = None, {}
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+        elif fn is not None and opcode in line:
+            counts[fn] = counts.get(fn, 0) + 1
+    return counts
 
 
 def bound_ms(nbytes, flops, dtype_name):
@@ -241,7 +288,7 @@ def main():
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_ref)
-    from repro_torch.kernels.matmul import matmul, matmul_ref
+    from repro_torch.kernels.matmul import matmul, matmul_ref, plan, route
     from repro_torch.kernels.moe_dispatch import moe_ffn, moe_ffn_ref
     from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_ref
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
@@ -269,10 +316,33 @@ def main():
     # -- 2. build --------------------------------------------------------
     with phase("build") as out:
         t0 = time.perf_counter()
-        _build.library()
+        lib = _build.library()
         out.update(build_s=round(time.perf_counter() - t0, 3),
                    nvcc_s=_build.last_build_seconds(),
                    library=str(_build.BUILD_DIR / _build.LIB_NAME))
+        # K2's kernels as ptxas built them (-Xptxas -v), and the tensor-core
+        # instructions in their SASS: every bf16 kernel must hold HGMMA
+        k2_build = []
+        hgmma = sass_counts(_build.BUILD_DIR / _build.LIB_NAME, "HGMMA")
+        for r in _build.ptxas_report("matmul"):
+            wgmma = "wgmma" in r["function"]
+            nt = 128 if "ILi128E" in r["function"] else 64
+            r.update(route="bf16 wgmma" if wgmma else "fp32 CUDA cores",
+                     dynamic_smem=lib.repro_matmul_smem_bytes(nt)
+                     if wgmma else 0,
+                     hgmma=hgmma.get(r["function"], 0))
+            k2_build.append(r)
+            print(f"K2 {r['route']}: {r['function']}: {r.get('registers')} "
+                  f"registers, {r.get('static_smem')} B static + "
+                  f"{r['dynamic_smem']} B dynamic shared memory, "
+                  f"{r.get('spill_stores')} B spill stores, "
+                  f"{r.get('spill_loads')} B spill loads, {r['hgmma']} HGMMA",
+                  flush=True)
+        wg = [r for r in k2_build if r["route"] == "bf16 wgmma"]
+        if len(wg) != 4 or not all(r["hgmma"] > 0 for r in wg):
+            raise AssertionError(f"K2's bf16 kernels without HGMMA in their "
+                                 f"SASS: {k2_build}")
+        out["k2_kernels"] = k2_build
 
     gen = torch.Generator(device="cpu").manual_seed(0)
 
@@ -396,25 +466,76 @@ def main():
                 ms = cuda_ms(torch, lambda: matmul(x, nxt()))
                 plain = cuda_ms(torch, lambda: matmul_ref(x, nxt()))
                 lib = cuda_ms(torch, lambda: torch.matmul(x, nxt()))
+                k2_host = host_us(torch, lambda: matmul(x, w))
+                lib_host = host_us(torch, lambda: torch.matmul(x, w))
                 del copies, w
                 b_ms, b_by = bound_ms(
                     (m * k + k * n + m * n) * x.element_size(),
                     2 * m * n * k, dname)
+                p = plan(k, n, dt)
+                x_rows, split = route(p, m, n) if dt == torch.bfloat16 \
+                    else (64, False)
                 row = {"dtype": dname, "M": m, "K": k, "N": n,
                        "head": head, "max_abs_err": err,
                        "tol": tol, "ms": ms, "plain_ms": plain,
                        "library_ms": lib, "bound_ms": b_ms,
-                       "bound_by": b_by}
+                       "bound_by": b_by, "bound_share": b_ms / ms,
+                       "host_us": k2_host, "library_host_us": lib_host,
+                       "S": p.segments, "bounds": list(p.bounds),
+                       "tile_n": p.tile_n, "tile_k": p.tile_k,
+                       "x_rows": x_rows, "split": split}
                 checks.append(row)
                 mm[(dname, m, k, n)] = row
+        # bits: rows of a bf16 product at M in {1, 2, 4, 8} must equal the
+        # same rows computed alone, at every served (K, N), heads included;
+        # M = 37 and 256 are reported
+        bits = []
+        for k, n, head in sorted({(k, n, head) for _, k, n, head in cases},
+                                 key=str):
+            x = randn((256, k), torch.bfloat16,
+                      1.0 / math.sqrt(k) if head is None else 1.0)
+            if head == "tied":
+                w = tables.get(("bfloat16", k))
+                if w is None:
+                    w = tables[("bfloat16", k)] = crandn((n, k),
+                                                         torch.bfloat16, 0.02)
+                w = w.t()
+            else:
+                w = randn((k, n), torch.bfloat16,
+                          1.0 if head is None else 0.02)
+            alone = torch.cat([matmul(x[i:i + 1], w) for i in range(256)])
+            row = {"K": k, "N": n, "head": head,
+                   "S": plan(k, n, torch.bfloat16).segments}
+            for m in (1, 2, 4, 8, 37, 256):
+                got = matmul(x[:m], w)
+                row[f"rows_differing_M{m}"] = int(
+                    (got != alone[:m]).any(dim=1).sum())
+            bits.append(row)
+            del w, x, alone
         del table, tables
+        out["bits"] = bits
+        small_m_differ = [r for r in bits if any(
+            r[f"rows_differing_M{m}"] for m in (1, 2, 4, 8))]
+        if small_m_differ:
+            raise AssertionError(f"K2 rows at M <= 8 differ from the rows "
+                                 f"computed alone: {small_m_differ}")
         out["detail"] = checks
         out["checks"] = len(checks)
         out["max_abs_err"] = max(c["max_abs_err"] for c in checks)
+        out["bits_equal_M_le_8"] = True
+        out["bits_equal_M37"] = not any(r["rows_differing_M37"] for r in bits)
+        out["bits_equal_M256"] = not any(r["rows_differing_M256"]
+                                         for r in bits)
         for c in checks:
             emit({"matmul": {key: (round(v, 5) if isinstance(v, float)
                                    else v) for key, v in c.items()}})
+        for r in bits:
+            emit({"matmul_bits": r})
     matmul_err = out["max_abs_err"]
+    matmul_bits = {key: out[key] for key in ("bits_equal_M_le_8",
+                                             "bits_equal_M37",
+                                             "bits_equal_M256")}
+    matmul_build = RECORD["phases"][1]["k2_kernels"]
 
     def k2_aggregate(dname, m, layer_products, layers, head):
         """K2 numbers for one serving pass at batch rows ``m``: each
@@ -422,16 +543,21 @@ def main():
         pass with layers of two kinds gives its products counted over the
         whole depth and ``layers`` 1.)"""
         agg = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-               "bound_ms": 0.0}
+               "bound_ms": 0.0, "host_us": 0.0, "library_host_us": 0.0}
         nbytes = flops = 0
         for (k, n), c in layer_products + [(head, None)]:
             times = layers * c if c is not None else 1
             row = mm[(dname, m, k, n)]
-            for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            for key in agg:
                 agg[key] += times * row[key]
             nbytes += times * (m * k + k * n + m * n) * 2
             flops += times * 2 * m * n * k
         agg["bound_ms"], agg["bound_by"] = bound_ms(nbytes, flops, dname)
+        agg["bound_share"] = agg["bound_ms"] / agg["ms"]
+        # what the host spends queueing the pass's products
+        agg["host_ms"] = agg.pop("host_us") / 1e3
+        agg["library_host_ms"] = agg.pop("library_host_us") / 1e3
+        agg["library_factor"] = agg["ms"] / agg["library_ms"]
         return agg
 
     # -- 4. K1 flash attention -------------------------------------------
@@ -764,6 +890,11 @@ def main():
             prefill_len=PREFILL_LEN, clock="step", seed=0), device="cuda")
         torch.cuda.synchronize()
         boot_s = time.perf_counter() - t0
+        # the boot's peak (weights drawn in fp32, then cast), then serving's
+        # own from here on
+        boot_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        after_boot = torch.cuda.memory_allocated()
         cfg = eng.cfg
         assert eng.params["embed"].dtype == torch.bfloat16
         rng = np.random.default_rng(0)
@@ -835,8 +966,12 @@ def main():
             occupancy=stats["occupancy"], launches=launches,
             launches_per_pass=per_pass,
             admission_ms=sorted(admit_ms[1:])[1], profile=profile,
-            peak_mem_gib=round(peak / 2 ** 30, 3),
+            peak_mem_gib=round(max(peak, boot_peak) / 2 ** 30, 3),
+            boot_peak_gib=round(boot_peak / 2 ** 30, 3),
+            serve_peak_gib=round(peak / 2 ** 30, 3),
+            serve_peak_above_boot_gib=round((peak - after_boot) / 2 ** 30, 3),
             mem_at_start_gib=round(base / 2 ** 30, 3),
+            mem_after_boot_gib=round(after_boot / 2 ** 30, 3),
             streams_equal_reference=True, card=smi)
         return eng, long_tokens, launches
 
@@ -1138,7 +1273,8 @@ def main():
          "max_abs_err": matmul_err,
          "ms": k2["ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
-         "library_ms": k2["library_ms"],
+         "library_ms": k2["library_ms"], "host_ms": k2["host_ms"],
+         "library_host_ms": k2["library_host_ms"],
          "per": f"one qwen3-0.6b decode step: bf16 M={BATCH}, "
                 f"{n_layers}x7 projections + tied head",
          "prefill_per_admission": k2_prefill,
@@ -1147,7 +1283,8 @@ def main():
          "mamba2_per_decode_step": k2_ssm,
          "mamba2_prefill_per_admission": k2_ssm_prefill,
          "recurrentgemma_per_decode_step": k2_rg,
-         "recurrentgemma_prefill_per_admission": k2_rg_prefill},
+         "recurrentgemma_prefill_per_admission": k2_rg_prefill,
+         "bits": matmul_bits, "build": matmul_build},
         {"name": "moe_ffn", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/moe_ffn.cu",
          "replaces": "src/repro/kernels/moe_dispatch.py:38",

@@ -16,12 +16,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -29,7 +30,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 LIB_NAME = "libkernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # dtype codes of the C interface (csrc/common.cuh)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -45,6 +46,7 @@ class _Library:
     def __init__(self):
         self.cdll: Optional[ctypes.CDLL] = None
         self.build_s: Optional[float] = None   # None: loaded a current build
+        self.logs: Dict[str, str] = {}          # nvcc output by source stem
 
 
 _LIB = _Library()
@@ -96,8 +98,9 @@ def build() -> Path:
             procs.append((cmd, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
         errors = []
-        for cmd, _, proc in procs:
+        for cmd, obj, proc in procs:
             out, _ = proc.communicate()
+            _LIB.logs[obj.stem] = out.decode(errors="replace")
             if proc.returncode != 0:
                 errors.append(f"$ {' '.join(cmd)}\n{out.decode(errors='replace')}")
         if errors:
@@ -135,10 +138,40 @@ def last_build_seconds() -> Optional[float]:
     return _LIB.build_s
 
 
+def ptxas_report(stem: str) -> List[dict]:
+    """Registers, spills and static shared memory of each kernel compiled
+    from ``csrc/<stem>.cu`` in this process's build, from ``-Xptxas -v``
+    (empty where no build ran)."""
+    rows, cur = [], None
+    for line in _LIB.logs.get(stem, "").splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = {"function": m.group(1)}
+            rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem"] = int(m.group(1)) if m else 0
+    return rows
+
+
 def _bind(cdll: ctypes.CDLL):
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    cdll.repro_matmul.argtypes = [p, p, p, i, i, i, ll, ll, ll, ll, i, p]
+    cdll.repro_matmul.argtypes = [p, p, p, i, i, i, ll, ll, ll, ll, i, p, p, i,
+                                  i, p]
     cdll.repro_matmul.restype = i
+    cdll.repro_matmul_refusal.argtypes = []
+    cdll.repro_matmul_refusal.restype = ctypes.c_char_p
+    cdll.repro_matmul_smem_bytes.argtypes = [i]
+    cdll.repro_matmul_smem_bytes.restype = i
     cdll.repro_flash_attention.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
                                            i, p]
     cdll.repro_flash_attention.restype = i
@@ -157,6 +190,14 @@ def check(err: int, what: str):
         raise RuntimeError(f"{what} failed to launch: cudaError_t {err}")
 
 
-def stream_handle() -> int:
-    """PyTorch's current CUDA stream as an integer for the C interface."""
-    return torch.cuda.current_stream().cuda_stream
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def stream_handle(device_index: Optional[int] = None) -> int:
+    """PyTorch's current CUDA stream as an integer for the C interface (a
+    fraction of a microsecond through the raw accessor where PyTorch has
+    it, some microseconds through a ``Stream`` object where not)."""
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(torch.cuda.current_device() if device_index is None
+                           else device_index)
+    return torch.cuda.current_stream(device_index).cuda_stream

@@ -1,41 +1,74 @@
-// K2: tiled matrix product (M,K) @ (K,N) -> (M,N) for Hopper (sm_90a).
+// K2: matrix product (M,K) @ (K,N) -> (M,N) for Hopper (sm_90a).
 //
-// Replaces the Pallas kernel repro/kernels/matmul.py:matmul (_kernel).  As
-// there, an fp32 accumulator stays resident across the whole K loop and the
-// output tile is written once, in x's dtype.
+// Replaces the Pallas kernel repro/kernels/matmul.py:matmul (_kernel, its
+// pl.pallas_call at :54): an fp32 accumulator over K, one output write in
+// x's dtype.  Two routes, chosen by dtype in repro_matmul:
 //
-// Design: one block of 256 threads owns a 64x64 output tile; each thread
-// holds a 4x4 fp32 micro-tile in registers.  K advances in steps of 32:
-// the x tile (64x32) and the w tile (32x64) are staged in shared memory as
-// fp32, zero-filled past the ragged edges of M, N and K, so any shape is
-// taken.  The next step's tiles are fetched into registers while the
-// current step is multiplied, so loads overlap math instead of waiting one
-// by one.  w is read through its strides: row-major (K,N) weights load
-// with n fastest, and a K-contiguous view (the tied LM head reads the
-// (V,d) embedding table in place as (d,V)) loads with k fastest, so both
-// layouts coalesce and no transposed copy is ever made.
+// bf16 (every served product): wgmma fed by TMA.
+//   What bounds it (H100 SXM, 3.35 TB/s, 989 TFLOP/s bf16): at decode M is
+//   the batch (4), each weight byte carries 4 FLOP, far under the ridge of
+//   ~295 FLOP per byte, so a product costs its weight bytes (qwen3-0.6b's
+//   tied head streams 315 MB, ~94 us; a recurrentgemma-2b step ~5.3 GB,
+//   ~1.6 ms).  At admission (M = 256) a projection carries 256 FLOP per
+//   weight byte, near the ridge: bytes and tensor cores both bound it.
+//   Design, "swap AB": a block computes a tile of out^T (N,M) = W^T (N,K)
+//   x^T (K,M), so the weights are wgmma's A operand (64 weight columns, the
+//   instruction's m64) and the x rows its n: at M = 4 an n64 instruction
+//   carries 4 live columns where a 64-row tile of x would carry 60 zero
+//   rows.  A producer warp keeps a ring of slabs (64 of K) in flight with
+//   TMA into 128-byte-swizzled shared memory, guarded by full/empty
+//   mbarriers; one consumer warpgroup runs 4 wgmma k16 steps per slab, the
+//   sums in fp32 registers, one slab's group still in flight while the
+//   next is issued.  Row-major (K,N) weights are MN-major for A (wgmma
+//   transposes 16-bit A); the tied head's (V,d) table viewed as (d,V) is
+//   K-major; x (M,K) is K-major for B.  TMA zero-fills the ragged edges of
+//   M, N and K; stores are masked.  Tensor maps are encoded through the
+//   driver entry point (no -lcuda) and cached by what they encode.
+//   Split of K: kernels/matmul.py:plan(k, n, dtype) cuts the slabs into S
+//   segments, segment s = [s*slabs/S, (s+1)*slabs/S), S a function of
+//   (K, N, dtype) alone, chosen so that ceil(N/64) x S blocks fill the 132
+//   SMs about twice at decode.  Each segment sums its k16 steps in order
+//   from zero into p_s; the output is ((p_0 + p_1) + ...) + p_{S-1} in
+//   fp32, rounded once to bf16.  The wrapper picks the route
+//   (matmul.py:route).  Up to SMALL_M = 64 rows every segment is its own
+//   block (grid z = S): the blocks write p_s to an fp32 workspace (S,M,N),
+//   count their arrival on the tile's int32 counter, and the last to
+//   arrive adds the S partials in segment order, writes bf16 and resets the
+//   counter.  Above 64 rows one block walks all S segments and adds them in
+//   registers in the same order, over x tiles of 128 rows (ring of 8) where
+//   that gives every SM a block, else of 64 (ring of 4).  Atomics count
+//   arrivals only and never add values.
+//   M-invariance: a row's bits depend on K, N and the dtype, never on M.
+//   Every M up to the threshold SMALL_M = 64 takes one path (an n64
+//   instruction over one 64-row x tile, the same segments, the same
+//   combine), so the engine's batch-4 decode rows equal the reference's
+//   batch-1 rows bit for bit.  Above 64 the same sums are added in the same
+//   order; they equal the small-M rows as long as the tensor cores round an
+//   element alike at n64 and n128 (on the H100 they do: chip_smoke.py
+//   phase 3 checks M = 37 and 256 too).
+//   Operands must suit TMA: 16-byte aligned bases and row strides that are
+//   multiples of 16 bytes; the wrapper raises on a weight that does not,
+//   and the C entry refuses one (repro_matmul_refusal says why).  There is
+//   no fallback.
 //
-// Batch invariance: every output element sums its K products in the same
-// fixed order (k = 0, 1, ..., K-1, one fused multiply-add each), whatever M
-// is and whichever tile the row falls in.  There is no split-K and no
-// atomic, so a batch-4 decode and a batch-1 reference decode give the same
-// bits per row; the serving engine's token-exactness rests on this.
-//
-// What bounds it on the serving path (H100 SXM, 3.35 TB/s, 989 TFLOP/s bf16):
-// at decode M equals the batch (4), so the products stream their weights
-// once and do ~4 FLOP per weight: the bound is bytes.  The tied head alone
-// streams 1024 x 153,600 x 2 B = 315 MB (~94 us); one decode step streams
-// all ~1.2 GB of weights (~0.36 ms).  At prefill (M = 256) a projection is
-// ~1 GFLOP and sits near the ridge.  This first version uses CUDA-core FMAs
-// and a 64-row tile, so at M = 4 most of each tile is idle and a 1024-wide
-// projection launches only 16 blocks: on the H100 a decode step's products
-// take ~30 ms against the 0.36 ms bound (PERF.md).  wgmma, TMA and a
-// small-M schedule are later work.
+// fp32 (the reduced parity runs): CUDA-core FMAs, unchanged since it was
+//   first written.  One block of 256 threads owns a 64x64 output tile, each
+//   thread a 4x4 fp32 micro-tile; K advances in steps of 32 through fp32
+//   copies in shared memory, zero past the ragged edges, the next step's
+//   tiles fetched into registers while the current one is multiplied.  w
+//   is read through its strides (n-fastest or k-fastest loads).  Every
+//   output element sums k = 0, 1, ..., K-1 in one fixed order whatever M
+//   is.  (wgmma has no fp32 path without TF32, which the port turns off.)
 #include <stdint.h>
+#include <cuda.h>
+
+#include <mutex>
+#include <unordered_map>
 
 #include "common.cuh"
 
-namespace {
+namespace cuda_core {
+
 
 constexpr int BM = 64;
 constexpr int BN = 64;
@@ -159,21 +192,543 @@ cudaError_t launch(const void* x, const void* w, void* out, int M, int N,
   return cudaGetLastError();
 }
 
-}  // namespace
+}  // namespace cuda_core
+
+namespace tc {
+
+constexpr int BN = 64;        // weight columns per block: wgmma's m
+constexpr int BK = 64;        // K per slab: one 128-byte swizzle row of bf16
+constexpr int CONSUMERS = 128;             // one warpgroup
+constexpr int THREADS = CONSUMERS + 32;    // + one producer warp
+constexpr uint32_t A_BYTES = BN * BK * 2;  // one weight slab
+
+// slabs in flight.  x tiles of 64 rows: 4 (66 KB: three blocks share an
+// SM, each streaming its own weights at decode).  Of 128 rows: 8 (193 KB:
+// the block's ~200 registers a thread leave room for one block an SM
+// anyway, so its own ring has to cover the load latency)
+template <int NT>
+__host__ __device__ constexpr int stages() {
+  return NT == 64 ? 4 : 8;
+}
+
+template <int NT>
+__host__ __device__ constexpr uint32_t smem_bytes() {
+  // ring of A and B slabs, full and empty barriers, the last-block flag,
+  // and room to align the ring to 1024 bytes (the 128-byte swizzle atom)
+  return stages<NT>() * (A_BYTES + NT * BK * 2) + 16 * stages<NT>() + 16 +
+         1024;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// wait for the phase of parity ``parity`` to complete; a wait of more than
+// ~2^32 cycles (over a second) can only be a fault, and traps rather than
+// hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  long long start = -1;
+  for (;;) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start < 0)
+      start = clock64();
+    else if (clock64() - start > (1ll << 32))
+      __trap();
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// 2-D TMA load of one box at (c0 innermost, c1) into shared memory
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets, all in 16-byte units
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keep the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma issue and wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ __forceinline__ void bar_consumers() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
+}
+
+// d (64 x n, fp32) += A (64 x 16, from a descriptor) . B (16 x n); TRANS_A
+// 1: A is MN-major in shared memory; scale_d 0 overwrites d
+template <int TRANS_A>
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A));
+}
+
+template <int TRANS_A>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A));
+}
+
+template <int NT, int TRANS_A>
+__device__ __forceinline__ void mma(float (&d)[NT / 2], uint64_t da,
+                                    uint64_t db, int scale_d) {
+  if constexpr (NT == 64)
+    wgmma_m64n64k16<TRANS_A>(d, da, db, scale_d);
+  else
+    wgmma_m64n128k16<TRANS_A>(d, da, db, scale_d);
+}
+
+// Block (blockIdx.x, blockIdx.y, blockIdx.z) = (x tile of NT rows, weight
+// tile of BN columns, segment when split).  W_KMAJOR: the weight map is over
+// a K-contiguous (d,V) view, coordinates (k, n); else over row-major (K,N),
+// coordinates (n, k).  x's map is over (M,K), coordinates (k, m).
+template <int NT, bool W_KMAJOR>
+__global__ void __launch_bounds__(THREADS)
+    wgmma_matmul_kernel(const __grid_constant__ CUtensorMap map_w,
+                        const __grid_constant__ CUtensorMap map_x,
+                        __nv_bfloat16* __restrict__ out,
+                        float* __restrict__ ws, int* __restrict__ counters,
+                        int M, int N, int slabs, int segments, long long som,
+                        int split) {
+  constexpr uint32_t B_BYTES = NT * BK * 2;
+  constexpr int NREG = NT / 2;
+  constexpr int STAGES = stages<NT>();
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t a_ring = base;
+  const uint32_t b_ring = base + STAGES * A_BYTES;
+  const uint32_t full = b_ring + STAGES * B_BYTES;  // STAGES x 8 bytes
+  const uint32_t empty = full + 8 * STAGES;         // STAGES x 8 bytes
+  int* last_flag = reinterpret_cast<int*>(
+      smem_raw + (empty + 8 * STAGES - raw));
+
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.x * NT;
+  const int n0 = blockIdx.y * BN;
+  const int seg_lo = split ? blockIdx.z : 0;
+  const int seg_hi = split ? blockIdx.z + 1 : segments;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {
+    // producer: one thread keeps the ring full, slab after slab
+    if (tid == CONSUMERS) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int kb = seg_lo * slabs / segments;
+           kb < seg_hi * slabs / segments; ++kb) {
+        mbar_wait(empty + 8 * stage, phase ^ 1);
+        mbar_expect_tx(full + 8 * stage, A_BYTES + B_BYTES);
+        if (W_KMAJOR)
+          tma_load(a_ring + stage * A_BYTES, &map_w, kb * BK, n0,
+                   full + 8 * stage);
+        else
+          tma_load(a_ring + stage * A_BYTES, &map_w, n0, kb * BK,
+                   full + 8 * stage);
+        tma_load(b_ring + stage * B_BYTES, &map_x, kb * BK, m0,
+                 full + 8 * stage);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: one warpgroup, D (64 weight columns x NT x rows) in fp32
+  float acc[NREG], total[NREG];
+#pragma unroll
+  for (int i = 0; i < NREG; ++i) acc[i] = total[i] = 0.f;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int seg = seg_lo; seg < seg_hi; ++seg) {
+    // segment seg covers slabs [seg * slabs / S, (seg + 1) * slabs / S)
+    const int k_lo = seg * slabs / segments;
+    const int k_hi = (seg + 1) * slabs / segments;
+    int prev = -1;
+    for (int kb = k_lo; kb < k_hi; ++kb) {
+      mbar_wait(full + 8 * stage, phase);
+      const uint32_t a = a_ring + stage * A_BYTES;
+      const uint32_t b = b_ring + stage * B_BYTES;
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        // K-major tiles step 32 bytes along their swizzled rows; the
+        // MN-major weight tile steps two 8-row (1024-byte) groups of k, the
+        // stride between k groups (its only stride that m64 uses) given
+        // in both offset fields
+        const uint64_t da = W_KMAJOR ? desc(a + 32 * kk, 16, 1024)
+                                     : desc(a + 2048 * kk, 1024, 1024);
+        const uint64_t db = desc(b + 32 * kk, 16, 1024);
+        mma<NT, W_KMAJOR ? 0 : 1>(acc, da, db, (kb > k_lo || kk > 0) ? 1 : 0);
+      }
+      wgmma_commit();
+      fence_regs(acc);
+      // the previous slab's products are done: hand its stage back
+      wgmma_wait<1>();
+      if (prev >= 0) mbar_arrive(empty + 8 * prev);
+      prev = stage;
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (prev >= 0) mbar_arrive(empty + 8 * prev);
+    // segments are added in order, p_0 first: ((p_0 + p_1) + p_2) ...
+#pragma unroll
+    for (int i = 0; i < NREG; ++i)
+      total[i] = seg == seg_lo ? acc[i] : __fadd_rn(total[i], acc[i]);
+  }
+
+  // accumulator fragment: value 4c + r of thread (warp w, lane l) is weight
+  // column w*16 + l/4 (+8 for r >= 2) and x row 8c + 2(l%4) (+1 for odd r)
+  const int warp = tid / 32, lane = tid % 32;
+  const int n_base = n0 + warp * 16 + (lane >> 2);
+  const int m_base = m0 + 2 * (lane & 3);
+  if (!split) {
+#pragma unroll
+    for (int c = 0; c < NT / 8; ++c)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int n = n_base + (r >> 1) * 8, m = m_base + 8 * c + (r & 1);
+        if (m < M && n < N)
+          out[(long long)m * som + n] = __float2bfloat16_rn(total[4 * c + r]);
+      }
+    return;
+  }
+  float* part = ws + (long long)blockIdx.z * M * N;
+#pragma unroll
+  for (int c = 0; c < NT / 8; ++c)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int n = n_base + (r >> 1) * 8, m = m_base + 8 * c + (r & 1);
+      if (m < M && n < N) part[(long long)m * N + n] = total[4 * c + r];
+    }
+  __threadfence();
+  bar_consumers();
+  if (tid == 0) {
+    int* cnt = counters + blockIdx.y;
+    const int last = atomicAdd(cnt, 1) == segments - 1;
+    if (last) *cnt = 0;  // ready for the next launch
+    *last_flag = last;
+  }
+  bar_consumers();
+  if (!*last_flag) return;
+  __threadfence();
+  // the last block of the tile adds the S partials in segment order
+  const int rows = min(NT, M - m0);
+  for (int i = tid; i < rows * BN; i += CONSUMERS) {
+    const int m = m0 + i / BN, n = n0 + i % BN;
+    if (n >= N) continue;
+    const float* p = ws + (long long)m * N + n;
+    float s = __ldcg(p);
+    for (int seg = 1; seg < segments; ++seg)
+      s = __fadd_rn(s, __ldcg(p + (long long)seg * M * N));
+    out[(long long)m * som + n] = __float2bfloat16_rn(s);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// tensor maps, encoded on the host through the driver entry point (no
+// -lcuda), cached by everything they encode: a map is a pure function of
+// (pointer, dims, row stride, box), so a hit is always the right map
+// ---------------------------------------------------------------------------
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return err == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+struct MapKey {
+  uint64_t ptr, inner, outer, stride, box;
+  bool operator==(const MapKey& o) const {
+    return ptr == o.ptr && inner == o.inner && outer == o.outer &&
+           stride == o.stride && box == o.box;
+  }
+};
+struct MapKeyHash {
+  size_t operator()(const MapKey& k) const {
+    uint64_t h = k.ptr;
+    for (uint64_t v : {k.inner, k.outer, k.stride, k.box})
+      h = (h ^ v) * 0x100000001b3ull;
+    return static_cast<size_t>(h);
+  }
+};
+struct Map {
+  alignas(64) CUtensorMap m;
+};
+
+// a bf16 (outer, inner) map with row stride ``stride`` bytes and boxes of
+// (box_outer, 64): 128 bytes of the inner dimension, swizzled; out-of-range
+// elements read as zero
+bool map_2d(CUtensorMap* out, const void* ptr, uint64_t inner, uint64_t outer,
+            uint64_t stride, uint32_t box_outer) {
+  // ctypes calls release the GIL: threads may meet here
+  static std::mutex lock;
+  static std::unordered_map<MapKey, Map, MapKeyHash> cache;
+  const std::lock_guard<std::mutex> hold(lock);
+  const MapKey key{reinterpret_cast<uint64_t>(ptr), inner, outer, stride,
+                   box_outer};
+  auto it = cache.find(key);
+  if (it != cache.end()) {
+    *out = it->second.m;
+    return true;
+  }
+  EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  if (cache.size() >= 4096) cache.clear();
+  Map map;
+  const cuuint64_t dims[2] = {inner, outer};
+  const cuuint64_t strides[1] = {stride};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(BK), box_outer};
+  const cuuint32_t elem[2] = {1, 1};
+  if (encode(&map.m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+             const_cast<void*>(ptr), dims, strides, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return false;
+  cache.emplace(key, map);
+  *out = map.m;
+  return true;
+}
+
+template <int NT, bool W_KMAJOR>
+cudaError_t launch_kernel(const CUtensorMap& mw, const CUtensorMap& mx,
+                          void* out, void* ws, void* counters, int M, int N,
+                          int slabs, int segments, long long som, bool split,
+                          cudaStream_t stream) {
+  constexpr uint32_t smem = smem_bytes<NT>();
+  // the opt-in above 48 KB of shared memory, once per device
+  static bool ready[64] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device >= 64) return cudaErrorInvalidDevice;
+  if (!ready[device]) {
+    err = cudaFuncSetAttribute(wgmma_matmul_kernel<NT, W_KMAJOR>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return err;
+    ready[device] = true;
+  }
+  const dim3 grid((M + NT - 1) / NT, (N + BN - 1) / BN, split ? segments : 1);
+  wgmma_matmul_kernel<NT, W_KMAJOR><<<grid, THREADS, smem, stream>>>(
+      mw, mx, static_cast<__nv_bfloat16*>(out), static_cast<float*>(ws),
+      static_cast<int*>(counters), M, N, slabs, segments, som, split ? 1 : 0);
+  return cudaGetLastError();
+}
+
+// why this thread's last call refused its operands ("" if it did not)
+thread_local const char* refusal = "";
+
+cudaError_t refuse(const char* why) {
+  refusal = why;
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t launch(const void* x, const void* w, void* out, int M, int N,
+                   int K, long long sxm, long long swk, long long swn,
+                   long long som, void* ws, void* counters, int segments,
+                   int nt, cudaStream_t stream) {
+  refusal = "";
+  // TMA's rules: 16-byte aligned bases, row strides in multiples of 16 bytes
+  // (row-major (K,N) weights are read n-fastest, a K-contiguous view k-fastest)
+  const bool w_kmajor = swn != 1;
+  const long long w_row = w_kmajor ? swn : swk;
+  if ((w_kmajor && swk != 1) || w_row < (w_kmajor ? K : N) || sxm < K)
+    return refuse("w is neither row-major nor K-contiguous, or x overlaps");
+  if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w)) % 16 ||
+      (sxm * 2) % 16 || (w_row * 2) % 16)
+    return refuse("TMA needs 16-byte aligned bases and row strides");
+  const int slabs = (K + BK - 1) / BK;
+  if (segments <= 0 || segments > slabs)
+    return refuse("segments must number 1 to the slabs of K");
+  // split: each segment its own block, over a single x tile of nt rows
+  const bool split = ws != nullptr;
+  if ((nt != 64 && nt != 128) || (split && (counters == nullptr || M > nt)))
+    return refuse("x tile rows must be 64 or 128, a split one tile");
+  const bool small = nt == 64;
+  // boxes of 64 elements inner (128 bytes) by: nt x rows; 64 weight
+  // columns of a K-contiguous view; 64 k of a row-major weight
+  Map mx, mw;
+  if (encoder() == nullptr)
+    return refuse("cuTensorMapEncodeTiled not found in the driver");
+  if (!map_2d(&mx.m, x, K, M, sxm * 2, nt))
+    return refuse("cuTensorMapEncodeTiled refused x");
+  if (!(w_kmajor ? map_2d(&mw.m, w, K, N, w_row * 2, BN)
+                 : map_2d(&mw.m, w, N, K, w_row * 2, BK)))
+    return refuse("cuTensorMapEncodeTiled refused w");
+  if (small)
+    return w_kmajor
+               ? launch_kernel<64, true>(mw.m, mx.m, out, ws, counters, M, N,
+                                         slabs, segments, som, split,
+                                         stream)
+               : launch_kernel<64, false>(mw.m, mx.m, out, ws, counters, M, N,
+                                          slabs, segments, som, split,
+                                          stream);
+  return w_kmajor
+             ? launch_kernel<128, true>(mw.m, mx.m, out, ws, counters, M, N,
+                                        slabs, segments, som, split,
+                                        stream)
+             : launch_kernel<128, false>(mw.m, mx.m, out, ws, counters, M, N,
+                                         slabs, segments, som, split,
+                                         stream);
+}
+
+}  // namespace tc
 
 extern "C" int repro_matmul(const void* x, const void* w, void* out, int M,
                             int N, int K, long long sxm, long long swk,
-                            long long swn, long long som, int dtype,
+                            long long swn, long long som, int dtype, void* ws,
+                            void* counters, int segments, int nt,
                             void* stream) {
   if (M <= 0 || N <= 0 || K <= 0) return cudaErrorInvalidValue;
-  if ((M + BM - 1) / BM > 65535) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case repro::kFloat32:
-      return launch<float>(x, w, out, M, N, K, sxm, swk, swn, som, s);
+      if ((M + cuda_core::BM - 1) / cuda_core::BM > 65535)
+        return cudaErrorInvalidValue;
+      return cuda_core::launch<float>(x, w, out, M, N, K, sxm, swk, swn, som,
+                                      s);
     case repro::kBFloat16:
-      return launch<__nv_bfloat16>(x, w, out, M, N, K, sxm, swk, swn, som, s);
+      if ((N + tc::BN - 1) / tc::BN > 65535) return cudaErrorInvalidValue;
+      return tc::launch(x, w, out, M, N, K, sxm, swk, swn, som, ws, counters,
+                        segments, nt, s);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// why the last bf16 call returned cudaErrorInvalidValue ("" otherwise)
+extern "C" const char* repro_matmul_refusal() { return tc::refusal; }
+
+// dynamic shared memory of the bf16 kernel for x tiles of nt rows (64, 128)
+extern "C" int repro_matmul_smem_bytes(int nt) {
+  return nt == 64 ? static_cast<int>(tc::smem_bytes<64>())
+                  : static_cast<int>(tc::smem_bytes<128>());
 }
