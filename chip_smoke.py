@@ -11,9 +11,11 @@ and the script exits non-zero:
 1. device   the card (``nvidia-smi`` name and power limit), CUDA and torch
             versions; TF32 is switched off for matmul and cuDNN;
 2. build    compiles the CUDA kernels from ``kernels/csrc`` with nvcc, one
-            process per source, all started together; prints K2's kernels'
-            registers, shared memory and spills (``-Xptxas -v``) and fails
-            unless each bf16 kernel's SASS holds HGMMA (``cuobjdump``);
+            process per source, all started together; prints the
+            registers, shared memory and spills (``-Xptxas -v``) of K2's
+            kernels and of K1's and K3's wgmma kernels, and fails unless
+            each of those bf16 kernels' SASS holds HGMMA (``cuobjdump``)
+            and the new ones spill nothing;
 3. matmul   K2 against ``matmul_ref`` at the shapes of the served paths
             (qwen3-0.6b, olmoe-1b-7b, mamba2-130m and recurrentgemma-2b),
             bf16 and f32, with kernel, plain, library (``torch.matmul``, a
@@ -24,12 +26,17 @@ and the script exits non-zero:
             {1, 2, 4, 8} must equal the rows computed alone (M = 37 and 256
             reported);
 4. flash    K1 against ``flash_attention_ref`` over GQA, MHA, causal,
-            window, ragged and right-aligned cases, with the same times
-            (library: ``scaled_dot_product_attention``); at head dim 256
-            (recurrentgemma's MQA, 10 heads over 1) every case is timed;
+            window, ragged and right-aligned cases, each naming the route
+            it took (bf16 at head dim 128 and 256: wgmma), with the same
+            times (library: ``scaled_dot_product_attention``); at head dim
+            256 (recurrentgemma's MQA, 10 heads over 1) every case is
+            timed; every bf16 case's heads at batch 1 must equal the same
+            heads inside the batch-2 call, bit for bit;
 5. moe_ffn  K3 against ``moe_ffn_ref`` at the olmoe shapes (C = 1, 4, 37,
             40), small ragged shapes, and with per-expert row counts that
-            leave experts empty, bf16 and f32;
+            leave experts empty, bf16 and f32, each naming its route (the
+            olmoe shapes in bf16: wgmma); a live row's bf16 output at C = 4
+            must equal the same row at C = 1 and C = 8 (C = 40 reported);
 6. ssd_scan K4 against ``ssd_scan_ref`` at the mamba2 shape (B 1, S 256,
             H 24, P 64, N 128), at B 2, at ragged S (1, 37, 129, 200, the
             first two below one chunk), from a non-zero state h0 and at
@@ -44,13 +51,17 @@ and the script exits non-zero:
             admission shape (library: none);
 8. serve    qwen3-0.6b at full width (28 layers, d 1024, vocab 153,600) in
             bf16 serving 8 staggered requests; every stream must equal
-            ``reference_generate``, and every kernel must have launched
-            exactly the expected number of times; the boot's peak memory
-            and serving's own are reported apart (as in 9-11);
+            ``reference_generate``, every kernel must have launched
+            exactly the expected number of times, and every K1 and K3 call
+            must have taken the wgmma route; the boot's peak memory and
+            serving's own are reported apart, and decode steps and
+            admissions are profiled for device time by kernel family and
+            the card's idle share (as in 9-11);
 9. serve_olmoe  olmoe-1b-7b at full width (16 layers, d 2048, 64 experts
             top-8, untied head over vocab 51,200) in bf16 serving 6
             staggered requests, with the same checks for K1, K2 and K3;
-            then K3 timed on the inputs the path gave it;
+            then K3 timed on the inputs the path gave it, beside three
+            ``torch.bmm`` as its yardstick;
 10. serve_mamba2  mamba2-130m at full width (24 SSM layers, d 768, N 128,
             untied head over vocab 51,200) in bf16 serving 8 staggered
             requests, with the same checks for K2 and K4;
@@ -222,16 +233,31 @@ def profile_decode(torch, eng, dev, steps=5):
     unprofiled wall time of a step; under the profiler the wall time grows,
     so its own idle share is given apart.  None where the profiler saw no
     device time."""
-    from torch.profiler import ProfilerActivity, profile
     tokens = torch.zeros((eng.batch, 1), dtype=torch.int32, device=dev)
     decode = eng.programs["decode"]
+    return profile_calls(torch, lambda: decode(eng.params, eng.caches,
+                                               tokens), steps)
+
+
+def profile_admission(torch, eng, long_tokens, steps=3):
+    """The same for admissions: ``prefill_slot`` of the 200-token prompt
+    into slot 0 ("per_step" keys are per admission)."""
+    prefill = eng.programs["prefill_slot"]
+    return profile_calls(torch, lambda: prefill(eng.params, eng.caches,
+                                                long_tokens, 0, 200), steps)
+
+
+def profile_calls(torch, call, steps):
+    """``call`` ``steps`` times after two warm-up calls, each ended by a
+    sync, without and then under torch.profiler (see profile_decode)."""
+    from torch.profiler import ProfilerActivity, profile
     for _ in range(2):
-        decode(eng.params, eng.caches, tokens)
+        call()
     torch.cuda.synchronize()
     plain_ms = []
     for _ in range(steps):
         t0 = time.perf_counter()
-        decode(eng.params, eng.caches, tokens)
+        call()
         torch.cuda.synchronize()
         plain_ms.append(1e3 * (time.perf_counter() - t0))
     wall_unprofiled = sorted(plain_ms)[steps // 2]
@@ -239,7 +265,7 @@ def profile_decode(torch, eng, dev, steps=5):
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            decode(eng.params, eng.caches, tokens)
+            call()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     fam = {"matmul_kernel": 0.0, "flash_attention_kernel": 0.0,
@@ -286,10 +312,15 @@ def main():
     import numpy as np
 
     from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import flash_attention as k1_mod
+    from repro_torch.kernels import moe_dispatch as k3_mod
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_ref)
+    from repro_torch.kernels.flash_attention import route as fa_route
     from repro_torch.kernels.matmul import matmul, matmul_ref, plan, route
     from repro_torch.kernels.moe_dispatch import moe_ffn, moe_ffn_ref
+    from repro_torch.kernels.moe_dispatch import route as moe_route
+    from repro_torch.kernels.moe_dispatch import tile_rows
     from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_ref
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
 
@@ -343,6 +374,49 @@ def main():
             raise AssertionError(f"K2's bf16 kernels without HGMMA in their "
                                  f"SASS: {k2_build}")
         out["k2_kernels"] = k2_build
+        # K1's and K3's wgmma kernels: tensor cores in the SASS, no spills,
+        # and the shared memory the CPU tests hold (wgmma_smem_bytes)
+        def k1_smem(fn):
+            d = 256 if "ILi256E" in fn else 128
+            return (lib.repro_flash_attention_wgmma_smem(d),
+                    k1_mod.wgmma_smem_bytes(d))
+
+        def k3_smem(fn):
+            gate_up, nt = "ILb1E" in fn, int(fn.split("ELi")[1].split("E")[0])
+            return (lib.repro_moe_ffn_wgmma_smem(int(gate_up), nt),
+                    k3_mod.wgmma_smem_bytes(gate_up, nt))
+
+        tc_build = {}
+        for stem, name, smem in (("flash_attention", "K1", k1_smem),
+                                 ("moe_ffn", "K3", k3_smem)):
+            rows = []
+            for r in _build.ptxas_report(stem):
+                if "wgmma" not in r["function"]:
+                    continue
+                dynamic, mirrored = smem(r["function"])
+                if dynamic != mirrored:
+                    raise AssertionError(f"{name}: {r['function']} takes "
+                                         f"{dynamic} B of shared memory, the "
+                                         f"wrapper's mirror says {mirrored}")
+                r.update(route="bf16 wgmma", dynamic_smem=dynamic,
+                         hgmma=hgmma.get(r["function"], 0))
+                rows.append(r)
+                print(f"{name} {r['route']}: {r['function']}: "
+                      f"{r.get('registers')} registers, "
+                      f"{r.get('static_smem')} B static + "
+                      f"{r['dynamic_smem']} B dynamic shared memory, "
+                      f"{r.get('spill_stores')} B spill stores, "
+                      f"{r.get('spill_loads')} B spill loads, "
+                      f"{r['hgmma']} HGMMA", flush=True)
+            want = 2 if name == "K1" else 10
+            if len(rows) != want or not all(
+                    r["hgmma"] > 0 and r.get("spill_stores") == 0 and
+                    r.get("spill_loads") == 0 for r in rows):
+                raise AssertionError(f"{name}'s wgmma kernels: {want} "
+                                     f"expected, each with HGMMA in its SASS "
+                                     f"and no spills: {rows}")
+            tc_build[name] = rows
+        out["k1_kernels"], out["k3_kernels"] = tc_build["K1"], tc_build["K3"]
 
     gen = torch.Generator(device="cpu").manual_seed(0)
 
@@ -536,6 +610,8 @@ def main():
                                              "bits_equal_M37",
                                              "bits_equal_M256")}
     matmul_build = RECORD["phases"][1]["k2_kernels"]
+    k1_build = RECORD["phases"][1]["k1_kernels"]
+    k3_build = RECORD["phases"][1]["k3_kernels"]
 
     def k2_aggregate(dname, m, layer_products, layers, head):
         """K2 numbers for one serving pass at batch rows ``m``: each
@@ -585,7 +661,10 @@ def main():
                 q = randn((b * h, sq, d), dt)
                 k = randn((b * kv, sk, d), dt)
                 v = randn((b * kv, sk, d), dt)
+                before = dict(flash_attention.launches_by_route)
                 got = flash_attention(q, k, v, causal=causal, window=window)
+                took = [r for r, n in flash_attention.launches_by_route
+                        .items() if n != before[r]]
                 want = flash_attention_ref(q, k, v, causal=causal,
                                            window=window)
                 torch.cuda.synchronize()
@@ -597,7 +676,20 @@ def main():
                         f"max err {err} exceeds tol {tol}")
                 row = {"dtype": dname, "B": b, "H": h, "Hk": kv, "D": d,
                        "causal": causal, "window": window, "Sq": sq,
-                       "Sk": sk, "max_abs_err": err, "tol": tol}
+                       "Sk": sk, "route": took, "max_abs_err": err,
+                       "tol": tol}
+                if took != [fa_route(dt, d)]:
+                    raise AssertionError(f"flash_attention took {took}: {row}")
+                if dt == torch.bfloat16:
+                    # bits: batch element 0's heads alone equal the same
+                    # heads inside the batch-2 call
+                    one = flash_attention(q[:h], k[:kv], v[:kv],
+                                          causal=causal, window=window)
+                    row["bits_equal_B1_B2"] = torch.equal(one, got[:h])
+                    if not row["bits_equal_B1_B2"]:
+                        raise AssertionError(f"flash_attention heads at "
+                                             f"batch 1 differ from batch 2: "
+                                             f"{row}")
                 checks.append(row)
         # times at the paths' shapes: one layer's prefill of one admission
         # (bf16 and f32 for qwen3, bf16 for olmoe)
@@ -625,7 +717,8 @@ def main():
                                   * q.element_size(),
                                   4 * d * pairs * heads_, dname)
             fa[key] = {"dtype": dname, "H": heads_, "Hk": kv, "D": d,
-                       "S": s, "causal": True, "ms": ms, "plain_ms": plain,
+                       "S": s, "causal": True, "route": fa_route(dt, d),
+                       "ms": ms, "plain_ms": plain,
                        "library_ms": lib, "bound_ms": b_ms,
                        "bound_by": b_by}
         # every head-dim-256 case timed at one admission's batch of 1,
@@ -655,7 +748,8 @@ def main():
                                       4 * d * pairs * h, dname)
                 fa_rg.append({"dtype": dname, "H": h, "Hk": kv, "D": d,
                               "causal": True, "window": window, "Sq": sq,
-                              "Sk": sk, "ms": ms, "plain_ms": plain,
+                              "Sk": sk, "route": fa_route(dt, d), "ms": ms,
+                              "plain_ms": plain,
                               "library_ms": lib, "bound_ms": b_ms,
                               "bound_by": b_by})
         # the path's shape: S 256 under the window of 2048
@@ -670,6 +764,8 @@ def main():
         out["max_abs_err"] = max(c["max_abs_err"] for c in checks)
         out["timed"] = fa
         out["timed_head_dim_256"] = fa_rg
+        out["bits_equal_B1_B2"] = all(c["bits_equal_B1_B2"] for c in checks
+                                      if "bits_equal_B1_B2" in c)
         for c in checks:
             emit({"flash_attention": {key: (round(v, 6) if isinstance(
                 v, float) else v) for key, v in c.items()}})
@@ -677,6 +773,7 @@ def main():
             emit({"flash_attention_d256": {key: (round(v, 6) if isinstance(
                 v, float) else v) for key, v in c.items()}})
     flash_err = out["max_abs_err"]
+    flash_bits = out["bits_equal_B1_B2"]
 
     # -- 5. K3 moe_ffn ---------------------------------------------------
     moe_e, moe_f = moe.n_experts, moe.d_ff
@@ -703,7 +800,10 @@ def main():
                     live = torch.arange(c, device=dev)[None] < cnt[:, None]
                     for counts, b in ((None, buf),
                                       (cnt, buf * live[..., None].to(dt))):
+                        before = dict(moe_ffn.launches_by_route)
                         got = moe_ffn(b, w1, w3, w2, counts)
+                        took = [r for r, n in moe_ffn.launches_by_route
+                                .items() if n != before[r]]
                         want = moe_ffn_ref(b, w1, w3, w2, counts)
                         torch.cuda.synchronize()
                         viol, err = max_violation(got, want, tol)
@@ -712,10 +812,34 @@ def main():
                                 f"moe_ffn {dname} E={e} C={c} d={d} f={f} "
                                 f"counts={counts is not None}: max err "
                                 f"{err} exceeds tol {tol}")
-                        checks.append({"dtype": dname, "E": e, "C": c,
-                                       "d": d, "f": f,
-                                       "counts": counts is not None,
-                                       "max_abs_err": err, "tol": tol})
+                        row = {"dtype": dname, "E": e, "C": c, "d": d,
+                               "f": f, "counts": counts is not None,
+                               "route": took, "max_abs_err": err,
+                               "tol": tol}
+                        # the olmoe shapes in bf16 on the tensor cores;
+                        # fp32 and the odd shapes on the CUDA cores
+                        if took != [moe_route(dt, d, f)] or took != [
+                                "wgmma" if dt == torch.bfloat16 and (e, d, f)
+                                == (moe_e, moe_d, moe_f) else "simt"]:
+                            raise AssertionError(f"moe_ffn took {took}: "
+                                                 f"{row}")
+                        checks.append(row)
+                if dt == torch.bfloat16 and (e, d, f) == (moe_e, moe_d,
+                                                          moe_f):
+                    # bits: the first rows of each expert at C = 4 equal
+                    # the same rows computed at C = 1 and C = 8 (one n8
+                    # instruction); C = 40 (n48) reported
+                    x = crandn((e, 40, d), dt)
+                    at = {c: moe_ffn(x[:, :c].contiguous(), w1, w3, w2)
+                          for c in (1, 4, 8, 40)}
+                    bits = {f"C{c}": torch.equal(at[c][:, :min(c, 4)],
+                                                 at[4][:, :min(c, 4)])
+                            for c in (1, 8, 40)}
+                    out["bits_equal_to_C4"] = bits
+                    if not (bits["C1"] and bits["C8"]):
+                        raise AssertionError(f"moe_ffn rows at C = 1 or 8 "
+                                             f"differ from C = 4: {bits}")
+                    del x, at
                 del w1, w3, w2
         out["detail"] = checks
         out["checks"] = len(checks)
@@ -724,6 +848,7 @@ def main():
             emit({"moe_ffn": {key: (round(v, 6) if isinstance(v, float)
                                     else v) for key, v in c.items()}})
     k3_err = out["max_abs_err"]
+    k3_bits = out["bits_equal_to_C4"]
 
     # -- 6. K4 ssd_scan --------------------------------------------------
     def ssd_inputs(bsz, s, h, p, n, dt_, with_h0):
@@ -904,6 +1029,7 @@ def main():
         ops.reset_launch_counts()
         stats = eng.run()
         launches = ops.launch_counts()
+        routes = ops.route_counts()
         peak = torch.cuda.max_memory_allocated()
         assert stats["requests"] == len(reqs), stats
         assert stats["refill_admissions"] >= 1, stats
@@ -913,6 +1039,10 @@ def main():
         if launches != want:
             raise AssertionError(f"kernel launches {launches}, expected "
                                  f"{want}")
+        # every served K1 and K3 call is bf16 on the tensor cores
+        if any(r["wgmma"] != launches[name] for name, r in routes.items()):
+            raise AssertionError(f"K1/K3 calls off the wgmma route: "
+                                 f"{routes}")
         mism = []
         for r in reqs:
             ref = eng.reference_generate(r.prompt, r.max_new)
@@ -952,6 +1082,7 @@ def main():
             torch.cuda.synchronize()
             admit_ms.append(1e3 * (time.perf_counter() - t1))
         profile = profile_decode(torch, eng, dev)
+        admission_profile = profile_admission(torch, eng, long_tokens)
         out.update(
             model=arch, dtype="bfloat16", layers=cfg.n_layers,
             d_model=cfg.d_model, padded_vocab=cfg.padded_vocab,
@@ -964,8 +1095,9 @@ def main():
             admitted=admissions,
             refill_admissions=stats["refill_admissions"],
             occupancy=stats["occupancy"], launches=launches,
-            launches_per_pass=per_pass,
+            launches_by_route=routes, launches_per_pass=per_pass,
             admission_ms=sorted(admit_ms[1:])[1], profile=profile,
+            admission_profile=admission_profile,
             peak_mem_gib=round(max(peak, boot_peak) / 2 ** 30, 3),
             boot_peak_gib=round(boot_peak / 2 ** 30, 3),
             serve_peak_gib=round(peak / 2 ** 30, 3),
@@ -973,9 +1105,10 @@ def main():
             mem_at_start_gib=round(base / 2 ** 30, 3),
             mem_after_boot_gib=round(after_boot / 2 ** 30, 3),
             streams_equal_reference=True, card=smi)
+        path_routes[arch] = routes
         return eng, long_tokens, launches
 
-    path_launches = {}
+    path_launches, path_routes = {}, {}
     with phase("serve") as out:
         eng, _, path_launches["qwen3-0.6b"] = serve_full(
             out, "qwen3-0.6b", [16, 200, 57, 120, 31, 180, 90, 140],
@@ -1054,11 +1187,14 @@ def main():
             b_ms, b_by = bound_ms(nbytes / len(calls), flops / len(calls),
                                   "bfloat16")
             k3[name] = {"dtype": "bfloat16", "E": e, "C": c, "d": d, "f": f,
+                        "route": moe_route(buf.dtype, d, f),
+                        "tile_rows": tile_rows(c),
                         "live_experts_per_call": live_experts / len(calls),
                         "rows_per_call": rows / len(calls),
                         "ms": ms, "plain_ms": plain,
                         "yardstick_bmm_ms": yard, "bound_ms": b_ms,
-                        "bound_by": b_by}
+                        "bound_by": b_by, "bound_share": b_ms / ms,
+                        "yardstick_factor": ms / yard}
         out["k3_timed"] = k3
         # the loop names hold views of the expert stacks (GBs) past the phase
         del eng, seen, calls, buf, w1, _
@@ -1235,6 +1371,10 @@ def main():
     def by_path(name):
         return {arch: path[name] for arch, path in path_launches.items()}
 
+    def by_route(name):
+        return {r: sum(path[name][r] for path in path_routes.values())
+                for r in ("wgmma", "simt")}
+
     k2 = k2_aggregate("bfloat16", BATCH, per_layer, n_layers,
                       (d_model, vocab))
     k2_prefill = k2_aggregate("bfloat16", PREFILL_LEN, per_layer, n_layers,
@@ -1256,6 +1396,7 @@ def main():
          "replaces": "src/repro/kernels/flash_attention.py:84",
          "launches": total("flash_attention"),
          "launches_by_path": by_path("flash_attention"),
+         "launches_by_route": by_route("flash_attention"),
          "max_abs_err": flash_err,
          "ms": fa["bfloat16"]["ms"], "plain_ms": fa["bfloat16"]["plain_ms"],
          "bound_ms": fa["bfloat16"]["bound_ms"],
@@ -1264,7 +1405,8 @@ def main():
          "per": f"one call: bf16 causal prefill S={PREFILL_LEN}, "
                 f"H={heads}, Hk={kv_heads}, D={hd}",
          "olmoe": fa["olmoe"], "recurrentgemma": fa["recurrentgemma"],
-         "recurrentgemma_float32": fa["recurrentgemma_float32"]},
+         "recurrentgemma_float32": fa["recurrentgemma_float32"],
+         "bits_equal_B1_B2": flash_bits, "build": k1_build},
         {"name": "matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/matmul.cu",
          "replaces": "src/repro/kernels/matmul.py:33",
@@ -1290,6 +1432,7 @@ def main():
          "replaces": "src/repro/kernels/moe_dispatch.py:38",
          "launches": total("moe_ffn"),
          "launches_by_path": by_path("moe_ffn"),
+         "launches_by_route": by_route("moe_ffn"),
          "max_abs_err": k3_err,
          "ms": k3["decode"]["ms"], "plain_ms": k3["decode"]["plain_ms"],
          "bound_ms": k3["decode"]["bound_ms"],
@@ -1300,7 +1443,8 @@ def main():
                 f"C={k3['decode']['C']}, d={moe_d}, f={moe_f}, the path's "
                 f"own inputs ({k3['decode']['live_experts_per_call']} live "
                 "experts per call)",
-         "admission": k3["admission"]},
+         "admission": k3["admission"], "bits_equal_to_C4": k3_bits,
+         "build": k3_build},
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:65",

@@ -168,15 +168,25 @@ def _bind(cdll: ctypes.CDLL):
     cdll.repro_matmul.argtypes = [p, p, p, i, i, i, ll, ll, ll, ll, i, p, p, i,
                                   i, p]
     cdll.repro_matmul.restype = i
-    cdll.repro_matmul_refusal.argtypes = []
-    cdll.repro_matmul_refusal.restype = ctypes.c_char_p
+    cdll.repro_refusal.argtypes = []
+    cdll.repro_refusal.restype = ctypes.c_char_p
     cdll.repro_matmul_smem_bytes.argtypes = [i]
     cdll.repro_matmul_smem_bytes.restype = i
     cdll.repro_flash_attention.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
                                            i, p]
     cdll.repro_flash_attention.restype = i
+    cdll.repro_flash_attention_wgmma.argtypes = [p, p, p, p, i, i, i, i, i,
+                                                 i, i, p]
+    cdll.repro_flash_attention_wgmma.restype = i
+    cdll.repro_flash_attention_wgmma_smem.argtypes = [i]
+    cdll.repro_flash_attention_wgmma_smem.restype = i
     cdll.repro_moe_ffn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
     cdll.repro_moe_ffn.restype = i
+    cdll.repro_moe_ffn_wgmma.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,
+                                         p]
+    cdll.repro_moe_ffn_wgmma.restype = i
+    cdll.repro_moe_ffn_wgmma_smem.argtypes = [i, i]
+    cdll.repro_moe_ffn_wgmma_smem.restype = i
     cdll.repro_ssd_scan.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i,
                                     ll, ll, ll, ll, ll, ll, ll, ll, ll, i, p]
     cdll.repro_ssd_scan.restype = i

@@ -23,7 +23,9 @@
 //   transposes 16-bit A); the tied head's (V,d) table viewed as (d,V) is
 //   K-major; x (M,K) is K-major for B.  TMA zero-fills the ragged edges of
 //   M, N and K; stores are masked.  Tensor maps are encoded through the
-//   driver entry point (no -lcuda) and cached by what they encode.
+//   driver entry point (no -lcuda) and cached by what they encode; the
+//   barrier, TMA, wgmma and tensor-map helpers live in hopper.cuh, shared
+//   with K1 and K3.
 //   Split of K: kernels/matmul.py:plan(k, n, dtype) cuts the slabs into S
 //   segments, segment s = [s*slabs/S, (s+1)*slabs/S), S a function of
 //   (K, N, dtype) alone, chosen so that ceil(N/64) x S blocks fill the 132
@@ -48,7 +50,7 @@
 //   phase 3 checks M = 37 and 256 too).
 //   Operands must suit TMA: 16-byte aligned bases and row strides that are
 //   multiples of 16 bytes; the wrapper raises on a weight that does not,
-//   and the C entry refuses one (repro_matmul_refusal says why).  There is
+//   and the C entry refuses one (repro_refusal says why).  There is
 //   no fallback.
 //
 // fp32 (the reduced parity runs): CUDA-core FMAs, unchanged since it was
@@ -60,12 +62,9 @@
 //   output element sums k = 0, 1, ..., K-1 in one fixed order whatever M
 //   is.  (wgmma has no fp32 path without TF32, which the port turns off.)
 #include <stdint.h>
-#include <cuda.h>
-
-#include <mutex>
-#include <unordered_map>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace cuda_core {
 
@@ -196,6 +195,8 @@ cudaError_t launch(const void* x, const void* w, void* out, int M, int N,
 
 namespace tc {
 
+using namespace hopper;
+
 constexpr int BN = 64;        // weight columns per block: wgmma's m
 constexpr int BK = 64;        // K per slab: one 128-byte swizzle row of bf16
 constexpr int CONSUMERS = 128;             // one warpgroup
@@ -219,156 +220,8 @@ __host__ __device__ constexpr uint32_t smem_bytes() {
          1024;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-// wait for the phase of parity ``parity`` to complete; a wait of more than
-// ~2^32 cycles (over a second) can only be a fault, and traps rather than
-// hanging the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  long long start = -1;
-  for (;;) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (start < 0)
-      start = clock64();
-    else if (clock64() - start > (1ll << 32))
-      __trap();
-  }
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// 2-D TMA load of one box at (c0 innermost, c1) into shared memory
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         int c0, int c1, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets, all in 16-byte units
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
-                                         uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// keep the compiler from moving accumulator reads or writes across the
-// asynchronous wgmma issue and wait
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
 __device__ __forceinline__ void bar_consumers() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
-}
-
-// d (64 x n, fp32) += A (64 x 16, from a descriptor) . B (16 x n); TRANS_A
-// 1: A is MN-major in shared memory; scale_d 0 overwrites d
-template <int TRANS_A>
-__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
-                                               uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, %35, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A));
-}
-
-template <int TRANS_A>
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
-                                               uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, %67, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A));
-}
-
-template <int NT, int TRANS_A>
-__device__ __forceinline__ void mma(float (&d)[NT / 2], uint64_t da,
-                                    uint64_t db, int scale_d) {
-  if constexpr (NT == 64)
-    wgmma_m64n64k16<TRANS_A>(d, da, db, scale_d);
-  else
-    wgmma_m64n128k16<TRANS_A>(d, da, db, scale_d);
 }
 
 // Block (blockIdx.x, blockIdx.y, blockIdx.z) = (x tile of NT rows, weight
@@ -407,7 +260,7 @@ __global__ void __launch_bounds__(THREADS)
       mbar_init(full + 8 * s, 1);
       mbar_init(empty + 8 * s, CONSUMERS);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -463,7 +316,8 @@ __global__ void __launch_bounds__(THREADS)
         const uint64_t da = W_KMAJOR ? desc(a + 32 * kk, 16, 1024)
                                      : desc(a + 2048 * kk, 1024, 1024);
         const uint64_t db = desc(b + 32 * kk, 16, 1024);
-        mma<NT, W_KMAJOR ? 0 : 1>(acc, da, db, (kb > k_lo || kk > 0) ? 1 : 0);
+        wgmma_ss<NT, W_KMAJOR ? 0 : 1>(acc, da, db,
+                                      (kb > k_lo || kk > 0) ? 1 : 0);
       }
       wgmma_commit();
       fence_regs(acc);
@@ -533,88 +387,14 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// ---------------------------------------------------------------------------
-// tensor maps, encoded on the host through the driver entry point (no
-// -lcuda), cached by everything they encode: a map is a pure function of
-// (pointer, dims, row stride, box), so a hit is always the right map
-// ---------------------------------------------------------------------------
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    return err == cudaSuccess && q == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-struct MapKey {
-  uint64_t ptr, inner, outer, stride, box;
-  bool operator==(const MapKey& o) const {
-    return ptr == o.ptr && inner == o.inner && outer == o.outer &&
-           stride == o.stride && box == o.box;
-  }
-};
-struct MapKeyHash {
-  size_t operator()(const MapKey& k) const {
-    uint64_t h = k.ptr;
-    for (uint64_t v : {k.inner, k.outer, k.stride, k.box})
-      h = (h ^ v) * 0x100000001b3ull;
-    return static_cast<size_t>(h);
-  }
-};
-struct Map {
-  alignas(64) CUtensorMap m;
-};
-
 // a bf16 (outer, inner) map with row stride ``stride`` bytes and boxes of
 // (box_outer, 64): 128 bytes of the inner dimension, swizzled; out-of-range
 // elements read as zero
 bool map_2d(CUtensorMap* out, const void* ptr, uint64_t inner, uint64_t outer,
             uint64_t stride, uint32_t box_outer) {
-  // ctypes calls release the GIL: threads may meet here
-  static std::mutex lock;
-  static std::unordered_map<MapKey, Map, MapKeyHash> cache;
-  const std::lock_guard<std::mutex> hold(lock);
-  const MapKey key{reinterpret_cast<uint64_t>(ptr), inner, outer, stride,
-                   box_outer};
-  auto it = cache.find(key);
-  if (it != cache.end()) {
-    *out = it->second.m;
-    return true;
-  }
-  EncodeTiled encode = encoder();
-  if (encode == nullptr) return false;
-  if (cache.size() >= 4096) cache.clear();
-  Map map;
-  const cuuint64_t dims[2] = {inner, outer};
-  const cuuint64_t strides[1] = {stride};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(BK), box_outer};
-  const cuuint32_t elem[2] = {1, 1};
-  if (encode(&map.m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-             const_cast<void*>(ptr), dims, strides, box, elem,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return false;
-  cache.emplace(key, map);
-  *out = map.m;
-  return true;
+  const uint64_t dims[2] = {inner, outer};
+  const uint32_t box[2] = {static_cast<uint32_t>(BK), box_outer};
+  return tensor_map(out, ptr, 2, dims, &stride, box);
 }
 
 template <int NT, bool W_KMAJOR>
@@ -643,19 +423,11 @@ cudaError_t launch_kernel(const CUtensorMap& mw, const CUtensorMap& mx,
   return cudaGetLastError();
 }
 
-// why this thread's last call refused its operands ("" if it did not)
-thread_local const char* refusal = "";
-
-cudaError_t refuse(const char* why) {
-  refusal = why;
-  return cudaErrorInvalidValue;
-}
-
 cudaError_t launch(const void* x, const void* w, void* out, int M, int N,
                    int K, long long sxm, long long swk, long long swn,
                    long long som, void* ws, void* counters, int segments,
                    int nt, cudaStream_t stream) {
-  refusal = "";
+  refusal() = "";
   // TMA's rules: 16-byte aligned bases, row strides in multiples of 16 bytes
   // (row-major (K,N) weights are read n-fastest, a K-contiguous view k-fastest)
   const bool w_kmajor = swn != 1;
@@ -724,8 +496,9 @@ extern "C" int repro_matmul(const void* x, const void* w, void* out, int M,
   }
 }
 
-// why the last bf16 call returned cudaErrorInvalidValue ("" otherwise)
-extern "C" const char* repro_matmul_refusal() { return tc::refusal; }
+// why the last call of a tensor-core route (K1, K2 or K3 in bf16) returned
+// cudaErrorInvalidValue ("" otherwise)
+extern "C" const char* repro_refusal() { return hopper::refusal(); }
 
 // dynamic shared memory of the bf16 kernel for x tiles of nt rows (64, 128)
 extern "C" int repro_matmul_smem_bytes(int nt) {

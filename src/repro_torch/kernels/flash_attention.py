@@ -7,26 +7,53 @@ Layout as in the reference: q (BH,Sq,D), k and v (BHk,Sk,D) with
 BH % BHk == 0; query row ``bh`` reads K/V row ``bh // (BH // BHk)``, so a
 (B,S,H,D) tensor laid out as (B*H,S,D) needs no K/V repeat.  Queries are
 right-aligned against the keys.  CPU tensors take
-:func:`flash_attention_ref`; CUDA tensors launch the kernel or raise.
-``flash_attention.launches`` counts kernel launches.
+:func:`flash_attention_ref`; CUDA tensors launch the kernel of their route
+or raise.  :func:`route` picks the route before launch, from the dtype and
+the head dim alone: bf16 at head dim 128 or 256 (every served call) runs
+the wgmma + TMA kernel, everything else the CUDA-core kernel.
+``flash_attention.launches`` counts kernel launches,
+``flash_attention.launches_by_route`` the same by route.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.matmul import tma_error
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128, 256)
-BQ, BK = 16, 32    # query and key tile rows: csrc/flash_attention.cu
+BQ, BK = 16, 32    # SIMT route's query and key tile rows
 SMEM_LIMIT = 232448
+ROUTES = ("wgmma", "simt")
+# the wgmma route (csrc/flash_attention.cu, namespace fa_tc): 64 query rows
+# a block, K/V tiles of 64 keys in a ring of 2 stages
+WGMMA_HEAD_DIMS = (128, 256)
+WGMMA_TILE = 64
+WGMMA_STAGES = 2
+
+
+def route(dtype: torch.dtype, d: int) -> str:
+    """The kernel a CUDA call of this dtype and head dim launches: "wgmma"
+    for bf16 at head dim 128 or 256, else "simt" (CUDA cores)."""
+    if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "simt"
 
 
 def smem_bytes(d: int) -> int:
-    """Dynamic shared memory of one block at head dim ``d``
+    """Dynamic shared memory of one SIMT-route block at head dim ``d``
     (csrc/flash_attention.cu ``launch_d``): the query tile, the key tile
     padded to d + 1 columns and the value tile, all fp32."""
     return 4 * (BQ * d + BK * (d + 1) + BK * d)
+
+
+def wgmma_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of one wgmma-route block at head dim ``d``
+    (``fa_tc::smem_bytes``): the Q tile and the K and V rings in bf16, the
+    barriers, and 1024 bytes to align the swizzled tiles."""
+    tile = WGMMA_TILE * d * 2
+    return (1 + 2 * WGMMA_STAGES) * tile + 8 * (1 + 3 * WGMMA_STAGES) + 1024
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -85,14 +112,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention kernel needs contiguous q, k, v")
     lib = _build.library()
-    out = torch.empty_like(q)
-    err = lib.repro_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, bhk,
-        sq, sk, d, int(causal), int(window), _build.DTYPE_CODES[q.dtype],
-        _build.stream_handle())
+    kind = route(q.dtype, d)
+    if kind == "wgmma":
+        # TMA reads from 16-byte aligned bases: copy a view that is not
+        q, k, v = (t if tma_error(t.shape[1:], t.stride()[1:],
+                                  t.element_size(), t.data_ptr()) is None
+                   else t.clone() for t in (q, k, v))
+        out = torch.empty_like(q)
+        err = lib.repro_flash_attention_wgmma(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh,
+            bhk, sq, sk, d, int(causal), int(window), _build.stream_handle())
+        why = lib.repro_refusal().decode() if err else ""
+        if why:
+            raise ValueError(f"flash_attention refused (BH={bh}, Sq={sq}, "
+                             f"Sk={sk}, D={d}): {why}")
+    else:
+        out = torch.empty_like(q)
+        err = lib.repro_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh,
+            bhk, sq, sk, d, int(causal), int(window),
+            _build.DTYPE_CODES[q.dtype], _build.stream_handle())
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
+    flash_attention.launches_by_route[kind] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)

@@ -192,7 +192,7 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         None if counters is None else counters.data_ptr(),
         segments, nt, stream)
     if err != 0 and x.dtype == torch.bfloat16:
-        why = lib.repro_matmul_refusal().decode()
+        why = lib.repro_refusal().decode()
         if why:
             raise ValueError(f"matmul refused (M={m}, K={k}, N={n}): {why}")
     _build.check(err, "matmul")

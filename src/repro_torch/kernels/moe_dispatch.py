@@ -8,18 +8,66 @@ token's result independent of the batch).  buf is (E, C, d), w1 and w3 are
 ``counts`` (optional, (E,) int32) gives each expert's live rows: rows at
 or past ``counts[e]`` come out as zeros and the kernel reads no weights
 for an expert without rows.  CPU tensors take :func:`moe_ffn_ref`; CUDA
-tensors launch the kernel or raise (also where one block's shared memory
-cannot hold the hidden: (32 + f) x 16 rows of fp32 must fit in 227 KB, so
-f <= 3,600).  ``moe_ffn.launches`` counts kernel launches.
+tensors launch the kernel of their route or raise.  :func:`route` picks
+the route before launch: bf16 with d and f multiples of 64 and operands
+TMA can read (every olmoe-1b-7b and qwen3-moe-30b-a3b call) runs the
+wgmma + TMA kernels, two launches over an (E, C, f) bf16 scratch for the
+hidden; everything else the CUDA-core kernel (which raises where one
+block's shared memory cannot hold the hidden: (32 + f) x 16 rows of fp32
+must fit in 227 KB, so f <= 3,600).  ``moe_ffn.launches`` counts calls
+that launched (one per call, whatever the route),
+``moe_ffn.launches_by_route`` the same by route.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.matmul import tma_error
+
+ROUTES = ("wgmma", "simt")
+# the wgmma route (csrc/moe_ffn.cu, namespace moe_tc): 64 weight columns
+# and 64 of k a slab; token rows a block from TILE_ROWS; a ring of 4
+# (gate/up, two weight slabs a stage) or 6 (down) stages; epilogue staging
+# rows of 72 bf16
+TILE = 64
+TILE_ROWS = (8, 16, 32, 48, 64)
+STAGES = {"gate_up": 4, "down": 6}
+STAGING_ROW = TILE + 8
+
+
+def tile_rows(c: int) -> int:
+    """Token rows of one wgmma-route block (the instruction's n) for a
+    buffer of C rows: the least of 8, 16, 32, 48 that holds C, else 64
+    (row tiles of 64).  A function of C alone, so a token's bits do not
+    depend on how many others share its expert."""
+    return next((n for n in TILE_ROWS if c <= n), TILE_ROWS[-1])
+
+
+def route(dtype: torch.dtype, d: int, f: int,
+          addresses: Sequence[int] = ()) -> str:
+    """The kernel a CUDA call launches: "wgmma" for bf16 with d and f
+    multiples of 64 (whole weight tiles, so every row stride is a multiple
+    of 16 bytes) and weight ``addresses`` TMA can read
+    (``matmul.tma_error``: 16-byte aligned), else "simt" (CUDA cores)."""
+    if dtype != torch.bfloat16 or d % TILE or f % TILE:
+        return "simt"
+    if any(tma_error((d, f), (f, 1), 2, a) for a in addresses):
+        return "simt"
+    return "wgmma"
+
+
+def wgmma_smem_bytes(gate_up: bool, nt: int) -> int:
+    """Dynamic shared memory of one wgmma-route block
+    (``moe_tc::smem_bytes``): the ring of weight slabs and token rows, the
+    epilogue's bf16 staging tile, the barriers and 1024 bytes to align the
+    swizzled ring."""
+    stages = STAGES["gate_up" if gate_up else "down"]
+    stage = (2 if gate_up else 1) * TILE * TILE * 2 + nt * TILE * 2
+    return stages * stage + nt * STAGING_ROW * 2 + 16 * stages + 1024
 
 
 def moe_ffn_ref(buf: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
@@ -82,14 +130,32 @@ def moe_ffn(buf: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
     e, c, d = buf.shape
     f = w1.shape[2]
     lib = _build.library()
+    kind = route(buf.dtype, d, f, [t.data_ptr() for t in (w1, w3, w2)])
+    if kind == "wgmma" and tma_error((c, d), (d, 1), 2, buf.data_ptr()):
+        buf = buf.clone()       # small, unlike the weights: copy to align
     out = torch.empty_like(buf)
-    err = lib.repro_moe_ffn(
-        buf.data_ptr(), w1.data_ptr(), w3.data_ptr(), w2.data_ptr(),
-        counts.data_ptr() if counts is not None else None, out.data_ptr(),
-        e, c, d, f, _build.DTYPE_CODES[buf.dtype], _build.stream_handle())
+    n_ptr = counts.data_ptr() if counts is not None else None
+    if kind == "wgmma":
+        nt = tile_rows(c)
+        h = torch.empty((e, c, f), dtype=buf.dtype, device=buf.device)
+        err = lib.repro_moe_ffn_wgmma(
+            buf.data_ptr(), w1.data_ptr(), w3.data_ptr(), w2.data_ptr(),
+            n_ptr, h.data_ptr(), out.data_ptr(), e, c, d, f, nt,
+            _build.stream_handle())
+        why = lib.repro_refusal().decode() if err else ""
+        if why:
+            raise ValueError(f"moe_ffn refused (E={e}, C={c}, d={d}, f={f}): "
+                             f"{why}")
+    else:
+        err = lib.repro_moe_ffn(
+            buf.data_ptr(), w1.data_ptr(), w3.data_ptr(), w2.data_ptr(),
+            n_ptr, out.data_ptr(), e, c, d, f, _build.DTYPE_CODES[buf.dtype],
+            _build.stream_handle())
     _build.check(err, "moe_ffn")
     moe_ffn.launches += 1
+    moe_ffn.launches_by_route[kind] += 1
     return out
 
 
 moe_ffn.launches = 0
+moe_ffn.launches_by_route = dict.fromkeys(ROUTES, 0)

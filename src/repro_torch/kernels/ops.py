@@ -23,7 +23,7 @@ KERNELS = {"matmul": matmul, "flash_attention": flash_attention,
 __all__ = ["matmul", "matmul_ref", "flash_attention", "flash_attention_ref",
            "moe_ffn", "moe_ffn_ref", "ssd_scan", "ssd_scan_ref",
            "rglru_scan", "rglru_scan_ref", "KERNELS", "launch_counts",
-           "reset_launch_counts"]
+           "route_counts", "reset_launch_counts"]
 
 
 def launch_counts() -> Dict[str, int]:
@@ -31,6 +31,15 @@ def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
+def route_counts() -> Dict[str, Dict[str, int]]:
+    """Launches by route since the last reset, for the kernels with more
+    than one route (K1, K3)."""
+    return {name: dict(fn.launches_by_route) for name, fn in KERNELS.items()
+            if hasattr(fn, "launches_by_route")}
+
+
 def reset_launch_counts():
     for fn in KERNELS.values():
         fn.launches = 0
+        if hasattr(fn, "launches_by_route"):
+            fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)

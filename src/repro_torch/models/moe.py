@@ -45,6 +45,17 @@ def _capacity(cfg, tokens_local: int) -> int:
     return max(4, c)
 
 
+def top_k(probs: torch.Tensor, k: int
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k largest router probabilities of each row and their expert ids,
+    largest first, ties to the lower id as ``jax.lax.top_k`` breaks them:
+    the first k of a stable descending sort (``torch.topk`` does not
+    promise an order among ties).  Row-wise, so a row's choice does not
+    depend on the batch."""
+    top_p, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return top_p[:, :k], top_i[:, :k]
+
+
 def _moe_local(cfg, x, router, w_gate, w_up, w_down, *,
                capacity: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The single-shard body.  x: (B, S, d) -> ((B, S, d), aux)."""
@@ -55,7 +66,7 @@ def _moe_local(cfg, x, router, w_gate, w_up, w_down, *,
 
     logits = ops.matmul(xf, router).float()                   # (T, E)
     probs = torch.softmax(logits, dim=-1)
-    top_p, top_i = torch.topk(probs, k, dim=-1)               # (T, k)
+    top_p, top_i = top_k(probs, k)                            # (T, k)
     top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
 
     # load-balance aux loss (Switch): E * sum_e f_e * P_e
