@@ -13,9 +13,9 @@ and the script exits non-zero:
 2. build    compiles the CUDA kernels from ``kernels/csrc`` with nvcc, one
             process per source, all started together; prints the
             registers, shared memory and spills (``-Xptxas -v``) of K2's
-            kernels and of K1's and K3's wgmma kernels, and fails unless
-            each of those bf16 kernels' SASS holds HGMMA (``cuobjdump``)
-            and the new ones spill nothing;
+            kernels, of K1's, K3's and K4's wgmma kernels and of K5, and
+            fails unless each of those bf16 kernels' SASS holds HGMMA
+            (``cuobjdump``) and the wgmma ones spill nothing;
 3. matmul   K2 against ``matmul_ref`` at the shapes of the served paths
             (qwen3-0.6b, olmoe-1b-7b, mamba2-130m and recurrentgemma-2b),
             bf16 and f32, with kernel, plain, library (``torch.matmul``, a
@@ -41,14 +41,20 @@ and the script exits non-zero:
             H 24, P 64, N 128), at B 2, at ragged S (1, 37, 129, 200, the
             first two below one chunk), from a non-zero state h0 and at
             small ragged P and N, bf16 and f32, on strided views as the
-            layer passes them; y and the final state are both compared;
-            then one call timed at the mamba2 shape (library: none, no
-            single PyTorch call computes the scan);
+            layer passes them, and at N 64, each naming the route it took
+            (bf16 at P 64, ragged S included: wgmma); y and the final state
+            are both compared, and a B = 2 call's batch-0 rows must equal
+            the B = 1 call's bit for bit; then one call timed at the mamba2
+            shape, the bf16 SIMT kernel beside it, and the wgmma kernel at
+            B 2 and 4 and at S 128 (library: none, no single PyTorch call
+            computes the scan);
 7. rglru_scan  K5 against ``rglru_scan_ref`` at the recurrentgemma-2b
             admission shape (B 1, S 256, L 2560), at B 2, at S 1, 37 and
             200, at a ragged L of 40, from zero and from a state h0; h and
-            the final state are both compared; then one call timed at the
-            admission shape (library: none);
+            the final state are both compared, card == plain bit for bit
+            reported, and a B = 2 call's batch-0 rows must equal the B = 1
+            call's bit for bit; then one call timed at the admission shape
+            (library: none);
 8. serve    qwen3-0.6b at full width (28 layers, d 1024, vocab 153,600) in
             bf16 serving 8 staggered requests; every stream must equal
             ``reference_generate``, every kernel must have launched
@@ -64,7 +70,8 @@ and the script exits non-zero:
             ``torch.bmm`` as its yardstick;
 10. serve_mamba2  mamba2-130m at full width (24 SSM layers, d 768, N 128,
             untied head over vocab 51,200) in bf16 serving 8 staggered
-            requests, with the same checks for K2 and K4;
+            requests, with the same checks for K2 and K4 (every K4 call on
+            the wgmma route);
 11. serve_recurrentgemma  recurrentgemma-2b at full width (26 layers =
             8 x (R, R, L) + R, R; d 2560, MQA 10 x 256 over 1 KV head,
             window 2048, tied head over vocab 256,000) in bf16 serving 8
@@ -314,6 +321,7 @@ def main():
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import flash_attention as k1_mod
     from repro_torch.kernels import moe_dispatch as k3_mod
+    from repro_torch.kernels import ssd_scan as k4_mod
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_ref)
     from repro_torch.kernels.flash_attention import route as fa_route
@@ -386,9 +394,15 @@ def main():
             return (lib.repro_moe_ffn_wgmma_smem(int(gate_up), nt),
                     k3_mod.wgmma_smem_bytes(gate_up, nt))
 
+        def k4_smem(fn):
+            n = 64 if "ILi64E" in fn else 128
+            return (lib.repro_ssd_scan_wgmma_smem(n),
+                    k4_mod.wgmma_smem_bytes(n))
+
         tc_build = {}
         for stem, name, smem in (("flash_attention", "K1", k1_smem),
-                                 ("moe_ffn", "K3", k3_smem)):
+                                 ("moe_ffn", "K3", k3_smem),
+                                 ("ssd_scan", "K4", k4_smem)):
             rows = []
             for r in _build.ptxas_report(stem):
                 if "wgmma" not in r["function"]:
@@ -408,7 +422,7 @@ def main():
                       f"{r.get('spill_stores')} B spill stores, "
                       f"{r.get('spill_loads')} B spill loads, "
                       f"{r['hgmma']} HGMMA", flush=True)
-            want = 2 if name == "K1" else 10
+            want = {"K1": 2, "K3": 10, "K4": 2}[name]
             if len(rows) != want or not all(
                     r["hgmma"] > 0 and r.get("spill_stores") == 0 and
                     r.get("spill_loads") == 0 for r in rows):
@@ -417,6 +431,14 @@ def main():
                                      f"and no spills: {rows}")
             tc_build[name] = rows
         out["k1_kernels"], out["k3_kernels"] = tc_build["K1"], tc_build["K3"]
+        out["k4_kernels"] = tc_build["K4"]
+        # K5 runs on CUDA cores: its registers and spills, for the record
+        out["k5_kernels"] = _build.ptxas_report("rglru_scan")
+        for r in out["k5_kernels"]:
+            print(f"K5 fp32 CUDA cores: {r['function']}: "
+                  f"{r.get('registers')} registers, {r.get('static_smem')} B "
+                  f"static shared memory, {r.get('spill_stores')} B spill "
+                  f"stores, {r.get('spill_loads')} B spill loads", flush=True)
 
     gen = torch.Generator(device="cpu").manual_seed(0)
 
@@ -612,6 +634,8 @@ def main():
     matmul_build = RECORD["phases"][1]["k2_kernels"]
     k1_build = RECORD["phases"][1]["k1_kernels"]
     k3_build = RECORD["phases"][1]["k3_kernels"]
+    k4_build = RECORD["phases"][1]["k4_kernels"]
+    k5_build = RECORD["phases"][1]["k5_kernels"]
 
     def k2_aggregate(dname, m, layer_products, layers, head):
         """K2 numbers for one serving pass at batch rows ``m``: each
@@ -873,21 +897,34 @@ def main():
         checks = []
         # (B, S, H, P, N, chunk, h0): the mamba2 admission and its batch-2
         # form, ragged S (1 and 37 below one chunk, 129 and 200 over), a
-        # non-zero state, small ragged P and N
+        # non-zero state, N 64 (the wgmma route's other width), small
+        # ragged P and N
         cases = [(1, PREFILL_LEN, ssd_h, ssd_p, ssd_n, 128, False),
                  (1, PREFILL_LEN, ssd_h, ssd_p, ssd_n, 128, True),
                  (2, PREFILL_LEN, ssd_h, ssd_p, ssd_n, 128, True)]
         cases += [(1, s, ssd_h, ssd_p, ssd_n, 128, True)
                   for s in (1, 37, 129, 200)]
-        cases += [(2, 100, 3, 24, 40, 32, True), (3, 50, 2, 5, 7, 16, False),
+        cases += [(2, 200, 4, ssd_p, 64, 128, True),
+                  (2, 100, 3, 24, 40, 32, True), (3, 50, 2, 5, 7, 16, False),
                   (1, 70, 2, 17, 130, 64, True)]
         for dname, dt_ in dtypes.items():
             tol = SSD_TOL[dname]
             for bsz, s, h, p, n, chunk, with_h0 in cases:
                 args = ssd_inputs(bsz, s, h, p, n, dt_, with_h0)
+                ops.reset_launch_counts()
                 got = ssd_scan(*args, chunk=chunk)
+                took = [r for r, c in ssd_scan.launches_by_route.items()
+                        if c]
                 want = ssd_scan_ref(*args, chunk=chunk)
                 torch.cuda.synchronize()
+                # bf16 at P 64 (N 128 or 64, chunks of 128 or one) runs on
+                # the tensor cores, ragged S included; the rest on CUDA cores
+                route_want = ("wgmma" if dname == "bfloat16" and p == ssd_p
+                              else "simt")
+                if took != [route_want]:
+                    raise AssertionError(
+                        f"ssd_scan {dname} B={bsz} S={s} P={p} N={n}: took "
+                        f"{took}, expected {route_want}")
                 errs = []
                 for what, g, w in zip(("y", "h_final"), got, want):
                     viol, err = max_violation(g, w, tol)
@@ -897,11 +934,23 @@ def main():
                             f"N={n} chunk={chunk} h0={with_h0}: {what} max "
                             f"err {err} exceeds tol {tol}")
                     errs.append(err)
-                checks.append({"dtype": dname, "B": bsz, "S": s, "H": h,
-                               "P": p, "N": n, "chunk": chunk,
-                               "h0": with_h0, "max_abs_err": max(errs),
-                               "y_err": errs[0], "h_final_err": errs[1],
-                               "tol": tol})
+                check = {"dtype": dname, "B": bsz, "S": s, "H": h, "P": p,
+                         "N": n, "chunk": chunk, "h0": with_h0,
+                         "route": took[0], "max_abs_err": max(errs),
+                         "y_err": errs[0], "h_final_err": errs[1],
+                         "tol": tol}
+                if bsz > 1:
+                    # batch 0 of the batched call against it alone
+                    one = ssd_scan(*[t[:1] if t is not None and t.dim() > 1
+                                     else t for t in args], chunk=chunk)
+                    torch.cuda.synchronize()
+                    check["bits_equal_B1"] = all(
+                        torch.equal(g[:1], o) for g, o in zip(got, one))
+                    if not check["bits_equal_B1"]:
+                        raise AssertionError(
+                            f"ssd_scan {dname} B={bsz} S={s} P={p} N={n}: "
+                            f"batch 0 differs from the B = 1 call")
+                checks.append(check)
         # one call at the mamba2 admission shape, from a state as the
         # layer passes one
         bsz, s, q = 1, PREFILL_LEN, 128
@@ -909,8 +958,17 @@ def main():
             args = ssd_inputs(bsz, s, ssd_h, ssd_p, ssd_n, dtypes[dname],
                               True)
             ms = cuda_ms(torch, lambda: ssd_scan(*args, chunk=q), iters=50)
+            # the CUDA-core kernel on the same inputs (the bf16 route
+            # before the wgmma kernel)
+            simt = cuda_ms(torch, lambda: k4_mod._launch("simt", *args, q),
+                           iters=50)
             plain = cuda_ms(torch, lambda: ssd_scan_ref(*args, chunk=q),
                             iters=20)
+            kroute = k4_mod.route(args[0].dtype, ssd_p, ssd_n, q, s,
+                                  args[0].stride(),
+                                  (args[3].stride(), args[4].stride()),
+                                  (args[0].data_ptr(), args[3].data_ptr(),
+                                   args[4].data_ptr()))
             esize = args[0].element_size()
             state = bsz * ssd_h * ssd_p * ssd_n * 4
             nbytes = (2 * bsz * s * ssd_h * ssd_p * esize      # x, y
@@ -926,18 +984,32 @@ def main():
                 flops += bsz * (2 * tri * ssd_n + ssd_h * (
                     2 * tri * ssd_p + 4 * c_len * ssd_p * ssd_n))
             b_ms, b_by = bound_ms(nbytes, flops, dname)
+            # where the time goes: more blocks (B 2, 4: 48, 96 of the 132
+            # SMs) at the same chain, and one chunk (S 128) instead of two
+            grid = {}
+            if dname == "bfloat16":
+                for key, (gb, gs) in {"B2": (2, s), "B4": (4, s),
+                                      "S128": (1, 128)}.items():
+                    gargs = ssd_inputs(gb, gs, ssd_h, ssd_p, ssd_n,
+                                       dtypes[dname], True)
+                    grid[key] = cuda_ms(
+                        torch, lambda: ssd_scan(*gargs, chunk=q), iters=50)
             k4[dname] = {"dtype": dname, "B": bsz, "S": s, "H": ssd_h,
-                         "P": ssd_p, "N": ssd_n, "chunk": q, "ms": ms,
+                         "P": ssd_p, "N": ssd_n, "chunk": q, "route": kroute,
+                         "ms": ms, "simt_ms": simt, "ms_at": grid,
                          "plain_ms": plain, "bound_ms": b_ms,
                          "bound_by": b_by, "bytes": nbytes, "flops": flops}
         out["detail"] = checks
         out["checks"] = len(checks)
         out["max_abs_err"] = max(c["max_abs_err"] for c in checks)
         out["timed"] = k4
+        out["bits_equal_B1"] = all(c["bits_equal_B1"] for c in checks
+                                   if "bits_equal_B1" in c)
         for c in checks:
             emit({"ssd_scan": {key: (round(v, 6) if isinstance(v, float)
                                      else v) for key, v in c.items()}})
     k4_err = out["max_abs_err"]
+    k4_bits = out["bits_equal_B1"]
 
     # -- 7. K5 rglru_scan ------------------------------------------------
     def rglru_inputs(bsz, s, l, with_h0):
@@ -969,12 +1041,24 @@ def main():
                             f"rglru_scan B={bsz} S={s} L={l} h0={with_h0}: "
                             f"{what} max err {err} exceeds tol {RGLRU_TOL}")
                     errs.append(err)
-                checks.append({"dtype": "float32", "B": bsz, "S": s, "L": l,
-                               "h0": with_h0, "max_abs_err": max(errs),
-                               "h_err": errs[0], "h_final_err": errs[1],
-                               "bit_equal": all(torch.equal(g, w) for g, w
-                                                in zip(got, want)),
-                               "tol": RGLRU_TOL})
+                check = {"dtype": "float32", "B": bsz, "S": s, "L": l,
+                         "h0": with_h0, "max_abs_err": max(errs),
+                         "h_err": errs[0], "h_final_err": errs[1],
+                         "bit_equal": all(torch.equal(g, w) for g, w
+                                          in zip(got, want)),
+                         "tol": RGLRU_TOL}
+                if bsz > 1:
+                    # batch 0 of the batched call against it alone
+                    one = rglru_scan(*[t[:1] if t is not None else t
+                                       for t in args])
+                    torch.cuda.synchronize()
+                    check["bits_equal_B1"] = all(
+                        torch.equal(g[:1], o) for g, o in zip(got, one))
+                    if not check["bits_equal_B1"]:
+                        raise AssertionError(
+                            f"rglru_scan B={bsz} S={s} L={l} h0={with_h0}: "
+                            f"batch 0 differs from the B = 1 call")
+                checks.append(check)
         # one call at the admission shape, from a state as the layer
         # passes one (zeros there; the kernel reads it all the same)
         bsz, s, l = 1, PREFILL_LEN, rg_lru
@@ -990,11 +1074,14 @@ def main():
         out["checks"] = len(checks)
         out["max_abs_err"] = max(c["max_abs_err"] for c in checks)
         out["bit_equal"] = all(c["bit_equal"] for c in checks)
+        out["bits_equal_B1"] = all(c["bits_equal_B1"] for c in checks
+                                   if "bits_equal_B1" in c)
         out["timed"] = k5
         for c in checks:
             emit({"rglru_scan": {key: (round(v, 6) if isinstance(v, float)
                                        else v) for key, v in c.items()}})
     k5_err = out["max_abs_err"]
+    k5_plain_bits, k5_bits = out["bit_equal"], out["bits_equal_B1"]
 
     # -- 8-11. the served paths at full width --------------------------------
     from repro_torch.engine_config import EngineConfig
@@ -1039,9 +1126,9 @@ def main():
         if launches != want:
             raise AssertionError(f"kernel launches {launches}, expected "
                                  f"{want}")
-        # every served K1 and K3 call is bf16 on the tensor cores
+        # every served K1, K3 and K4 call is bf16 on the tensor cores
         if any(r["wgmma"] != launches[name] for name, r in routes.items()):
-            raise AssertionError(f"K1/K3 calls off the wgmma route: "
+            raise AssertionError(f"K1/K3/K4 calls off the wgmma route: "
                                  f"{routes}")
         mism = []
         for r in reqs:
@@ -1450,8 +1537,11 @@ def main():
          "replaces": "src/repro/kernels/ssd_scan.py:65",
          "launches": total("ssd_scan"),
          "launches_by_path": by_path("ssd_scan"),
+         "launches_by_route": by_route("ssd_scan"),
+         "kernel_route": k4["bfloat16"]["route"],
          "max_abs_err": k4_err,
          "ms": k4["bfloat16"]["ms"], "plain_ms": k4["bfloat16"]["plain_ms"],
+         "simt_ms": k4["bfloat16"]["simt_ms"],
          "bound_ms": k4["bfloat16"]["bound_ms"],
          "bound_by": k4["bfloat16"]["bound_by"],
          "library_ms": None,
@@ -1459,7 +1549,8 @@ def main():
          "per": f"one call at mamba2-130m admission: bf16 B=1, "
                 f"S={PREFILL_LEN} in chunks of 128, H={ssd_h}, P={ssd_p}, "
                 f"N={ssd_n}, from a state h0",
-         "float32": k4["float32"]},
+         "float32": k4["float32"], "bits_equal_B1_B2": k4_bits,
+         "build": k4_build},
         {"name": "rglru_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
          "replaces": "src/repro/kernels/rglru_scan.py:45",
@@ -1472,7 +1563,9 @@ def main():
          "library": "none: no single PyTorch call computes a linear "
                     "recurrence",
          "per": f"one call at recurrentgemma-2b admission: f32 B=1, "
-                f"S={PREFILL_LEN}, L={rg_lru}, from a state h0"},
+                f"S={PREFILL_LEN}, L={rg_lru}, from a state h0",
+         "bit_equal_plain": k5_plain_bits, "bits_equal_B1_B2": k5_bits,
+         "build": k5_build},
     ]
     RECORD["kernels"] = kernels
     _write_record()

@@ -190,6 +190,12 @@ def _bind(cdll: ctypes.CDLL):
     cdll.repro_ssd_scan.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i,
                                     ll, ll, ll, ll, ll, ll, ll, ll, ll, i, p]
     cdll.repro_ssd_scan.restype = i
+    cdll.repro_ssd_scan_wgmma.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i,
+                                          i, i, ll, ll, ll, ll, ll, ll, ll,
+                                          ll, ll, p]
+    cdll.repro_ssd_scan_wgmma.restype = i
+    cdll.repro_ssd_scan_wgmma_smem.argtypes = [i]
+    cdll.repro_ssd_scan_wgmma_smem.restype = i
     cdll.repro_rglru_scan.argtypes = [p, p, p, p, p, i, i, i, p]
     cdll.repro_rglru_scan.restype = i
 

@@ -33,7 +33,7 @@ def launch_counts() -> Dict[str, int]:
 
 def route_counts() -> Dict[str, Dict[str, int]]:
     """Launches by route since the last reset, for the kernels with more
-    than one route (K1, K3)."""
+    than one route (K1, K3, K4)."""
     return {name: dict(fn.launches_by_route) for name, fn in KERNELS.items()
             if hasattr(fn, "launches_by_route")}
 

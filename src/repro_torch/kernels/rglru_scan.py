@@ -11,6 +11,14 @@ which starts from zero, the kernel takes h0 itself, so the model does not
 fold it in as a virtual step; a ragged S and L are masked (the Pallas
 kernel asserts that its tiles divide them).
 
+The scan is segmented: S splits into ``SEGMENTS`` runs of
+:func:`segment_len` steps (a function of S alone), each folded from zero
+into a pair (product of a, value from zero), the pairs folded in
+ascending order into each segment's carry-in, and each segment walked
+again from its carry-in.  The kernel and :func:`rglru_scan_ref` take the
+same steps in the same order, so they agree bit for bit; against the
+sequential loop of the reference they differ by rounding alone.
+
 CPU tensors take :func:`rglru_scan_ref`; CUDA tensors launch the kernel or
 raise.  ``rglru_scan.launches`` counts kernel launches.
 """
@@ -19,24 +27,57 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build
+
+SEGMENTS = 8       # segments of S: the kernel's warps a block
+
+
+def segment_len(s: int) -> int:
+    """Steps of each segment of a scan over ``s`` steps (the last segments
+    may be shorter or empty): ceil(s / SEGMENTS), a function of S alone."""
+    return -(-s // SEGMENTS)
 
 
 def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor,
                    h0: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version: the sequential loop of ``repro/kernels/ref.py:
-    rglru_scan``, from h0.  Each step is a product and a sum, two separate
-    ops, the kernel's rounding (it forbids the fused multiply-add)."""
+    """Plain version of the recurrence of ``repro/kernels/ref.py:
+    rglru_scan``, from h0, in the kernel's order, vectorised across the
+    segments: pass 1 folds each segment from zero into (prod a, value),
+    the pairs are folded in ascending order into each segment's carry-in,
+    pass 2 walks each segment again from it.  Each step is a product and a
+    sum, two separate ops, the kernel's rounding (it forbids the fused
+    multiply-add); steps past S are skipped, not padded."""
     bsz, s, l = a.shape
-    hs = torch.zeros((bsz, l), dtype=torch.float32, device=a.device) \
+    n = segment_len(s)
+    pad = SEGMENTS * n - s
+    # (B, SEGMENTS, n, L): segment k holds steps k*n .. k*n + n - 1
+    ap = F.pad(a, (0, 0, 0, pad)).view(bsz, SEGMENTS, n, l)
+    bp = F.pad(b, (0, 0, 0, pad)).view(bsz, SEGMENTS, n, l)
+    valid = (torch.arange(SEGMENTS * n, device=a.device) < s).view(
+        1, SEGMENTS, n, 1)
+    pa = torch.ones((bsz, SEGMENTS, l), dtype=torch.float32, device=a.device)
+    pb = torch.zeros_like(pa)
+    for t in range(n):
+        v = valid[:, :, t]
+        pa = torch.where(v, ap[:, :, t] * pa, pa)
+        pb = torch.where(v, ap[:, :, t] * pb + bp[:, :, t], pb)
+    carry = torch.zeros((bsz, l), dtype=torch.float32, device=a.device) \
         if h0 is None else h0
-    out = torch.empty((bsz, s, l), dtype=torch.float32, device=a.device)
-    for t in range(s):
-        hs = a[:, t] * hs + b[:, t]
-        out[:, t] = hs
-    return out, hs
+    carries = []
+    for k in range(SEGMENTS):
+        carries.append(carry)
+        carry = pa[:, k] * carry + pb[:, k]
+    hs = torch.stack(carries, dim=1)                        # (B, SEG, L)
+    out = torch.empty((bsz, SEGMENTS, n, l), dtype=torch.float32,
+                      device=a.device)
+    for t in range(n):
+        hs = ap[:, :, t] * hs + bp[:, :, t]
+        out[:, :, t] = hs
+    out = out.view(bsz, SEGMENTS * n, l)[:, :s].contiguous()
+    return out, out[:, s - 1].clone()
 
 
 def _check(a, b, h0):

@@ -1,8 +1,8 @@
 """K4: the Mamba-2 SSD chunked scan of every SSM layer's prefill.
 
 ``ssd_scan(x, dt, a, b, c, h0)`` replaces the Pallas kernel
-``repro/kernels/ssd_scan.py:ssd_scan`` with the CUDA C++ kernel in
-``csrc/ssd_scan.cu`` (its header says what bounds it).  x is (B,S,H,P),
+``repro/kernels/ssd_scan.py:ssd_scan`` with the CUDA C++ kernels in
+``csrc/ssd_scan.cu`` (its header says what bounds them).  x is (B,S,H,P),
 dt (B,S,H) fp32 after the softplus, a (H,) fp32 (negative), b and c
 (B,S,N) in x's dtype, h0 (B,H,P,N) fp32 or None (zeros).  Returns y
 (B,S,H,P) in x's dtype and the final state (B,H,P,N) in fp32; the D-skip
@@ -11,22 +11,70 @@ stays with the caller (``models/ssm.py``).  The scan runs in chunks of
 (the Pallas kernel asserts that it does).  x, b, c and dt may be strided
 views with a contiguous last axis, as the layer's splits leave them.
 
-CPU tensors take :func:`ssd_scan_ref`; CUDA tensors launch the kernel or
-raise (also where one block's shared memory cannot hold a chunk: see
-:func:`smem_bytes`).  ``ssd_scan.launches`` counts kernel launches.
+CPU tensors take :func:`ssd_scan_ref`; CUDA tensors launch the kernel of
+their route or raise.  :func:`route` picks the route before launch, from
+the dtype, the shapes and what TMA can read: bf16 at P 64, N 64 or 128,
+chunks of 128 or one chunk (every mamba2-130m call) runs the wgmma + TMA
+kernel; everything else, fp32 included, the CUDA-core kernel (which raises
+where one block's shared memory cannot hold a chunk: see
+:func:`smem_bytes`).  ``ssd_scan.launches`` counts kernel launches,
+``ssd_scan.launches_by_route`` the same by route.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Iterable, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 
 CHUNK = 128        # the reference's SSD_CHUNK and the Pallas default
-MAX_CHUNK = 128    # the kernel's largest chunk (its thread count is 256)
-STATE_ROWS = 16    # state rows (P) per block: csrc/ssd_scan.cu PT
+MAX_CHUNK = 128    # the SIMT kernel's largest chunk (its thread count is 256)
+STATE_ROWS = 16    # state rows (P) per SIMT block: csrc/ssd_scan.cu PT
 SMEM_LIMIT = 232448
+ROUTES = ("wgmma", "simt")
+# the wgmma route (csrc/ssd_scan.cu, namespace ssd_tc): chunks of 128 rows,
+# P one 64-column box, N in 64-column boxes, a ring of 2 chunks
+WGMMA_CHUNK = 128
+WGMMA_P = 64
+WGMMA_N = (64, 128)
+WGMMA_STAGES = 2
+
+
+def route(dtype: torch.dtype, p: int, n: int, chunk: int, s: int,
+          x_strides: Optional[Sequence[int]] = None,
+          bc_strides: Iterable[Sequence[int]] = (),
+          addresses: Iterable[int] = ()) -> str:
+    """The kernel a CUDA call launches: "wgmma" for bf16 at P 64 and N 64
+    or 128, in chunks of 128 or one chunk of S <= 128, with x's heads
+    packed (``x_strides`` (B, S, H, P) with H's stride P) and every row
+    and batch stride of x, b and c (``bc_strides``) and every base
+    ``address`` as TMA reads them (16-byte multiples); else "simt"."""
+    q = min(chunk, s)
+    if dtype != torch.bfloat16 or p != WGMMA_P or n not in WGMMA_N:
+        return "simt"
+    if q != WGMMA_CHUNK and not (q == s < WGMMA_CHUNK):
+        return "simt"
+    views = [] if x_strides is None else [(*x_strides[:2], x_strides[3])]
+    views += [tuple(st) for st in bc_strides]
+    if x_strides is not None and x_strides[2] != p:
+        return "simt"
+    if any(st[2] != 1 or st[0] % 8 or st[1] % 8 for st in views):
+        return "simt"
+    if any(addr % 16 for addr in addresses):
+        return "simt"
+    return "wgmma"
+
+
+def wgmma_smem_bytes(n: int) -> int:
+    """Dynamic shared memory of one wgmma-route block at state width ``n``
+    (``ssd_tc::smem_bytes``): the ring of C, B (n/64 boxes each) and x
+    tiles of 128 rows, the hi and lo bf16 tiles of h, four (128,) fp32
+    vectors, the barriers and 1024 bytes to align the swizzled tiles."""
+    box = WGMMA_CHUNK * 64 * 2
+    stage = (2 * (n // 64) + 1) * box
+    return (WGMMA_STAGES * stage + 2 * (n // 64) * WGMMA_P * 64 * 2
+            + 4 * WGMMA_CHUNK * 4 + 16 * WGMMA_STAGES + 1024)
 
 
 def smem_bytes(q: int, n: int) -> int:
@@ -112,6 +160,40 @@ def _check(x, dt, a, b, c, h0, chunk):
         raise ValueError(f"ssd_scan chunk must be >= 1, got {chunk}")
 
 
+def _launch(kind: str, x, dt, a, b, c, h0, q: int):
+    """Launch the kernel of route ``kind`` at chunk ``q`` (checked operands
+    on the card); returns (y, h_final)."""
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    smem = wgmma_smem_bytes(n) if kind == "wgmma" else smem_bytes(q, n)
+    if smem > SMEM_LIMIT or (kind == "simt" and q > MAX_CHUNK):
+        raise ValueError(f"ssd_scan {kind} kernel takes its tiles in "
+                         f"{SMEM_LIMIT} bytes of shared memory (SIMT: chunk "
+                         f"<= {MAX_CHUNK}); chunk {q}, N {n} need {smem}")
+    a = a.contiguous()
+    h0 = h0.contiguous() if h0 is not None else None
+    lib = _build.library()
+    y = torch.empty((bsz, s, h, p), dtype=x.dtype, device=x.device)
+    hf = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
+    args = (x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
+            c.data_ptr(), h0.data_ptr() if h0 is not None else None,
+            y.data_ptr(), hf.data_ptr(), bsz, s, h, p, n, q,
+            x.stride(0), x.stride(1), x.stride(2), dt.stride(0),
+            dt.stride(1), b.stride(0), b.stride(1), c.stride(0),
+            c.stride(1))
+    if kind == "wgmma":
+        err = lib.repro_ssd_scan_wgmma(*args, _build.stream_handle())
+        why = lib.repro_refusal().decode() if err else ""
+        if why:
+            raise ValueError(f"ssd_scan refused (B={bsz}, S={s}, H={h}, "
+                             f"P={p}, N={n}, chunk={q}): {why}")
+    else:
+        err = lib.repro_ssd_scan(*args, _build.DTYPE_CODES[x.dtype],
+                                 _build.stream_handle())
+    _build.check(err, "ssd_scan")
+    return y, hf
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
              b: torch.Tensor, c: torch.Tensor,
              h0: Optional[torch.Tensor] = None, *,
@@ -122,32 +204,18 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         return ssd_scan_ref(x, dt, a, b, c, h0, chunk=chunk)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan has no route for device {x.device}")
-    bsz, s, h, p = x.shape
-    n = b.shape[-1]
-    q = min(chunk, s)
-    if q > MAX_CHUNK or smem_bytes(q, n) > SMEM_LIMIT:
-        raise ValueError(f"ssd_scan kernel takes chunk <= {MAX_CHUNK} with "
-                         f"its (Q, N) tiles in {SMEM_LIMIT} bytes of shared "
-                         f"memory; chunk {q}, N {n} need "
-                         f"{smem_bytes(q, n)}")
     if any(t.stride(-1) != 1 for t in (x, dt, b, c)):
         raise ValueError("ssd_scan kernel needs x, dt, b and c contiguous "
                          "along their last axis")
-    a = a.contiguous()
-    h0 = h0.contiguous() if h0 is not None else None
-    lib = _build.library()
-    y = torch.empty((bsz, s, h, p), dtype=x.dtype, device=x.device)
-    hf = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
-    err = lib.repro_ssd_scan(
-        x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
-        c.data_ptr(), h0.data_ptr() if h0 is not None else None,
-        y.data_ptr(), hf.data_ptr(), bsz, s, h, p, n, q,
-        x.stride(0), x.stride(1), x.stride(2), dt.stride(0), dt.stride(1),
-        b.stride(0), b.stride(1), c.stride(0), c.stride(1),
-        _build.DTYPE_CODES[x.dtype], _build.stream_handle())
-    _build.check(err, "ssd_scan")
+    s, p, n = x.shape[1], x.shape[3], b.shape[-1]
+    kind = route(x.dtype, p, n, chunk, s, x.stride(),
+                 (b.stride(), c.stride()),
+                 (x.data_ptr(), b.data_ptr(), c.data_ptr()))
+    y, hf = _launch(kind, x, dt, a, b, c, h0, min(chunk, s))
     ssd_scan.launches += 1
+    ssd_scan.launches_by_route[kind] += 1
     return y, hf
 
 
 ssd_scan.launches = 0
+ssd_scan.launches_by_route = dict.fromkeys(ROUTES, 0)
