@@ -56,13 +56,20 @@ and the script exits non-zero:
             call's bit for bit; then one call timed at the admission shape
             (library: none);
 8. serve    qwen3-0.6b at full width (28 layers, d 1024, vocab 153,600) in
-            bf16 serving 8 staggered requests; every stream must equal
+            bf16 serving 8 staggered requests; the engine's Syscore
+            captures ``decode`` and ``prefill_slot`` as CUDA graphs at
+            boot (its report must say "cuda_graph" for both, with their
+            warm-up and capture seconds); every stream must equal
             ``reference_generate``, every kernel must have launched
-            exactly the expected number of times, and every K1 and K3 call
-            must have taken the wgmma route; the boot's peak memory and
-            serving's own are reported apart, and decode steps and
-            admissions are profiled for device time by kernel family and
-            the card's idle share (as in 9-11);
+            exactly the expected number of times (the replays' accounting)
+            and every K1 and K3 call must have taken the wgmma route; 4
+            decode steps and one admission through the graphs must equal
+            the same through the eager functions bit for bit, logits and
+            every cache leaf; the boot's peak memory and serving's own are
+            reported apart, and decode steps and admissions are profiled
+            for device time by kernel family and the card's idle share,
+            beside the device time of a replay by CUDA events (as in
+            9-11);
 9. serve_olmoe  olmoe-1b-7b at full width (16 layers, d 2048, 64 experts
             top-8, untied head over vocab 51,200) in bf16 serving 6
             staggered requests, with the same checks for K1, K2 and K3;
@@ -232,42 +239,125 @@ def to_device(tree, device):
     return tree.to(device)
 
 
-def profile_decode(torch, eng, dev, steps=5):
-    """Decode executions of the live engine, each ended by a sync: their
-    host wall time without the profiler, then their device time by kernel
-    family under torch.profiler (K2, K1, K3, K4, K5, PyTorch's own kernels).
-    The idle share is one minus the profiled device time over the
-    unprofiled wall time of a step; under the profiler the wall time grows,
-    so its own idle share is given apart.  None where the profiler saw no
-    device time."""
+def leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in leaves(v)]
+    return [tree]
+
+
+def clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+def copy_tree(dst, src):
+    """Copy ``src``'s leaves into ``dst``'s, in place."""
+    for k, v in src.items():
+        if isinstance(v, dict):
+            copy_tree(dst[k], v)
+        else:
+            dst[k].copy_(v)
+
+
+def tree_diffs(torch, a, b, path=""):
+    """Paths of the leaves of two trees that are not bit-equal."""
+    if isinstance(a, dict):
+        return [p for k in sorted(a)
+                for p in tree_diffs(torch, a[k], b[k], f"{path}/{k}")]
+    return [] if torch.equal(a, b) else [path]
+
+
+def graph_vs_eager(torch, eng, dev, long_tokens, steps=4, slot=2):
+    """``steps`` decode steps and one admission (``long_tokens``, 200
+    valid, into ``slot``) through the engine's programs, which replay
+    their captured graphs on the live caches, and through the programs'
+    eager functions on a clone of the same caches: the logits, tokens and
+    every cache leaf must be bit-equal.  The live caches are restored
+    after.  Returns the differing outputs (empty when equal)."""
+    decode, prefill = eng.programs["decode"], eng.programs["prefill_slot"]
+    backup = clone_tree(eng.caches)
+    eager = clone_tree(eng.caches)
+    diffs = []
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    tok = torch.randint(1, eng.cfg.vocab_size, (eng.batch, 1), generator=gen,
+                        dtype=torch.int32).to(dev)
+    tok_e = tok
+    for i in range(steps):
+        _, nt_g, lg_g = decode(eng.params, eng.caches, tok)
+        _, nt_e, lg_e = decode.program.fn(eng.params, eager, tok_e)
+        if not torch.equal(lg_g, lg_e):
+            diffs.append(f"decode step {i}: logits")
+        if not torch.equal(nt_g, nt_e):
+            diffs.append(f"decode step {i}: tokens")
+        tok, tok_e = nt_g.clone(), nt_e
+    diffs += [f"decode: cache {p}"
+              for p in tree_diffs(torch, eng.caches, eager)]
+    _, last_g = prefill(eng.params, eng.caches, long_tokens, slot, 200)
+    _, last_e = prefill.program.fn(eng.params, eager, long_tokens, slot, 200)
+    if not torch.equal(last_g, last_e):
+        diffs.append("prefill_slot: last logits")
+    diffs += [f"prefill_slot: cache {p}"
+              for p in tree_diffs(torch, eng.caches, eager)]
+    copy_tree(eng.caches, backup)
+    torch.cuda.synchronize()
+    return diffs
+
+
+def decode_call(torch, eng, dev, eager=False):
+    """One decode step of the live engine: a replay of its ``decode``
+    graph, or with ``eager`` the program's eager function."""
     tokens = torch.zeros((eng.batch, 1), dtype=torch.int32, device=dev)
     decode = eng.programs["decode"]
-    return profile_calls(torch, lambda: decode(eng.params, eng.caches,
-                                               tokens), steps)
+    fn = decode.program.fn if eager else decode
+    return lambda: fn(eng.params, eng.caches, tokens)
 
 
-def profile_admission(torch, eng, long_tokens, steps=3):
-    """The same for admissions: ``prefill_slot`` of the 200-token prompt
-    into slot 0 ("per_step" keys are per admission)."""
+def admission_call(eng, long_tokens, eager=False):
+    """The same for an admission: ``prefill_slot`` of the 200-token prompt
+    into slot 0 ("per_step" keys below are per admission)."""
     prefill = eng.programs["prefill_slot"]
-    return profile_calls(torch, lambda: prefill(eng.params, eng.caches,
-                                                long_tokens, 0, 200), steps)
+    fn = prefill.program.fn if eager else prefill
+    return lambda: fn(eng.params, eng.caches, long_tokens, 0, 200)
 
 
-def profile_calls(torch, call, steps):
-    """``call`` ``steps`` times after two warm-up calls, each ended by a
-    sync, without and then under torch.profiler (see profile_decode)."""
-    from torch.profiler import ProfilerActivity, profile
+def median_wall_ms(torch, call, steps):
+    """Median host wall time in ms of ``call`` ended by a sync, over
+    ``steps`` calls after two warm-up calls."""
     for _ in range(2):
         call()
     torch.cuda.synchronize()
-    plain_ms = []
+    times = []
     for _ in range(steps):
         t0 = time.perf_counter()
         call()
         torch.cuda.synchronize()
-        plain_ms.append(1e3 * (time.perf_counter() - t0))
-    wall_unprofiled = sorted(plain_ms)[steps // 2]
+        times.append(1e3 * (time.perf_counter() - t0))
+    return sorted(times)[steps // 2]
+
+
+def time_calls(torch, call, steps):
+    """``call`` without the profiler: its wall time with a sync (median of
+    ``steps``), its device time by CUDA events around ``steps`` calls
+    queued behind a sleep kernel (:func:`cuda_ms`; a replayed graph's
+    kernels count there whatever the profiler attributes), and the host
+    time to queue one call (:func:`host_us`)."""
+    return {"wall_ms_per_step": median_wall_ms(torch, call, steps),
+            "events_device_ms_per_step": cuda_ms(torch, call, iters=steps,
+                                                 warmup=1),
+            "host_ms_per_call": host_us(torch, call, iters=steps) / 1e3}
+
+
+def profile_calls(torch, call, steps, timed):
+    """``call`` ``steps`` times under torch.profiler, each ended by a
+    sync: device time by kernel family (K2, K1, K3, K4, K5, PyTorch's own
+    kernels) and kernels per call, beside ``timed`` (:func:`time_calls`,
+    measured before any profiler ran in the phase).  The idle share is one
+    minus the profiled (or the events') device time over the unprofiled
+    wall time of a step; under the profiler the wall time grows, so its
+    own idle share is given apart.  No family keys where the profiler saw
+    no device time."""
+    from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -289,20 +379,24 @@ def profile_calls(torch, call, steps):
         key = next((k for k in fam if k in e.key), "torch")
         fam[key] += t / 1e3                      # us -> ms
     busy = sum(fam.values())
+    wall_unprofiled = timed["wall_ms_per_step"]
+    events_ms = timed["events_device_ms_per_step"]
+    out = dict(timed, idle_share_events=max(
+        0.0, 1.0 - events_ms / wall_unprofiled))
     if busy == 0:
-        return {"device_ms": None, "wall_ms_per_step": wall_unprofiled}
-    return {"wall_ms_per_step": wall_unprofiled,
-            "wall_ms_per_step_profiled": wall_ms / steps,
-            "device_ms_per_step": busy / steps,
-            "matmul_ms_per_step": fam["matmul_kernel"] / steps,
-            "flash_ms_per_step": fam["flash_attention_kernel"] / steps,
-            "moe_ffn_ms_per_step": fam["moe_ffn_kernel"] / steps,
-            "ssd_scan_ms_per_step": fam["ssd_scan_kernel"] / steps,
-            "rglru_scan_ms_per_step": fam["rglru_scan_kernel"] / steps,
-            "torch_ms_per_step": fam["torch"] / steps,
-            "kernels_per_step": n_kernels / steps,
-            "idle_share": max(0.0, 1.0 - busy / steps / wall_unprofiled),
-            "idle_share_profiled": max(0.0, 1.0 - busy / wall_ms)}
+        return dict(out, device_ms=None)
+    return dict(out,
+                wall_ms_per_step_profiled=wall_ms / steps,
+                device_ms_per_step=busy / steps,
+                matmul_ms_per_step=fam["matmul_kernel"] / steps,
+                flash_ms_per_step=fam["flash_attention_kernel"] / steps,
+                moe_ffn_ms_per_step=fam["moe_ffn_kernel"] / steps,
+                ssd_scan_ms_per_step=fam["ssd_scan_kernel"] / steps,
+                rglru_scan_ms_per_step=fam["rglru_scan_kernel"] / steps,
+                torch_ms_per_step=fam["torch"] / steps,
+                kernels_per_step=n_kernels / steps,
+                idle_share=max(0.0, 1.0 - busy / steps / wall_unprofiled),
+                idle_share_profiled=max(0.0, 1.0 - busy / wall_ms))
 
 
 def main():
@@ -1109,6 +1203,18 @@ def main():
         after_boot = torch.cuda.memory_allocated()
         cfg = eng.cfg
         assert eng.params["embed"].dtype == torch.bfloat16
+        # the Syscore captured both programs at boot
+        programs = eng.syscore.report()["programs"]
+        for name, prog in programs.items():
+            print(f"{arch} {name}: source {prog['source']}, lower_s "
+                  f"{prog['lower_s']:.4f}, compile_s {prog['compile_s']:.4f}",
+                  flush=True)
+            if prog["source"] != "cuda_graph" or not prog["compile_s"] > 0:
+                raise AssertionError(f"{arch} {name} is not a captured "
+                                     f"graph: {prog}")
+        tree_bytes = sum(t.numel() * t.element_size()
+                         for tree in (eng.params, eng.caches)
+                         for t in leaves(tree))
         rng = np.random.default_rng(0)
         reqs = [eng.submit(rng.integers(1, cfg.vocab_size, size=p),
                            max_new=max_new, arrival_time=a)
@@ -1160,6 +1266,15 @@ def main():
         long_tokens = torch.zeros((1, PREFILL_LEN), dtype=torch.int32)
         long_tokens[0, :200] = torch.from_numpy(long.prompt)
         long_tokens = long_tokens.to(dev)
+        # the graphs against the eager functions, on the live caches
+        diffs = graph_vs_eager(torch, eng, dev, long_tokens)
+        if diffs:
+            raise AssertionError(f"{arch}: graph replay and eager run "
+                                 f"differ: {diffs[:8]}")
+        ref_programs = eng._ref_engine.syscore.report()["programs"]
+        if any(p["source"] != "cuda_graph" for p in ref_programs.values()):
+            raise AssertionError(f"{arch}: the reference engine's programs "
+                                 f"are not captured: {ref_programs}")
         admit_ms = []
         for _ in range(4):
             torch.cuda.synchronize()
@@ -1168,8 +1283,25 @@ def main():
                                          0, 200)
             torch.cuda.synchronize()
             admit_ms.append(1e3 * (time.perf_counter() - t1))
-        profile = profile_decode(torch, eng, dev)
-        admission_profile = profile_admission(torch, eng, long_tokens)
+        # the replays, then the programs' eager functions, timed before the
+        # phase's profiler runs; then the replays under the profiler, and
+        # the eager decode and a replay's host time again after it (a
+        # profiler session adds host time to later launches in the process)
+        calls = {"decode": (decode_call(torch, eng, dev), 5),
+                 "admission": (admission_call(eng, long_tokens), 3)}
+        eager_calls = {
+            "decode": (decode_call(torch, eng, dev, eager=True), 5),
+            "admission": (admission_call(eng, long_tokens, eager=True), 3)}
+        timed = {k: time_calls(torch, *c) for k, c in calls.items()}
+        eager_ms = {k: median_wall_ms(torch, *c)
+                    for k, c in eager_calls.items()}
+        profile = profile_calls(torch, *calls["decode"], timed["decode"])
+        admission_profile = profile_calls(torch, *calls["admission"],
+                                          timed["admission"])
+        eager_ms["decode_after_profiler"] = median_wall_ms(
+            torch, *eager_calls["decode"])
+        profile["host_ms_per_call_after_profiler"] = host_us(
+            torch, calls["decode"][0], iters=5) / 1e3
         out.update(
             model=arch, dtype="bfloat16", layers=cfg.n_layers,
             d_model=cfg.d_model, padded_vocab=cfg.padded_vocab,
@@ -1179,18 +1311,24 @@ def main():
             tok_per_s=stats["tok_per_s"], ttft_ms=stats["ttft_ms"],
             decode_p50_ms=stats["decode_p50_ms"], wall_s=stats["wall_s"],
             tokens=stats["tokens"], decode_steps=stats["decode_steps"],
-            admitted=admissions,
+            admitted=admissions, programs=eng.syscore.report()["programs"],
+            graph_equals_eager={"decode_steps": 4, "admissions": 1,
+                                "bit_equal": True},
             refill_admissions=stats["refill_admissions"],
             occupancy=stats["occupancy"], launches=launches,
             launches_by_route=routes, launches_per_pass=per_pass,
             admission_ms=sorted(admit_ms[1:])[1], profile=profile,
             admission_profile=admission_profile,
+            eager_wall_ms=eager_ms,
             peak_mem_gib=round(max(peak, boot_peak) / 2 ** 30, 3),
             boot_peak_gib=round(boot_peak / 2 ** 30, 3),
             serve_peak_gib=round(peak / 2 ** 30, 3),
             serve_peak_above_boot_gib=round((peak - after_boot) / 2 ** 30, 3),
             mem_at_start_gib=round(base / 2 ** 30, 3),
             mem_after_boot_gib=round(after_boot / 2 ** 30, 3),
+            params_and_caches_gib=round(tree_bytes / 2 ** 30, 3),
+            boot_besides_trees_gib=round(
+                (after_boot - base - tree_bytes) / 2 ** 30, 3),
             streams_equal_reference=True, card=smi)
         path_routes[arch] = routes
         return eng, long_tokens, launches
@@ -1232,14 +1370,15 @@ def main():
             seen.append(args)
             return real(*args)
 
+        # (the programs' eager functions: a replay calls no Python)
         ops.moe_ffn = record
         try:
-            eng.programs["decode"](
+            eng.programs["decode"].program.fn(
                 eng.params, eng.caches,
                 torch.zeros((BATCH, 1), dtype=torch.int32, device=dev))
             n_dec = len(seen)
-            eng.programs["prefill_slot"](eng.params, eng.caches,
-                                         long_tokens, 0, 200)
+            eng.programs["prefill_slot"].program.fn(
+                eng.params, eng.caches, long_tokens, 0, 200)
         finally:
             ops.moe_ffn = real
         torch.cuda.synchronize()

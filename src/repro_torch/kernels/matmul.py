@@ -14,8 +14,9 @@ the engine's token exactness against its batch-1 reference rests on.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -125,20 +126,45 @@ def _check(x: torch.Tensor, w: torch.Tensor):
 # per (device, stream): the fp32 partials of a split product, (S, M, N)
 # at its head, and int32 arrival counters, one per weight tile, that the
 # last block of a tile resets to 0.  Launches on one stream run one after
-# another, so each reuses the buffers; they only grow.
+# another, so each reuses the buffers; they only grow.  The table in use is
+# the top of ``_TABLES``: a program captured as a CUDA graph brings a table
+# of its own (:func:`scratch_table`), so its graph's buffers live exactly
+# as long as the program and no other product can regrow (free) them.
 _SCRATCH: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+_TABLES: List[dict] = [_SCRATCH]
+
+
+@contextlib.contextmanager
+def scratch_table(table: dict):
+    """Split products inside the block take their scratch from ``table``
+    (empty at first, then kept by the caller)."""
+    _TABLES.append(table)
+    try:
+        yield table
+    finally:
+        _TABLES.pop()
 
 
 def _scratch(device: torch.device, stream: int, floats: int,
              tiles: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    table = _TABLES[-1]
     key = (device.index, stream)
-    ws, cnt = _SCRATCH.get(key, (None, None))
+    ws, cnt = table.get(key, (None, None))
+    if ws is not None and ws.numel() >= floats and cnt.numel() >= tiles:
+        return ws, cnt
+    if torch.cuda.is_current_stream_capturing():
+        # growing would free buffers the capture's earlier products hold
+        raise RuntimeError(
+            f"matmul: a split product needs {floats} floats and {tiles} "
+            f"tiles of scratch that its table does not hold while a CUDA "
+            f"graph is captured; warm the program up at its real shapes "
+            f"(in the same table) before the capture")
     if ws is None or ws.numel() < floats:
         ws = torch.empty(max(floats, 1 << 20), dtype=torch.float32,
                          device=device)
     if cnt is None or cnt.numel() < tiles:
         cnt = torch.zeros(max(tiles, 1024), dtype=torch.int32, device=device)
-    _SCRATCH[key] = ws, cnt
+    table[key] = ws, cnt
     return ws, cnt
 
 

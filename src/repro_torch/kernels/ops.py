@@ -23,7 +23,7 @@ KERNELS = {"matmul": matmul, "flash_attention": flash_attention,
 __all__ = ["matmul", "matmul_ref", "flash_attention", "flash_attention_ref",
            "moe_ffn", "moe_ffn_ref", "ssd_scan", "ssd_scan_ref",
            "rglru_scan", "rglru_scan_ref", "KERNELS", "launch_counts",
-           "route_counts", "reset_launch_counts"]
+           "route_counts", "reset_launch_counts", "add_launch_counts"]
 
 
 def launch_counts() -> Dict[str, int]:
@@ -43,3 +43,16 @@ def reset_launch_counts():
         fn.launches = 0
         if hasattr(fn, "launches_by_route"):
             fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
+
+
+def add_launch_counts(launches: Dict[str, int],
+                      routes: Dict[str, Dict[str, int]], times: int = 1):
+    """Add ``times`` x ``launches`` (and ``routes``, by route) to the
+    kernels' counters: the launches of a replayed CUDA graph, which the
+    wrappers count only while it is captured."""
+    for name, n in launches.items():
+        KERNELS[name].launches += times * n
+    for name, by_route in routes.items():
+        counts = KERNELS[name].launches_by_route
+        for r, n in by_route.items():
+            counts[r] += times * n

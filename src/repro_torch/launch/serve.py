@@ -2,12 +2,15 @@
 (port of the dense path of ``repro/launch/serve.py``).
 
 The Syscore boots once and hot-loads the ``prefill_slot`` and ``decode``
-programs; admission of a new request into a running batch is a
-re-execution of ``prefill_slot``, and every engine step re-executes
-``decode`` for all slots at their own positions.  Finished slots are
-refilled from a bounded arrival-time queue between decode steps.  Engine
-telemetry (TTFT, decode latency, occupancy) goes through the numbered
-hostcall table.
+programs, bound to the engine's parameters and caches (on the card, each
+is captured as a CUDA graph there); admission of a new request into a
+running batch is a re-execution of ``prefill_slot``, and every engine step
+re-executes ``decode`` for all slots at their own positions.  The host
+writes each call's tokens into a pinned buffer, and reads back only the
+first token's logits of an admission and each step's next tokens.
+Finished slots are refilled from a bounded arrival-time queue between
+decode steps.  Engine telemetry (TTFT, decode latency, occupancy) goes
+through the numbered hostcall table.
 
 Exactness: admission is per slot (a batch-1 prefill copied into the live
 cache), K2 and K3 sum in a fixed order whatever the number of rows, and
@@ -33,7 +36,8 @@ import torch
 
 from repro_torch import steps as steps_lib
 from repro_torch.core.hostcall import CALL_BATCH, CALL_METRIC, CALL_STEP_REPORT
-from repro_torch.core.syscore import (METRIC_PROGRAM_COMPILE_MS,
+from repro_torch.core.syscore import (METRIC_KERNEL_BUILD_MS,
+                                      METRIC_PROGRAM_COMPILE_MS,
                                       METRIC_PROGRAM_LOAD_MS, Syscore)
 from repro_torch.engine_config import EngineConfig
 from repro_torch.kernels import _build
@@ -43,7 +47,8 @@ from repro_torch.models import registry, transformer
 METRIC_TTFT_MS = 1        # time-to-first-token per request, ms
 METRIC_DECODE_MS = 2      # per decode-step wall latency, ms
 METRIC_OCCUPANCY = 3      # active slots / batch, per decode step
-# codes 4/5 are program-lifecycle telemetry (repro_torch.core.syscore)
+# codes 4/5 are program-lifecycle telemetry and 11 the kernel build
+# (repro_torch.core.syscore)
 
 
 @dataclass
@@ -77,6 +82,14 @@ def resolve_device(device: Optional[str]) -> torch.device:
     return dev
 
 
+def _zero(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            _zero(v)
+    else:
+        tree.zero_()
+
+
 class ServingEngine:
     """Continuous-batching engine over hot-loaded programs.
 
@@ -102,24 +115,33 @@ class ServingEngine:
         self.max_queue = config.max_queue
         self.clock = config.clock
         self.syscore = Syscore()
-        if self.device.type == "cuda":
-            # the programs' kernels are built (or found current) at boot,
-            # the port's counterpart of the reference's program compile
+        on_card = self.device.type == "cuda"
+        if on_card:
+            # the kernels are built (or found current) once per process
             t0 = time.perf_counter()
             _build.library()
             self.syscore.hostcalls.dispatch(
-                CALL_METRIC, METRIC_PROGRAM_COMPILE_MS,
+                CALL_METRIC, METRIC_KERNEL_BUILD_MS,
                 1e3 * (time.perf_counter() - t0))
         self.params = params if params is not None else \
             transformer.init_params(self.cfg, config.seed, device=self.device)
+        # the programs are bound to these trees: allocated before hot_load
+        self.caches = transformer.init_cache(self.cfg, self.batch,
+                                             self.max_len, device=self.device)
+        self._prompt = torch.zeros((1, self.prefill_len), dtype=torch.int32,
+                                   pin_memory=on_card)
+        self._last_tokens = torch.zeros((self.batch, 1), dtype=torch.int32,
+                                        pin_memory=on_card)
 
-        specs = steps_lib.serve_program_specs(self.cfg, self.config)
+        specs = steps_lib.serve_program_specs(self.cfg, self.config,
+                                              self.params, self.caches)
         self.programs = {name: self.syscore.hot_load(spec)
                          for name, spec in specs.items()}
         self._prefill_slot = self.programs["prefill_slot"]
         self._decode = self.programs["decode"]
-        self.caches = transformer.init_cache(self.cfg, self.batch,
-                                             self.max_len, device=self.device)
+        if on_card:
+            # the warm-ups wrote the caches: boot them empty again
+            _zero(self.caches)
 
         self.slots: List[Optional[Request]] = [None] * self.batch
         self.queue: List[Request] = []
@@ -177,17 +199,16 @@ class ServingEngine:
             CALL_METRIC, METRIC_TTFT_MS, 1e3 * req.ttft_s)
         self._maybe_finish(req)   # max_new == 1 or instant EOS
 
-    def _tokens(self, rows: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(rows).to(self.device)
-
     def _admit_one(self, slot: int, req: Request):
         """Prefill ``req`` into ``slot`` of the live batch (a re-execution
-        of the hot-loaded prefill_slot program)."""
-        tokens = np.zeros((1, self.prefill_len), np.int32)
+        of the hot-loaded prefill_slot program).  The pinned prompt buffer
+        is rewritten only after the last admission's logits came back, so
+        its copy to the card has ended."""
+        tokens = self._prompt.numpy()
+        tokens[:] = 0
         tokens[0, :req.prompt_len] = req.prompt
         self.caches, last = self._prefill_slot(
-            self.params, self.caches, self._tokens(tokens), slot,
-            req.prompt_len)
+            self.params, self.caches, self._prompt, slot, req.prompt_len)
         self._place(slot, req, last.float().cpu().numpy())
 
     def _admit(self):
@@ -219,14 +240,15 @@ class ServingEngine:
             (CALL_STEP_REPORT, self.decode_steps, dt, time.perf_counter())])
 
     def _decode_once(self):
-        tokens = np.zeros((self.batch, 1), np.int32)
+        tokens = self._last_tokens.numpy()
+        tokens[:] = 0
         for i, req in enumerate(self.slots):
             if req is not None:
                 tokens[i, 0] = req.generated[-1]
         active = sum(s is not None for s in self.slots)
         t1 = time.perf_counter()
         self.caches, next_tok, _ = self._decode(
-            self.params, self.caches, self._tokens(tokens))
+            self.params, self.caches, self._last_tokens)
         nt = next_tok.cpu().numpy()       # waits for the device result
         dt = time.perf_counter() - t1
         self.decode_steps += 1
@@ -324,7 +346,8 @@ class ServingEngine:
         done, self.completed = self.completed, []
         hc = self.syscore.hostcalls
         hc.drain_metrics(keep=(METRIC_PROGRAM_COMPILE_MS,
-                               METRIC_PROGRAM_LOAD_MS))
+                               METRIC_PROGRAM_LOAD_MS,
+                               METRIC_KERNEL_BUILD_MS))
         hc.step_times.clear()
         hc.step_stamps.clear()
         return done
@@ -333,8 +356,9 @@ class ServingEngine:
     def reference_generate(self, prompt: np.ndarray, max_new: int) -> List[int]:
         """Batch-of-1 greedy decode of ``prompt`` with this engine's params —
         the oracle each slot's output must match token for token.  The
-        reference engine is built once and re-used: admission rewrites its
-        single slot completely."""
+        reference engine is built once (on the card it captures programs of
+        its own) and re-used: admission rewrites its single slot
+        completely."""
         ref = getattr(self, "_ref_engine", None)
         if ref is None:
             ref_config = self.config.replace(

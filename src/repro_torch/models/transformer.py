@@ -18,11 +18,12 @@ positions.
 
 Unlike the reference, which is functional, cache writes here are made in
 place: ``forward(mode="prefill")`` and ``decode_step`` fill the cache
-tensors they are given and return the same tree (with a new ``pos``).
+tensors they are given, ``pos`` included, and return the same tree.
 Callers that need the old cache keep a copy.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Tuple
 
 import torch
@@ -329,14 +330,22 @@ def _run_stack(cfg, params, x, *, mode: str, caches, pos):
     return x, caches
 
 
+@functools.lru_cache(maxsize=None)
+def _embed_scale(d_model: int, dtype: torch.dtype) -> float:
+    """sqrt(d_model) rounded to ``dtype``, as a Python float: multiplying
+    by it gives the bits of multiplying by the rounded scale as a tensor,
+    without copying a scalar to the device on every call (a copy a CUDA
+    graph capture refuses)."""
+    return torch.tensor(d_model ** 0.5, dtype=dtype).item()
+
+
 def embed(cfg, params, tokens):
     """Token embeddings, times sqrt(d_model) for gemma configs: the scale
     is rounded to the model dtype first, as the reference does (50.5 in
     bf16 at d_model 2560, not 50.596)."""
     x = apply_embedding(params["embed"], tokens)
     if cfg.scale_embeddings:
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
-                             device=x.device)
+        x = x * _embed_scale(cfg.d_model, x.dtype)
     return x
 
 
@@ -351,7 +360,9 @@ def forward(cfg, params, tokens, *, mode: str = "prefill", caches=None,
             lengths=None):
     """tokens: (B, S).  Prefill mode fills ``caches`` in place and sets its
     ``pos`` to ``lengths`` (B,), each right-padded row's valid length
-    (default: S), i.e. each row's next decode position.
+    (default: S), i.e. each row's next decode position.  The programs pass
+    ``lengths`` as a tensor on the tokens' device: anything else is copied
+    there, which a CUDA graph capture refuses.
 
     Returns (logits (B, S, V_padded), caches)."""
     check_supported(cfg)
@@ -368,7 +379,7 @@ def forward(cfg, params, tokens, *, mode: str = "prefill", caches=None,
                               device=tokens.device).expand(b).clone()
     x, caches = _run_stack(cfg, params, x, mode=mode, caches=caches, pos=pos)
     logits = logits_from_hidden(cfg, params, x)
-    caches["pos"] = pos
+    caches["pos"].copy_(pos)
     return logits, caches
 
 
@@ -386,7 +397,8 @@ def decode_step(cfg, params, caches, token, pos=None, *, live=None):
     """token: (B, 1) int; pos: () or (B,) absolute positions, defaulting to
     the per-slot ``pos`` carried in the cache tree.  Writes each row's KV at
     its own slot in place and returns (logits (B, 1, V_padded), caches) with
-    ``pos`` advanced by one."""
+    ``pos`` advanced by one, written into the tree's own ``pos`` tensor (a
+    replayed CUDA graph reads the buffer it captured)."""
     check_supported(cfg)
     if live is not None:
         raise NotImplementedError(
@@ -404,5 +416,5 @@ def decode_step(cfg, params, caches, token, pos=None, *, live=None):
     x, caches = _run_stack(cfg, params, x, mode="decode", caches=caches,
                            pos=pos)
     logits = logits_from_hidden(cfg, params, x)
-    caches["pos"] = pos + 1
+    caches["pos"].copy_(pos + 1)
     return logits, caches

@@ -4,6 +4,8 @@ MoE archs share it).
 
 Each program works on the live cache tree in place and returns it, so the
 engine's call sites read as the reference's: ``caches, out = prog(...)``.
+Nothing in them waits for the host, so on the card the Syscore captures
+each as a CUDA graph.
 """
 from __future__ import annotations
 
@@ -15,6 +17,13 @@ from repro_torch.core.syscore import ProgramSpec
 from repro_torch.models import transformer
 
 
+def _index(value, device) -> torch.Tensor:
+    """A slot or a length as a (1,) int32 tensor on ``device`` (a tensor
+    already there, as in a capture, is not copied)."""
+    return torch.as_tensor(value, dtype=torch.int32,
+                           device=device).reshape(1)
+
+
 def make_prefill_slot_step(cfg, cache_len: int):
     """prefill_slot(params, caches, tokens (1,S), slot, length) ->
     (caches, last).
@@ -23,23 +32,29 @@ def make_prefill_slot_step(cfg, cache_len: int):
     cache and copy its rows, and its ``pos``, into slot ``slot`` of the live
     tree.  Nothing outside row ``slot`` is touched, so the other slots keep
     decoding between executions.  ``last`` is the (V,) logits at the final
-    valid prompt position."""
-    def prefill_slot(params, caches, tokens, slot: int, length: int):
+    valid prompt position.  ``slot`` and ``length`` are int32 scalars on
+    the device, as in the reference (``.at[slot].set``, ``jnp.take``), or
+    Python ints; the rows are written and read through device indices, so
+    the program never reads them on the host."""
+    def prefill_slot(params, caches, tokens, slot, length):
+        slot = _index(slot, tokens.device).long()
+        length = _index(length, tokens.device)
         fresh = transformer.init_cache(cfg, 1, cache_len,
                                        device=tokens.device)
         logits, c1 = transformer.forward(
             cfg, params, tokens, mode="prefill", caches=fresh,
-            lengths=torch.tensor([length], dtype=torch.int32))
-        caches["pos"][slot] = c1["pos"][0]
+            lengths=length)
+        caches["pos"].index_copy_(0, slot, c1["pos"])
         # group-stacked leaves carry a leading (layers,) axis: batch is axis
         # 1; tail leaves index batch at axis 0
         for name, group in caches["groups"].items():
             for leaf, buf in group.items():
-                buf[:, slot] = c1["groups"][name][leaf][:, 0]
+                buf.index_copy_(1, slot, c1["groups"][name][leaf])
         for name, layer in caches["tail"].items():
             for leaf, buf in layer.items():
-                buf[slot] = c1["tail"][name][leaf][0]
-        return caches, logits[0, length - 1]
+                buf.index_copy_(0, slot, c1["tail"][name][leaf])
+        last = logits[0].index_select(0, (length - 1).long())[0]
+        return caches, last
 
     return prefill_slot
 
@@ -56,12 +71,26 @@ def make_serve_step(cfg):
     return serve_step
 
 
-def serve_program_specs(cfg, config) -> Dict[str, ProgramSpec]:
-    """The serving programs for an :class:`EngineConfig`:
-    ``prefill_slot`` (one admission into a live batch) and ``decode`` (one
-    greedy token for every slot)."""
+def serve_program_specs(cfg, config, params, caches
+                        ) -> Dict[str, ProgramSpec]:
+    """The serving programs for an :class:`EngineConfig`, bound to the
+    engine's ``params`` and ``caches``: ``prefill_slot`` (one admission
+    into a live batch; its per-call inputs are the (1, prefill_len)
+    tokens, the slot and the length) and ``decode`` (one greedy token for
+    every slot; its input is the (batch, 1) tokens)."""
+    device = caches["pos"].device
+    s = config.resolved_prefill_len
+
+    def scalar(v):
+        return torch.tensor(v, dtype=torch.int32, device=device)
+
+    tokens = torch.zeros((1, s), dtype=torch.int32, device=device)
+    token = torch.zeros((config.batch, 1), dtype=torch.int32, device=device)
     return {
         "prefill_slot": ProgramSpec(
-            "prefill_slot", make_prefill_slot_step(cfg, config.max_len)),
-        "decode": ProgramSpec("decode", make_serve_step(cfg)),
+            "prefill_slot", make_prefill_slot_step(cfg, config.max_len),
+            resident=(params, caches),
+            inputs=(tokens, scalar(0), scalar(s))),
+        "decode": ProgramSpec("decode", make_serve_step(cfg),
+                              resident=(params, caches), inputs=(token,)),
     }
