@@ -86,7 +86,26 @@ and the script exits non-zero:
             after a batch-4-vs-1 bit check of its decode layers;
 12. parity  reduced qwen3-0.6b, olmoe-1b-7b, mamba2-130m and
             recurrentgemma-2b in fp32 on the card and on the CPU, with
-            weights drawn once: the greedy streams must be equal.
+            weights drawn once: the greedy streams must be equal, through
+            the dense engine and through the paged engine (an arena of 6
+            blocks of 8 under 3 requests, timeslice 3), whose card streams
+            must also equal the dense engine's;
+13. serve_paged  the paged KV arena at full width in bf16: qwen3-0.6b
+            (16 requests) and recurrentgemma-2b (8 requests) through a
+            ``PagingConfig(kv_block=8, arena_blocks=128, timeslice=8)``
+            engine at batch 4, max_len 512 (64 blocks a slot: the arena
+            holds half the batch), prompts of 160-256 tokens with 96-128
+            new each from seed 0, so the workload's blocks are >= 2x the
+            arena; evictions, page faults and preemptions must each be
+            >= 1, every stream must equal ``reference_generate`` and the
+            unpaged engine's stream on the same workload, launches must be
+            exact, graph == eager bit for bit (4 decode steps and one
+            admission, every cache leaf, the arena without its sink block)
+            with every slot mapped, and ``check_invariants()`` must hold;
+            decode p50, tok/s, admission ms, device ms a decode step,
+            swap-out and page-fault host ms, arena occupancy, boot
+            memory and (profiled last) device time and kernels a decode
+            step are reported beside the unpaged engine's.
 
 Then a ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.  The full record is also written to
@@ -127,6 +146,8 @@ RGLRU_TOL = 2e-4
 # decode-time capacity at its floor of 4 (no token is dropped), so the
 # engine's olmoe streams can equal the batch-1 reference
 BATCH, MAX_LEN, PREFILL_LEN, MAX_NEW, MOE_MAX_NEW = 4, 512, 256, 32, 16
+# phase 13's arena: 64 blocks of 8 a slot, half the batch's 256 resident
+PAGED_BLOCK, PAGED_ARENA, PAGED_TIMESLICE = 8, 128, 8
 
 RECORD = {"phases": []}
 
@@ -268,13 +289,31 @@ def tree_diffs(torch, a, b, path=""):
     return [] if torch.equal(a, b) else [path]
 
 
+def without_sink(tree):
+    """A paged cache tree's leaves with the arena leaves cut to the blocks
+    the pager owns: the last block is the sink of dropped writes, which
+    racing writes leave in no fixed order and nothing reads."""
+    def cut(path, t):
+        if path[-1] not in ("k", "v"):
+            return t
+        axis = 1 if path[0] == "groups" else 0
+        return t.narrow(axis, 0, t.shape[axis] - 1)
+
+    def walk(node, path=()):
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        return cut(path, node)
+    return walk(tree) if "block_table" in tree else tree
+
+
 def graph_vs_eager(torch, eng, dev, long_tokens, steps=4, slot=2):
     """``steps`` decode steps and one admission (``long_tokens``, 200
     valid, into ``slot``) through the engine's programs, which replay
     their captured graphs on the live caches, and through the programs'
     eager functions on a clone of the same caches: the logits, tokens and
-    every cache leaf must be bit-equal.  The live caches are restored
-    after.  Returns the differing outputs (empty when equal)."""
+    every cache leaf (a paged arena without its sink) must be bit-equal.
+    The live caches are restored after.  Returns the differing outputs
+    (empty when equal)."""
     decode, prefill = eng.programs["decode"], eng.programs["prefill_slot"]
     backup = clone_tree(eng.caches)
     eager = clone_tree(eng.caches)
@@ -292,13 +331,15 @@ def graph_vs_eager(torch, eng, dev, long_tokens, steps=4, slot=2):
             diffs.append(f"decode step {i}: tokens")
         tok, tok_e = nt_g.clone(), nt_e
     diffs += [f"decode: cache {p}"
-              for p in tree_diffs(torch, eng.caches, eager)]
+              for p in tree_diffs(torch, without_sink(eng.caches),
+                                  without_sink(eager))]
     _, last_g = prefill(eng.params, eng.caches, long_tokens, slot, 200)
     _, last_e = prefill.program.fn(eng.params, eager, long_tokens, slot, 200)
     if not torch.equal(last_g, last_e):
         diffs.append("prefill_slot: last logits")
     diffs += [f"prefill_slot: cache {p}"
-              for p in tree_diffs(torch, eng.caches, eager)]
+              for p in tree_diffs(torch, without_sink(eng.caches),
+                                  without_sink(eager))]
     copy_tree(eng.caches, backup)
     torch.cuda.synchronize()
     return diffs
@@ -1178,7 +1219,7 @@ def main():
     k5_plain_bits, k5_bits = out["bit_equal"], out["bits_equal_B1"]
 
     # -- 8-11. the served paths at full width --------------------------------
-    from repro_torch.engine_config import EngineConfig
+    from repro_torch.engine_config import EngineConfig, PagingConfig
     from repro_torch.launch.serve import ServingEngine
     from repro_torch.models import transformer
 
@@ -1566,30 +1607,257 @@ def main():
 
     # -- 12. card against CPU ----------------------------------------------
     with phase("parity") as out:
-        equal = {}
+        equal, paged_equal, paged_moves = {}, {}, {}
         for arch in ("qwen3-0.6b", "olmoe-1b-7b", "mamba2-130m",
                      "recurrentgemma-2b"):
             config = EngineConfig(reduced=True, batch=2, max_len=64,
                                   clock="step")
+            # the three requests need 3, 5 and 4 blocks of 8: an arena of
+            # 6 holds no two of the longer ones, so admission waits,
+            # slots rotate every 3 tokens and blocks swap
+            paged = config.replace(paging=PagingConfig(
+                kv_block=8, arena_blocks=6, timeslice=3))
             # drawn once on the CPU: the card's generator draws other bits
             params = transformer.init_params(
                 registry.get_config(arch, reduced=True), 7)
             streams = {}
             for device in ("cuda", "cpu"):
-                eng = ServingEngine(arch, config, device=device,
-                                    params=to_device(params, device))
-                rng = np.random.default_rng(1)
-                reqs = [eng.submit(rng.integers(1, eng.cfg.vocab_size,
-                                                size=p),
-                                   max_new=n, arrival_time=a)
-                        for p, n, a in ((5, 12, 0), (17, 20, 0), (9, 16, 3))]
-                eng.run()
-                streams[device] = [r.generated for r in reqs]
-            if streams["cuda"] != streams["cpu"]:
+                for name, conf in (("dense", config), ("paged", paged)):
+                    eng = ServingEngine(arch, conf, device=device,
+                                        params=to_device(params, device))
+                    rng = np.random.default_rng(1)
+                    reqs = [eng.submit(rng.integers(1, eng.cfg.vocab_size,
+                                                    size=p),
+                                       max_new=n, arrival_time=a)
+                            for p, n, a in ((5, 12, 0), (17, 20, 0),
+                                            (9, 16, 3))]
+                    stats = eng.run()
+                    streams[device, name] = [r.generated for r in reqs]
+                    if name == "paged":
+                        eng.pager.check_invariants()
+                        progs = eng.syscore.report()["programs"]
+                        if device == "cuda" and any(
+                                p["source"] != "cuda_graph"
+                                for p in progs.values()):
+                            raise AssertionError(
+                                f"{arch}: paged programs are not captured "
+                                f"graphs: {progs}")
+                        paged_moves[f"{arch}/{device}"] = {
+                            k: stats[k] for k in ("preemptions", "swap_ins",
+                                                  "page_faults",
+                                                  "swap_outs")}
+            if streams["cuda", "dense"] != streams["cpu", "dense"]:
                 raise AssertionError(f"{arch}: card and CPU streams differ: "
                                      f"{streams}")
-            equal[arch] = sum(len(s) for s in streams["cuda"])
-        out.update(dtype="float32", streams=3, tokens=equal, equal=True)
+            if streams["cuda", "paged"] != streams["cpu", "paged"]:
+                raise AssertionError(f"{arch}: paged card and CPU streams "
+                                     f"differ: {streams}")
+            if streams["cuda", "paged"] != streams["cuda", "dense"]:
+                raise AssertionError(f"{arch}: paged and dense card streams "
+                                     f"differ: {streams}")
+            if not paged_moves[f"{arch}/cuda"]["preemptions"]:
+                raise AssertionError(f"{arch}: the paged run preempted "
+                                     f"nothing: {paged_moves}")
+            equal[arch] = sum(len(s) for s in streams["cuda", "dense"])
+            paged_equal[arch] = sum(len(s) for s in streams["cuda", "paged"])
+        out.update(dtype="float32", streams=3, tokens=equal, equal=True,
+                   paged_tokens=paged_equal, paged_equal=True,
+                   paged_moves=paged_moves)
+
+    # -- 13. the paged KV arena at full width -----------------------------
+    def paged_workload(n_req, vocab_size):
+        """``n_req`` requests from seed 0: prompts of 160-256 tokens, 96-128
+        new tokens each."""
+        rng = np.random.default_rng(0)
+        return [(rng.integers(1, vocab_size,
+                              size=int(rng.integers(160, PREFILL_LEN + 1))),
+                 int(rng.integers(96, 129))) for _ in range(n_req)]
+
+    def serve_paged(out, arch, n_req, per_pass):
+        """Serve ``n_req`` requests through a full-width bf16 paged engine
+        whose arena holds half the batch, then the same requests through
+        the unpaged engine on the same weights; hold the streams against
+        each other and ``reference_generate``, the launches against
+        ``per_pass``, graph against eager with every slot mapped; time
+        both engines' decode steps and admissions."""
+        gc.collect()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        eng = ServingEngine(arch, EngineConfig(
+            reduced=False, batch=BATCH, max_len=MAX_LEN,
+            prefill_len=PREFILL_LEN, clock="step", seed=0,
+            paging=PagingConfig(kv_block=PAGED_BLOCK,
+                                arena_blocks=PAGED_ARENA,
+                                timeslice=PAGED_TIMESLICE)), device="cuda")
+        torch.cuda.synchronize()
+        boot_s = time.perf_counter() - t0
+        boot_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        after_boot = torch.cuda.memory_allocated()
+        cfg, pager = eng.cfg, eng.pager
+        programs = eng.syscore.report()["programs"]
+        for name, prog in programs.items():
+            print(f"{arch} paged {name}: source {prog['source']}, lower_s "
+                  f"{prog['lower_s']:.4f}, compile_s {prog['compile_s']:.4f}",
+                  flush=True)
+            if prog["source"] != "cuda_graph" or not prog["compile_s"] > 0:
+                raise AssertionError(f"{arch} paged {name} is not a captured "
+                                     f"graph: {prog}")
+        # the warm-ups wrote the tree; the engine booted it empty again,
+        # with every slot unmapped (0 would map them all to block 0)
+        if not bool((eng.caches["block_table"] == -1).all()):
+            raise AssertionError(f"{arch}: the block table did not boot "
+                                 f"unmapped")
+        arena_leaf = next(t for t in leaves(eng.caches)
+                          if t.dim() >= 4 and t.dtype == torch.bfloat16
+                          and PAGED_ARENA + 1 in t.shape)
+        tree_bytes = sum(t.numel() * t.element_size()
+                         for tree in (eng.params, eng.caches)
+                         for t in leaves(tree))
+        work = paged_workload(n_req, cfg.vocab_size)
+        reqs = [eng.submit(p, max_new=m) for p, m in work]
+        assert all(r is not None for r in reqs), "a request was rejected"
+        blocks = sum(eng._blocks_needed(r.prompt_len, r.max_new)
+                     for r in reqs)
+        ratio = blocks / PAGED_ARENA
+        if ratio < 2:
+            raise AssertionError(f"{arch}: workload {blocks} blocks is under "
+                                 f"2x the arena's {PAGED_ARENA}")
+        ops.reset_launch_counts()
+        stats = eng.run()
+        launches = ops.launch_counts()
+        routes = ops.route_counts()
+        peak = torch.cuda.max_memory_allocated()
+        rep = pager.report()
+        assert stats["requests"] == len(reqs), stats
+        pager.check_invariants()
+        moves = {"evictions": rep["evictions"],
+                 "page_faults": rep["page_faults"],
+                 "swap_outs": rep["swap_outs"],
+                 "preemptions": stats["preemptions"],
+                 "swap_ins": stats["swap_ins"], "hits": rep["hits"]}
+        if min(moves["evictions"], moves["page_faults"],
+               moves["preemptions"]) < 1:
+            raise AssertionError(f"{arch}: no paging under pressure: "
+                                 f"{moves}")
+        # resumes run no program: admissions are the fresh ones only
+        want = {name: step * stats["decode_steps"] + adm * stats["admitted"]
+                for name, (step, adm) in per_pass.items()}
+        if launches != want:
+            raise AssertionError(f"{arch} paged: kernel launches {launches}, "
+                                 f"expected {want}")
+        if any(r["wgmma"] != launches[name] for name, r in routes.items()):
+            raise AssertionError(f"{arch} paged: K1/K3/K4 calls off the "
+                                 f"wgmma route: {routes}")
+        # the unpaged engine on the same weights and workload
+        dense = ServingEngine(arch, EngineConfig(
+            reduced=False, batch=BATCH, max_len=MAX_LEN,
+            prefill_len=PREFILL_LEN, clock="step"), device="cuda",
+            params=eng.params)
+        dreqs = [dense.submit(p, max_new=m) for p, m in work]
+        dstats = dense.run()
+        mism = []
+        for r, d in zip(reqs, dreqs):
+            ref = eng.reference_generate(r.prompt, r.max_new)
+            if not r.generated == d.generated == ref:
+                mism.append({"rid": r.rid, "paged": r.generated,
+                             "unpaged": d.generated, "reference": ref})
+        if mism:
+            RECORD.setdefault("stream_mismatch", {})[f"{arch}/paged"] = mism
+            raise AssertionError(f"{arch}: {len(mism)} of {len(reqs)} paged "
+                                 f"streams differ: {mism[0]}")
+        # every slot mapped (the whole arena, 32 blocks each) at its own
+        # position: 4 decode steps and one admission, graph against eager
+        long = max(reqs, key=lambda r: r.prompt_len)
+        assert long.prompt_len >= 200, long.prompt_len
+        long_tokens = torch.zeros((1, PREFILL_LEN), dtype=torch.int32)
+        long_tokens[0, :200] = torch.from_numpy(long.prompt[:200])
+        long_tokens = long_tokens.to(dev)
+        per_slot = PAGED_ARENA // BATCH
+        for slot in range(BATCH):
+            eng.caches = pager.admit(-1 - slot, per_slot, slot, eng.caches)
+        eng.caches["pos"].copy_(torch.tensor([100, 37, 3, 170],
+                                             dtype=torch.int32))
+        pager.check_invariants()
+        diffs = graph_vs_eager(torch, eng, dev, long_tokens)
+        if diffs:
+            raise AssertionError(f"{arch} paged: graph replay and eager run "
+                                 f"differ: {diffs[:8]}")
+        timed, admit_ms = {}, {}
+        for name, e in (("paged", eng), ("unpaged", dense)):
+            timed[name] = time_calls(torch, decode_call(torch, e, dev), 5)
+            admit_ms[name] = median_wall_ms(
+                torch, admission_call(e, long_tokens), 3)
+        # then where a decode step's device time goes, kernels counted
+        # (the profiler runs after every timed call of the phase)
+        for name, e in (("paged", eng), ("unpaged", dense)):
+            timed[name] = profile_calls(torch, decode_call(torch, e, dev), 5,
+                                        timed[name])
+        for slot in range(BATCH):
+            eng.caches = pager.release(-1 - slot, slot, eng.caches)
+        pager.check_invariants()
+        unpaged = {"decode_p50_ms": dstats["decode_p50_ms"],
+                   "tok_per_s": dstats["tok_per_s"],
+                   "wall_s": dstats["wall_s"],
+                   "decode_steps": dstats["decode_steps"],
+                   "admission_ms": admit_ms["unpaged"],
+                   "decode": timed["unpaged"]}
+        out.update(
+            model=arch, dtype="bfloat16", batch=BATCH, max_len=MAX_LEN,
+            prefill_len=PREFILL_LEN, kv_block=PAGED_BLOCK,
+            arena_blocks=PAGED_ARENA, timeslice=PAGED_TIMESLICE,
+            arena_mib=round(PAGED_ARENA * rep["block_bytes"] / 2 ** 20, 3),
+            block_bytes=rep["block_bytes"],
+            arena_leaf_shape=list(arena_leaf.shape),
+            requests=len(reqs), workload_blocks=blocks,
+            footprint_ratio=ratio, boot_s=round(boot_s, 3),
+            decode_p50_ms=stats["decode_p50_ms"],
+            tok_per_s=stats["tok_per_s"], wall_s=stats["wall_s"],
+            decode_steps=stats["decode_steps"], admitted=stats["admitted"],
+            admission_ms=admit_ms["paged"], decode=timed["paged"],
+            arena_occupancy=stats["arena_occupancy"], moves=moves,
+            swap_out_ms=rep["swap_out_ms"],
+            page_fault_ms=rep["page_fault_ms"],
+            launches=launches, launches_by_route=routes,
+            launches_per_pass=per_pass,
+            programs=eng.syscore.report()["programs"],
+            graph_equals_eager={"decode_steps": 4, "admissions": 1,
+                                "bit_equal": True, "slots_mapped": BATCH},
+            streams_equal_reference_and_unpaged=True, invariants=True,
+            boot_peak_gib=round(boot_peak / 2 ** 30, 3),
+            serve_peak_gib=round(peak / 2 ** 30, 3),
+            mem_at_start_gib=round(base / 2 ** 30, 3),
+            mem_after_boot_gib=round(after_boot / 2 ** 30, 3),
+            params_and_caches_gib=round(tree_bytes / 2 ** 30, 3),
+            boot_besides_trees_gib=round(
+                (after_boot - base - tree_bytes) / 2 ** 30, 3),
+            unpaged=unpaged, card=smi)
+        print(f"{arch} paged: decode p50 {stats['decode_p50_ms']:.3f} ms "
+              f"(unpaged {dstats['decode_p50_ms']:.3f}), tok/s "
+              f"{stats['tok_per_s']:.1f} ({dstats['tok_per_s']:.1f}), "
+              f"admission {admit_ms['paged']:.3f} ms "
+              f"({admit_ms['unpaged']:.3f}), page faults "
+              f"{rep['page_faults']} at {rep['page_fault_ms']:.3f} ms, "
+              f"swap-outs {rep['swap_outs']} at {rep['swap_out_ms']:.3f} ms, "
+              f"arena occupancy {stats['arena_occupancy']:.3f}, boot peak "
+              f"{boot_peak / 2 ** 30:.3f} GiB ({tree_bytes / 2 ** 30:.3f} "
+              f"GiB params and caches)", flush=True)
+        path_launches[f"{arch}/paged"] = launches
+        path_routes[f"{arch}/paged"] = routes
+        del eng, dense
+
+    with phase("serve_paged") as out:
+        out["qwen3-0.6b"] = {}
+        serve_paged(out["qwen3-0.6b"], "qwen3-0.6b", 16,
+                    {"matmul": (per_step, per_step),
+                     "flash_attention": (0, n_layers), "moe_ffn": (0, 0),
+                     "ssd_scan": (0, 0), "rglru_scan": (0, 0)})
+        out["recurrentgemma-2b"] = {}
+        serve_paged(out["recurrentgemma-2b"], "recurrentgemma-2b", 8,
+                    {"matmul": (rg_per_step, rg_per_step),
+                     "flash_attention": (0, rg_l), "moe_ffn": (0, 0),
+                     "ssd_scan": (0, 0), "rglru_scan": (0, rg_r)})
 
     def total(name):
         return sum(path[name] for path in path_launches.values())

@@ -7,7 +7,9 @@ mlp/{w_gate,w_up,w_down}}``, or ``moe/{router,w_gate,w_up,w_down}`` in
 place of ``mlp`` for the MoE family, or ``mix/{ln,w_in,conv_w,conv_b,
 a_log,d_skip,dt_bias,out_ln,w_out}`` for the SSM family, with the layer on
 the leading axis; caches ``pos`` and ``groups/slot0/{k,v}``, or
-``groups/slot0/{conv,state}`` for the SSM family.  The hybrid family
+``groups/slot0/{conv,state}`` for the SSM family; a paged cache adds
+``block_table`` and holds block arenas under the ``{k, v}`` paths
+(:func:`paged_cache_from_numpy`).  The hybrid family
 (recurrentgemma, pattern R, R, L) has a recurrent layer's
 ``mix/{ln,w_x,w_gate,conv_w,conv_b,lam,w_a,b_a,w_i,b_i,w_out}`` and an
 ``ffn_ln`` and ``mlp`` under ``groups/slot0``, ``groups/slot1`` and, with
@@ -104,3 +106,43 @@ def cache_from_numpy(tree, cfg, batch: int, cache_len: int, device) -> dict:
 
 def cache_to_numpy(caches) -> dict:
     return to_numpy(caches)
+
+
+def _arena_leaves(tree, fn, path=()):
+    """``tree`` with ``fn(leaf, axis)`` applied to its arena leaves (``k``
+    and ``v``; their block axis is 1 under ``groups``, else 0)."""
+    if isinstance(tree, dict):
+        return {k: _arena_leaves(v, fn, path + (k,))
+                for k, v in tree.items()}
+    if path[-1] in ("k", "v"):
+        return fn(tree, 1 if path[0] == "groups" else 0)
+    return tree
+
+
+def paged_cache_from_numpy(tree, cfg, batch: int, cache_len: int, *,
+                           kv_block: int, arena_blocks: int,
+                           device) -> dict:
+    """The reference's paged cache tree (numpy leaves: ``pos``,
+    ``block_table``, the (..., arena_blocks, kv_block, heads, head_dim)
+    arena leaves and the recurrent state rows) -> the port's, whose arena
+    leaves carry one block more, the sink of dropped writes
+    (``attention.write_paged_kv``), added here as zeros."""
+    shapes = transformer.abstract_paged_cache(
+        cfg, batch, cache_len, kv_block=kv_block, arena_blocks=arena_blocks)
+    ref_shapes = _arena_leaves(shapes, lambda leaf, axis: leaf._replace(
+        shape=leaf.shape[:axis] + (arena_blocks,) + leaf.shape[axis + 1:]))
+    _check_shapes(tree, ref_shapes)
+    out = _tree_from_numpy(tree, device)
+
+    def add_sink(t, axis):
+        sink = torch.zeros_like(t.narrow(axis, 0, 1))
+        return torch.cat([t, sink], dim=axis)
+
+    return _arena_leaves(out, add_sink)
+
+
+def paged_cache_to_numpy(caches) -> dict:
+    """The port's paged cache tree -> the reference's layout: numpy
+    leaves, the arena leaves without their sink block."""
+    return to_numpy(_arena_leaves(
+        caches, lambda t, axis: t.narrow(axis, 0, t.shape[axis] - 1)))

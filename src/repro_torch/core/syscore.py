@@ -1,8 +1,9 @@
 """syscore — the persistent executor (paper §3.3, C2), port of
 ``repro/core/syscore.py``.
 
-The resident ``Syscore`` holds the hostcall table and a registry of
-hot-loaded programs.  A program is a Python function over the port's
+The resident ``Syscore`` holds the hostcall table, the UVA buffer registry
+(:class:`~repro_torch.core.uva.UVARegistry`, whose host views the paged KV
+arena's host tier binds) and a registry of hot-loaded programs.  A program is a Python function over the port's
 kernels and the trees it is bound to (the engine's parameters and caches);
 ``hot_load`` installs it once under its key and returns a
 :class:`ProgramHandle`, and calling the handle is the re-execute path.
@@ -32,10 +33,11 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.core.hostcall import CALL_METRIC, HostCallTable
+from repro_torch.core.uva import UVARegistry
 from repro_torch.kernels import matmul, ops
 
-# CALL_METRIC name codes for program-lifecycle telemetry (engine codes 1..3
-# live in repro_torch.launch.serve)
+# CALL_METRIC name codes for program-lifecycle telemetry (engine codes 1..3,
+# 6 and 7 live in repro_torch.launch.serve)
 METRIC_PROGRAM_COMPILE_MS = 4     # hot_load warmed up and captured a program
 METRIC_PROGRAM_LOAD_MS = 5        # hot_load installed a CPU program
 METRIC_KERNEL_BUILD_MS = 11       # boot-time build (or load) of the kernels
@@ -172,12 +174,15 @@ def _nonzero(counts: Dict[str, int]) -> Dict[str, int]:
 
 
 class Syscore:
-    """Persistent executor: initialize once, hot-load programs, re-execute."""
+    """Persistent executor: initialize once, hot-load programs, re-execute.
 
-    def __init__(self):
+    ``device`` is the UVA registry's device; ``None`` means the card."""
+
+    def __init__(self, device=None):
         self.programs: Dict[str, Program] = {}
         self._t_boot = time.perf_counter()
         self.hostcalls = HostCallTable()
+        self.uva = UVARegistry(device)
 
     def lookup(self, key: str) -> Program:
         try:

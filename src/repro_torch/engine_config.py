@@ -1,10 +1,13 @@
-"""Typed serving-engine configuration: the dense fields of the reference's
-``EngineConfig`` (``repro/engine_config.py``) plus ``device``.
+"""Typed serving-engine configuration: the reference's ``EngineConfig``
+(``repro/engine_config.py``) as far as the port carries it, plus
+``device``: the dense fields and ``paging`` (:class:`PagingConfig`, the
+paged KV arena of :mod:`repro_torch.core.paging`).
 
-Paging, prefix sharing, speculative decoding, decode horizons and sharding
-are not ported yet (ROADMAP Queue 1 items 4-7 and 13); the config has no
-field for them, so asking for one fails at construction.  Burst admission
-(``group_prefill=True``) is not ported yet either and raises.
+Prefix sharing, speculative decoding, decode horizons and sharding are not
+ported yet (ROADMAP Queue 1 items 5-7 and 13); the config has no field
+for them, so asking for one fails at construction.  Burst admission
+(``group_prefill=True``) is not ported yet either and raises; with
+``paging`` it raises as in the reference, which cannot combine the two.
 """
 from __future__ import annotations
 
@@ -14,8 +17,38 @@ from typing import Optional
 
 
 @dataclass(frozen=True)
+class PagingConfig:
+    """Paged KV-cache arena geometry (repro_torch.core.paging).
+
+    kv_block: tokens per physical KV block (must divide ``max_len``).
+    arena_blocks: device-resident physical blocks; ``None`` fits the whole
+        batch (``batch * max_len / kv_block`` — no memory pressure).
+    timeslice: optional preemptive round-robin — active requests that have
+        decoded this many tokens since (re)admission are preempted when a
+        queued request cannot fit the arena.  Host-side policy only.
+    """
+    kv_block: int = 8
+    arena_blocks: Optional[int] = None
+    timeslice: Optional[int] = None
+
+    def __post_init__(self):
+        if self.kv_block < 1:
+            raise ValueError(f"kv_block must be >= 1: {self.kv_block}")
+        if self.arena_blocks is not None and self.arena_blocks < 1:
+            raise ValueError(f"arena_blocks must be >= 1: "
+                             f"{self.arena_blocks}")
+        if self.timeslice is not None and self.timeslice < 1:
+            raise ValueError(f"timeslice must be >= 1: {self.timeslice}")
+
+    def resolved_arena_blocks(self, batch: int, max_len: int) -> int:
+        assert max_len % self.kv_block == 0, (max_len, self.kv_block)
+        return (self.arena_blocks if self.arena_blocks is not None
+                else batch * (max_len // self.kv_block))
+
+
+@dataclass(frozen=True)
 class EngineConfig:
-    """Everything a dense ``ServingEngine`` is, as one frozen value object.
+    """Everything a ``ServingEngine`` is, as one frozen value object.
 
     device: where the engine runs; ``None`` means the card (``"cuda"``).
         Tests ask for ``"cpu"``.
@@ -30,6 +63,7 @@ class EngineConfig:
     clock: str = "wall"                   # "wall" | "step"
     group_prefill: bool = False
     device: Optional[str] = None
+    paging: Optional[PagingConfig] = None
 
     def __post_init__(self):
         if self.clock not in ("wall", "step"):
@@ -39,6 +73,13 @@ class EngineConfig:
                              f"{self.prefill_len}, {self.max_len}")
         if self.batch < 1:
             raise ValueError(f"batch must be >= 1: {self.batch}")
+        if self.paging is not None:
+            if self.max_len % self.paging.kv_block:
+                raise ValueError(f"kv_block must divide max_len: "
+                                 f"{self.paging.kv_block}, {self.max_len}")
+            if self.group_prefill:
+                raise ValueError("group_prefill rewrites every slot; "
+                                 "incompatible with paging")
         if self.group_prefill:
             raise NotImplementedError(
                 "group_prefill (burst admission through a whole-batch "
@@ -47,6 +88,10 @@ class EngineConfig:
     @property
     def resolved_prefill_len(self) -> int:
         return self.prefill_len or self.max_len // 2
+
+    @property
+    def paged(self) -> bool:
+        return self.paging is not None
 
     def replace(self, **kw) -> "EngineConfig":
         return dataclasses.replace(self, **kw)

@@ -1,5 +1,5 @@
 """Continuous-batching serving engine on the persistent executor
-(port of the dense path of ``repro/launch/serve.py``).
+(port of the dense and paged paths of ``repro/launch/serve.py``).
 
 The Syscore boots once and hot-loads the ``prefill_slot`` and ``decode``
 programs, bound to the engine's parameters and caches (on the card, each
@@ -20,6 +20,17 @@ stream equals a batch-of-1 decode of the same prompt
 For MoE archs this holds while no decode step drops a token: a batch of at
 most 4 keeps the decode capacity at its floor of 4, as in the reference.
 
+Paged KV (``EngineConfig(paging=PagingConfig(...))``): attention caches
+live in a capacity-bounded block arena managed by
+:class:`~repro_torch.core.paging.PagedKVManager`, so the batch's KV
+footprint may exceed the arena.  Admission waits until the queue head's
+blocks fit, optionally preempting slots that used up their timeslice;
+a preempted request's blocks stay resident until LRU pressure swaps them
+out to the host tier, and its resume maps them back (a hit) or copies
+them back (a page fault).  Every pager edit happens between replays, in
+place on the tree the programs are bound to.  Page faults and arena
+occupancy are hostcall metrics 6 and 7.
+
 The engine runs on the card unless asked otherwise: ``device=None`` means
 ``"cuda"``, and a missing card is an error, never a quiet move to the CPU.
 """
@@ -39,7 +50,8 @@ from repro_torch.core.hostcall import CALL_BATCH, CALL_METRIC, CALL_STEP_REPORT
 from repro_torch.core.syscore import (METRIC_KERNEL_BUILD_MS,
                                       METRIC_PROGRAM_COMPILE_MS,
                                       METRIC_PROGRAM_LOAD_MS, Syscore)
-from repro_torch.engine_config import EngineConfig
+from repro_torch.core.paging import PagedKVManager
+from repro_torch.engine_config import EngineConfig, PagingConfig
 from repro_torch.kernels import _build
 from repro_torch.models import registry, transformer
 
@@ -49,6 +61,9 @@ METRIC_DECODE_MS = 2      # per decode-step wall latency, ms
 METRIC_OCCUPANCY = 3      # active slots / batch, per decode step
 # codes 4/5 are program-lifecycle telemetry and 11 the kernel build
 # (repro_torch.core.syscore)
+METRIC_PAGE_FAULT = 6     # paged KV swap-in copied blocks from host (value
+                          # = blocks moved), per fault
+METRIC_ARENA_OCCUPANCY = 7  # resident arena blocks / capacity, per decode step
 
 
 @dataclass
@@ -64,6 +79,10 @@ class Request:
     t_submit: float = 0.0            # wall-clock timestamps
     t_first: Optional[float] = None  # None until the request is placed
     t_done: Optional[float] = None   # None until it finishes
+    needs_resume: bool = False       # preempted: KV lives in the pager, not
+                                     # a slot; re-admission swaps in instead
+                                     # of prefilling
+    gen_at_admit: int = 0            # len(generated) at last (re)admission
 
     @property
     def ttft_s(self) -> Optional[float]:
@@ -114,7 +133,9 @@ class ServingEngine:
         self.eos_id = config.eos_id
         self.max_queue = config.max_queue
         self.clock = config.clock
-        self.syscore = Syscore()
+        self.paged = config.paged
+        self.timeslice = config.paging.timeslice if self.paged else None
+        self.syscore = Syscore(self.device)
         on_card = self.device.type == "cuda"
         if on_card:
             # the kernels are built (or found current) once per process
@@ -126,8 +147,23 @@ class ServingEngine:
         self.params = params if params is not None else \
             transformer.init_params(self.cfg, config.seed, device=self.device)
         # the programs are bound to these trees: allocated before hot_load
-        self.caches = transformer.init_cache(self.cfg, self.batch,
-                                             self.max_len, device=self.device)
+        if self.paged:
+            self.kv_block = config.paging.kv_block
+            self.arena_blocks = config.paging.resolved_arena_blocks(
+                self.batch, self.max_len)
+            self.caches = transformer.init_paged_cache(
+                self.cfg, self.batch, self.max_len, kv_block=self.kv_block,
+                arena_blocks=self.arena_blocks, device=self.device)
+            self.pager = PagedKVManager(
+                self.arena_blocks,
+                transformer.paged_block_bytes(self.cfg, self.kv_block),
+                uva=self.syscore.uva,
+                on_fault=lambda blocks: self.syscore.hostcalls.dispatch(
+                    CALL_METRIC, METRIC_PAGE_FAULT, float(blocks)))
+        else:
+            self.caches = transformer.init_cache(self.cfg, self.batch,
+                                                 self.max_len,
+                                                 device=self.device)
         self._prompt = torch.zeros((1, self.prefill_len), dtype=torch.int32,
                                    pin_memory=on_card)
         self._last_tokens = torch.zeros((self.batch, 1), dtype=torch.int32,
@@ -139,9 +175,12 @@ class ServingEngine:
                          for name, spec in specs.items()}
         self._prefill_slot = self.programs["prefill_slot"]
         self._decode = self.programs["decode"]
-        if on_card:
-            # the warm-ups wrote the caches: boot them empty again
-            _zero(self.caches)
+        # the card's warm-ups wrote the caches: boot them empty again (a
+        # paged tree's block table unmapped, -1: 0 would map every slot to
+        # physical block 0)
+        _zero(self.caches)
+        if self.paged:
+            self.caches["block_table"].fill_(-1)
 
         self.slots: List[Optional[Request]] = [None] * self.batch
         self.queue: List[Request] = []
@@ -152,6 +191,8 @@ class ServingEngine:
         self.admitted = 0
         self.rejected = 0
         self.refill_admissions = 0     # admissions while other slots active
+        self.preemptions = 0
+        self.swap_ins = 0
         self._n_submitted = 0
         self._t0 = time.perf_counter()
 
@@ -175,6 +216,10 @@ class ServingEngine:
             return None
         prompt = np.asarray(prompt, np.int32)[-self.prefill_len:]
         max_new = min(max_new, self.max_len - len(prompt))
+        if self.paged and self._blocks_needed(len(prompt), max_new) > \
+                self.arena_blocks:
+            self.rejected += 1       # can never fit the arena, even alone
+            return None
         if rid is None:
             rid = self._n_submitted
         req = Request(rid=int(rid), prompt=prompt, max_new=max_new,
@@ -190,6 +235,7 @@ class ServingEngine:
         req.generated.append(first)
         req.t_first = time.perf_counter()
         req.slot = slot
+        req.gen_at_admit = len(req.generated)
         self.slots[slot] = req
         self.admitted += 1
         if any(s is not None and s is not req and len(s.generated) > 1
@@ -214,12 +260,87 @@ class ServingEngine:
     def _admit(self):
         """Refill free slots from the queue, earliest arrival first."""
         t = self.now()
+        if self.paged:
+            self._admit_paged(t)
+            return
         for i, s in enumerate(self.slots):
             if s is not None:
                 continue
             if not self.queue or self.queue[0].arrival_time > t:
                 break
             self._admit_one(i, self.queue.pop(0))
+
+    # -- paged admission / preemption -----------------------------------------
+    def _blocks_needed(self, prompt_len: int, max_new: int) -> int:
+        return -(-(prompt_len + max_new) // self.kv_block)
+
+    def _admit_paged(self, t: float):
+        """FIFO admission under memory pressure: the queue head admits only
+        when its block reservation can be made resident without touching a
+        pinned (actively decoding) page; otherwise it waits — optionally
+        rotating out slots that have used up their timeslice first."""
+        for i, s in enumerate(self.slots):
+            if s is not None:
+                continue
+            if not self.queue or self.queue[0].arrival_time > t:
+                break
+            req = self.queue[0]
+            n_blocks = self._blocks_needed(req.prompt_len, req.max_new)
+            if not self.pager.can_admit(req.rid, n_blocks):
+                if self.timeslice is not None:
+                    self._preempt_expired()
+                if not self.pager.can_admit(req.rid, n_blocks):
+                    break
+            # remove by identity: _preempt_expired may have re-queued a
+            # victim AHEAD of the peeked head (same arrival time, smaller
+            # rid), so pop(0) could drop the victim and admit ``req`` twice
+            for qi, r in enumerate(self.queue):
+                if r is req:
+                    del self.queue[qi]
+                    break
+            if req.needs_resume:
+                self._resume_one(i, req)
+            else:
+                self.caches = self.pager.admit(req.rid, n_blocks, i,
+                                               self.caches)
+                self._admit_one(i, req)
+
+    def _resume_one(self, slot: int, req: Request):
+        """Swap a preempted request back into a slot: the pager restores
+        its blocks (a hit if still resident, a page fault if they were
+        written back to host) and its recurrent rows; decode then resumes
+        from the exact position it left off, so the token stream is
+        unchanged by the round trip."""
+        self.caches = self.pager.resume(req.rid, slot, self.caches)
+        self.caches["pos"][slot] = req.prompt_len + len(req.generated) - 1
+        req.slot = slot
+        req.needs_resume = False
+        req.gen_at_admit = len(req.generated)
+        self.slots[slot] = req
+        self.swap_ins += 1
+
+    def preempt(self, req: Request, requeue_at: Optional[float] = None):
+        """Swap an active request out of its slot and back into the queue.
+        Its recurrent rows copy to host eagerly (the slot is reused); its
+        KV blocks stay arena-resident, unpinned, until LRU pressure writes
+        them back — a prompt resume costs nothing.  ``requeue_at`` moves
+        the request behind current waiters (round-robin rotation); the
+        default keeps its original arrival time (resume ASAP)."""
+        assert self.paged and req.slot >= 0 and not req.done
+        self.caches = self.pager.preempt(req.rid, req.slot, self.caches)
+        self.slots[req.slot] = None
+        req.slot = -1
+        req.needs_resume = True
+        if requeue_at is not None:
+            req.arrival_time = requeue_at
+        bisect.insort(self.queue, req, key=lambda r: (r.arrival_time, r.rid))
+        self.preemptions += 1
+
+    def _preempt_expired(self):
+        for req in list(self.slots):
+            if req is not None and \
+                    len(req.generated) - req.gen_at_admit >= self.timeslice:
+                self.preempt(req, requeue_at=self.now())
 
     def _maybe_finish(self, req: Request):
         hit_eos = self.eos_id is not None and req.generated and \
@@ -229,15 +350,25 @@ class ServingEngine:
             req.done = True
             req.t_done = time.perf_counter()
             self.completed.append(req)
+            if self.paged and req.rid in self.pager.pages:
+                # the request is done, so its blocks free instead of
+                # swapping; release() also handles a request finishing
+                # while preempted (slot -1) without touching a live row
+                self.caches = self.pager.release(req.rid, req.slot,
+                                                 self.caches)
             if req.slot >= 0:
                 self.slots[req.slot] = None
 
     def _step_metrics(self, dt: float, occupancy: float):
         """ONE aggregated hostcall round trip per engine step (CALL_BATCH)."""
-        self.syscore.hostcalls.dispatch(CALL_BATCH, [
-            (CALL_METRIC, METRIC_DECODE_MS, 1e3 * dt),
-            (CALL_METRIC, METRIC_OCCUPANCY, occupancy),
-            (CALL_STEP_REPORT, self.decode_steps, dt, time.perf_counter())])
+        calls = [(CALL_METRIC, METRIC_DECODE_MS, 1e3 * dt),
+                 (CALL_METRIC, METRIC_OCCUPANCY, occupancy)]
+        if self.paged:
+            calls.append((CALL_METRIC, METRIC_ARENA_OCCUPANCY,
+                          self.pager.arena_occupancy()))
+        calls.append((CALL_STEP_REPORT, self.decode_steps, dt,
+                      time.perf_counter()))
+        self.syscore.hostcalls.dispatch(CALL_BATCH, calls)
 
     def _decode_once(self):
         tokens = self._last_tokens.numpy()
@@ -307,8 +438,12 @@ class ServingEngine:
         n_dec0 = len(metrics.get(METRIC_DECODE_MS, []))
         n_ttft0 = len(metrics.get(METRIC_TTFT_MS, []))
         n_occ0 = len(metrics.get(METRIC_OCCUPANCY, []))
+        n_arena0 = len(metrics.get(METRIC_ARENA_OCCUPANCY, []))
         dec_steps0, dec_toks0 = self.decode_steps, self.decode_tokens
         adm0, ref0 = self.admitted, self.refill_admissions
+        pre0, swi0 = self.preemptions, self.swap_ins
+        pf0 = self.pager.page_faults if self.paged else 0
+        swo0 = self.pager.swap_outs if self.paged else 0
         self._sync()
         t0 = time.perf_counter()
         while self.steps - start_steps < max_steps and self.step():
@@ -321,7 +456,7 @@ class ServingEngine:
         ttft_ms = metrics.get(METRIC_TTFT_MS, [])[n_ttft0:]
         occ = metrics.get(METRIC_OCCUPANCY, [])[n_occ0:]
         dec_toks = self.decode_tokens - dec_toks0
-        return {
+        stats = {
             "requests": len(completed),
             "tokens": toks,
             "wall_s": wall,
@@ -338,6 +473,16 @@ class ServingEngine:
             "rejected": self.rejected,
             "refill_admissions": self.refill_admissions - ref0,
         }
+        if self.paged:
+            arena = metrics.get(METRIC_ARENA_OCCUPANCY, [])[n_arena0:]
+            stats.update({
+                "preemptions": self.preemptions - pre0,
+                "swap_ins": self.swap_ins - swi0,
+                "page_faults": self.pager.page_faults - pf0,
+                "swap_outs": self.pager.swap_outs - swo0,
+                "arena_occupancy": sum(arena) / max(len(arena), 1),
+            })
+        return stats
 
     def drain_completed(self) -> List[Request]:
         """Hand finished requests to the caller and release engine-side
@@ -362,7 +507,8 @@ class ServingEngine:
         ref = getattr(self, "_ref_engine", None)
         if ref is None:
             ref_config = self.config.replace(
-                batch=1, prefill_len=self.prefill_len, clock="step")
+                batch=1, prefill_len=self.prefill_len, clock="step",
+                paging=None)
             ref = self._ref_engine = ServingEngine(
                 self.arch, ref_config, params=self.params)
         req = ref.submit(prompt, max_new)
@@ -383,16 +529,31 @@ def main(argv=None):
                     help="the published config instead of the reduced one")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
+    ap.add_argument("--paged", action="store_true",
+                    help="paged KV-cache arena (repro_torch.core.paging)")
+    ap.add_argument("--kv-block", type=int, default=8)
+    ap.add_argument("--arena-blocks", type=int, default=None,
+                    help="device-resident KV blocks; below "
+                         "batch*max_len/kv_block creates memory pressure")
+    ap.add_argument("--timeslice", type=int, default=None,
+                    help="preempt slots that decoded this many tokens when "
+                         "the queue head cannot fit the arena")
     args = ap.parse_args(argv)
-    config = EngineConfig(reduced=not args.full, batch=args.batch,
-                          max_len=512 if args.full else 128,
-                          device=args.device)
+    config = EngineConfig(
+        reduced=not args.full, batch=args.batch,
+        max_len=512 if args.full else 128, device=args.device,
+        paging=(PagingConfig(kv_block=args.kv_block,
+                             arena_blocks=args.arena_blocks,
+                             timeslice=args.timeslice)
+                if args.paged else None))
     eng = ServingEngine(args.arch, config)
     rng = np.random.default_rng(0)
     for _ in range(args.requests):
         eng.submit(rng.integers(0, eng.cfg.vocab_size, size=8), args.max_new)
     print(eng.run())
     print(eng.syscore.report()["programs"])
+    if eng.paged:
+        print(eng.pager.report())
 
 
 if __name__ == "__main__":

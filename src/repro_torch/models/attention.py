@@ -1,13 +1,18 @@
 """Attention (port of ``repro/models/attention.py``).
 
 Layouts follow the reference: activations (B, S, H, D), caches
-(B, C, Hkv, D).  Prefill attention runs through K1
+(B, C, Hkv, D), and the paged KV arena (P + 1, bs, Hkv, D) addressed
+through a (B, M) block table (``gather_paged_kv``, ``write_paged_kv``,
+``rollback_paged_kv``: plain PyTorch, as the reference computes them
+outside any Pallas kernel).  Prefill attention runs through K1
 (``kernels.ops.flash_attention``), which maps query heads to their KV head
 by index, so K/V are never repeated on that path.  Decode attention (one
 query per row against its cache slots) is plain PyTorch, as the reference
 leaves it to XLA.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -39,6 +44,144 @@ def _valid_cache_slots(cache_len, b: int, c: int, *, window: int,
     if window > 0:
         valid &= slot >= cl - window
     return valid
+
+
+class PagedIndex(NamedTuple):
+    """Where one decode step reads and writes a paged arena, the same for
+    every attention layer (they share the block table, ``pos``, the block
+    size and the sink), so a step computes it once.
+
+    blocks: (B, M) physical block of each logical block (read-only shared
+    entries decoded, unmapped ones at block 0); dest, off: (B,) physical
+    block and offset of each row's write, dest the sink where it drops."""
+    blocks: torch.Tensor
+    dest: torch.Tensor
+    off: torch.Tensor
+
+
+def _physical(block_table: torch.Tensor) -> torch.Tensor:
+    phys = torch.where(block_table >= 0, block_table, -block_table - 2)
+    return phys.clamp(min=0).long()
+
+
+def _paged_dest(block_table, pos, bs: int, sink: int, keep=None):
+    """Physical block of each position's write (``pos``: (B,) or (B, S)),
+    or ``sink`` where the write drops: an unmapped (-1) or read-only
+    shared (``-(p + 2)``) entry, a position past the table, or ``keep``
+    False.  Also returns the clamped table entries."""
+    m = block_table.shape[1]
+    blk = torch.div(pos, bs, rounding_mode="floor")
+    idx = blk.clamp(0, m - 1).long()
+    phys = (block_table.gather(1, idx[:, None])[:, 0] if pos.dim() == 1
+            else block_table.gather(1, idx))
+    writable = (phys >= 0) & (blk < m)
+    if keep is not None:
+        writable &= keep
+    return torch.where(writable, phys, torch.full_like(phys, sink)).long(), \
+        phys
+
+
+def paged_index(block_table: torch.Tensor, pos: torch.Tensor, bs: int,
+                sink: int) -> PagedIndex:
+    """The :class:`PagedIndex` of a (B, M) block table at positions
+    ``pos`` (B,), for arenas of ``bs``-token blocks whose sink is block
+    ``sink``."""
+    dest, _ = _paged_dest(block_table, pos, bs, sink)
+    return PagedIndex(_physical(block_table), dest,
+                      torch.remainder(pos, bs).long())
+
+
+def gather_paged(arena: torch.Tensor, blocks: torch.Tensor) -> torch.Tensor:
+    """The logical per-row cache (B, M*bs, H, D) of ``arena`` for the
+    (B, M) physical ``blocks`` (:attr:`PagedIndex.blocks`)."""
+    b, m = blocks.shape
+    return arena[blocks].reshape(b, m * arena.shape[1], *arena.shape[2:])
+
+
+def write_paged(arena: torch.Tensor, index: PagedIndex,
+                val: torch.Tensor) -> torch.Tensor:
+    """Row b's value (B, H, D) into ``arena[dest[b], off[b]]``, in place."""
+    arena[index.dest, index.off] = val.to(arena.dtype)
+    return arena
+
+
+def gather_paged_kv(arena: torch.Tensor,
+                    block_table: torch.Tensor) -> torch.Tensor:
+    """Block-table-indexed cache read (the paged-KV jump-table dereference).
+
+    arena: (P + 1, bs, H, D) physical blocks, the last of them the sink
+    (see :func:`write_paged_kv`); block_table: (B, M) physical block id per
+    logical block, -1 = unmapped, ``-(p + 2)`` = physical block p mapped
+    READ-ONLY (a cross-request shared prefix block: the write path keys
+    its guard on ``phys >= 0``, so the encoding makes shared blocks
+    unwritable while this gather decodes them back).  Returns the logical
+    per-row cache (B, M*bs, H, D): logical block j of row b is
+    ``arena[decode(block_table[b, j])]``.  Unmapped entries read block 0,
+    as in the reference; callers mask them through the valid-length check
+    of :func:`decode_attention`, whose masked products are exact zeros
+    (``torch.where`` on the scores), so what they hold never reaches a
+    result.
+    """
+    return gather_paged(arena, _physical(block_table))
+
+
+def write_paged_kv(arena: torch.Tensor, block_table: torch.Tensor,
+                   pos: torch.Tensor, val: torch.Tensor,
+                   live=None) -> torch.Tensor:
+    """Block-table-indexed cache write of one token per row, in place.
+
+    Row b's value (B, H, D) lands in physical block
+    ``block_table[b, pos[b] // bs]`` at offset ``pos[b] % bs``.  Rows whose
+    block is unmapped (released slots, table entry -1) drop, and so does
+    any write aimed at a READ-ONLY shared-prefix mapping (``-(p + 2)``, see
+    :func:`gather_paged_kv`), or at a position beyond the table
+    (speculative overshoot past the reservation).
+
+    The drop is a **sink block**: the arena holds one physical block more
+    than the pager owns (index ``P``, the last), and every dropped row is
+    written there.  The reference sends it out of range and lets the
+    scatter's ``mode="drop"`` elide it; torch has none, filtering the rows
+    by a mask would read the mask on the host (a sync a CUDA graph cannot
+    hold), and clamping onto a real block would race with a real write to
+    it.  The sink is never on the free list, never gathered for a valid
+    position and never copied to the host, so what lands there (several
+    dropped rows may race for one offset) is never read.
+
+    ``live`` belongs to fused decode horizons (ROADMAP Queue 1 item 5) and
+    raises.
+    """
+    if live is not None:
+        raise NotImplementedError(
+            "live-masked paged writes belong to fused decode horizons "
+            "(ROADMAP Queue 1 item 5)")
+    index = paged_index(block_table, pos, arena.shape[1], arena.shape[0] - 1)
+    return write_paged(arena, index, val)
+
+
+def rollback_paged_kv(arena: torch.Tensor, orig: torch.Tensor,
+                      block_table: torch.Tensor, pos_cand: torch.Tensor,
+                      reject: torch.Tensor) -> torch.Tensor:
+    """Undo rejected speculative writes in a paged arena, byte-exactly, in
+    place.
+
+    A verify step writes KV for every candidate position before knowing
+    which drafts the target model accepts; rolling the arena back to the
+    pre-verify bytes at the rejected positions makes the post-verify cache
+    identical to having decoded only the accepted tokens one at a time.
+
+    arena: (P + 1, bs, H, D) post-verify, the last block the sink; orig:
+    same shape, pre-verify; pos_cand: (B, S) absolute position of each
+    candidate write; reject: (B, S) bool, True where the write must be
+    undone.  Unmapped, read-only or out-of-table positions were dropped
+    into the sink by :func:`write_paged_kv` and drop there again here.
+    """
+    bs = arena.shape[1]
+    dest, phys = _paged_dest(block_table, pos_cand, bs, arena.shape[0] - 1,
+                             keep=reject)
+    off = torch.remainder(pos_cand, bs).long()
+    vals = orig[phys.clamp(min=0).long(), off]             # (B, S, H, D)
+    arena[dest, off] = vals
+    return arena
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

@@ -140,34 +140,82 @@ def abstract_params(cfg) -> Params:
     return params
 
 
-def _layer_cache_shape(cfg, kind: str, batch: int, cache_len: int):
+def _layer_cache_shape(cfg, kind: str, batch: int, cache_len: int,
+                       ring: bool = True):
     if kind == "M":
         return ssm_mod.ssm_cache_shapes(cfg, batch)
     if kind == "R":
         return hybrid_mod.rglru_cache_shapes(cfg, batch)
     c = cache_len
-    if kind == "L" and cfg.local_window:
+    if kind == "L" and cfg.local_window and ring:
         c = min(cfg.local_window, cache_len)
     shape = (batch, c, cfg.n_kv_heads, cfg.resolved_head_dim)
     return {"k": Leaf(shape), "v": Leaf(shape)}
 
 
-def abstract_cache(cfg, batch: int, cache_len: int) -> Params:
+def abstract_cache(cfg, batch: int, cache_len: int, *,
+                   ring: bool = True) -> Params:
     """Decode-state tree as :class:`Leaf` shapes: per-layer KV buffers of
     ``cache_len`` slots (``min(local_window, cache_len)`` for windowed
-    layers, the reference's ``ring=True`` layout), SSM conv and state
-    buffers or RG-LRU conv and state buffers, plus the per-slot int32
-    ``pos`` vector (B,)."""
+    layers with ``ring``, the reference's ``ring=True`` layout; without it
+    every attention layer is full length), SSM conv and state buffers or
+    RG-LRU conv and state buffers, plus the per-slot int32 ``pos`` vector
+    (B,)."""
     check_supported(cfg)
     unit, n_groups, tail = split_layers(cfg)
-    group = {f"slot{i}": _layer_cache_shape(cfg, k, batch, cache_len)
+    group = {f"slot{i}": _layer_cache_shape(cfg, k, batch, cache_len, ring)
              for i, k in enumerate(unit)}
     return {
         "pos": Leaf((batch,), torch.int32),
         "groups": _stack(group, n_groups),
-        "tail": {f"tail{i}": _layer_cache_shape(cfg, k, batch, cache_len)
+        "tail": {f"tail{i}": _layer_cache_shape(cfg, k, batch, cache_len,
+                                                ring)
                  for i, k in enumerate(tail)},
     }
+
+
+def abstract_paged_cache(cfg, batch: int, cache_len: int, *, kv_block: int,
+                         arena_blocks: int) -> Params:
+    """Paged decode-state tree (repro_torch.core.paging).
+
+    Attention layers trade the per-slot (B, C, ...) buffer for a shared
+    physical-block **arena** addressed through a per-slot ``block_table``
+    (B, cache_len/kv_block) carried next to ``pos`` (-1 = unmapped).  The
+    arena holds ``arena_blocks + 1`` blocks of (kv_block, heads,
+    head_dim): the pager owns the first ``arena_blocks``, the last is the
+    sink that dropped writes land in (``attention.write_paged_kv``).
+    Recurrent layers (SSM / RG-LRU) keep their O(1)-size per-slot state
+    dense.  Windowed ("L") layers store the full logical length (no ring):
+    window masking happens at attention time, so the arena layout is
+    uniform across layer kinds.
+    """
+    assert cache_len % kv_block == 0, (cache_len, kv_block)
+    check_supported(cfg)
+    unit, n_groups, tail = split_layers(cfg)
+
+    def layer_c(kind):
+        if kind in ATTN_KINDS:
+            shape = (arena_blocks + 1, kv_block, cfg.n_kv_heads,
+                     cfg.resolved_head_dim)
+            return {"k": Leaf(shape), "v": Leaf(shape)}
+        return _layer_cache_shape(cfg, kind, batch, cache_len)
+
+    return {
+        "pos": Leaf((batch,), torch.int32),
+        "block_table": Leaf((batch, cache_len // kv_block), torch.int32),
+        "groups": _stack({f"slot{i}": layer_c(k)
+                          for i, k in enumerate(unit)}, n_groups),
+        "tail": {f"tail{i}": layer_c(k) for i, k in enumerate(tail)},
+    }
+
+
+def paged_block_bytes(cfg, kv_block: int) -> int:
+    """Bytes one KV block occupies across every attention layer (k + v) —
+    the page-size unit of the arena's byte-capacity accounting."""
+    n_attn = sum(1 for k in cfg.pattern_for_layers() if k in ATTN_KINDS)
+    itemsize = torch.empty((), dtype=torch_dtype(cfg.dtype)).element_size()
+    return 2 * n_attn * kv_block * cfg.n_kv_heads * \
+        cfg.resolved_head_dim * itemsize
 
 
 def init_params(cfg, seed: int = 0, *, device="cpu") -> Params:
@@ -181,9 +229,21 @@ def init_params(cfg, seed: int = 0, *, device="cpu") -> Params:
                               torch_dtype(cfg.dtype), device)
 
 
-def init_cache(cfg, batch: int, cache_len: int, *, device="cpu") -> Params:
-    return layers.zeros(abstract_cache(cfg, batch, cache_len),
+def init_cache(cfg, batch: int, cache_len: int, *, ring: bool = True,
+               device="cpu") -> Params:
+    return layers.zeros(abstract_cache(cfg, batch, cache_len, ring=ring),
                         torch_dtype(cfg.dtype), device)
+
+
+def init_paged_cache(cfg, batch: int, cache_len: int, *, kv_block: int,
+                     arena_blocks: int, device="cpu") -> Params:
+    """Zeros, with every block-table entry -1 (unmapped)."""
+    tree = layers.zeros(
+        abstract_paged_cache(cfg, batch, cache_len, kv_block=kv_block,
+                             arena_blocks=arena_blocks),
+        torch_dtype(cfg.dtype), device)
+    tree["block_table"].fill_(-1)
+    return tree
 
 
 # ---------------------------------------------------------------------------
@@ -236,7 +296,7 @@ def _write_decode_cache(cache_kv: torch.Tensor, new: torch.Tensor,
 
 
 def _apply_attn(cfg, p: Params, x: torch.Tensor, *, mode: str, cache,
-                pos: torch.Tensor, kind: str):
+                pos: torch.Tensor, kind: str, paged=None):
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     window = cfg.local_window if kind == "L" else 0
@@ -256,11 +316,24 @@ def _apply_attn(cfg, p: Params, x: torch.Tensor, *, mode: str, cache,
         pos_b = pos.to(torch.int32).expand(b) if pos.dim() == 0 else pos
         q = apply_rope(q, pos_b[:, None], theta)
         k = apply_rope(k, pos_b[:, None], theta)
-        ring = bool(window) and cache["k"].shape[1] == window
-        _write_decode_cache(cache["k"], k[:, 0], pos_b, ring=ring)
-        _write_decode_cache(cache["v"], v[:, 0], pos_b, ring=ring)
-        out = attn_mod.decode_attention(q, cache["k"], cache["v"], pos_b + 1,
-                                        window=window, ring=ring)
+        if paged is not None:
+            # paged KV: the cache leaf is a (P + 1, bs, Hkv, hd) block arena
+            # shared by every slot; the row's write and the logical gather
+            # both resolve through the step's block-table index
+            # (repro_torch.core.paging)
+            attn_mod.write_paged(cache["k"], paged, k[:, 0])
+            attn_mod.write_paged(cache["v"], paged, v[:, 0])
+            out = attn_mod.decode_attention(
+                q, attn_mod.gather_paged(cache["k"], paged.blocks),
+                attn_mod.gather_paged(cache["v"], paged.blocks),
+                pos_b + 1, window=window, ring=False)
+        else:
+            ring = bool(window) and cache["k"].shape[1] == window
+            _write_decode_cache(cache["k"], k[:, 0], pos_b, ring=ring)
+            _write_decode_cache(cache["v"], v[:, 0], pos_b, ring=ring)
+            out = attn_mod.decode_attention(q, cache["k"], cache["v"],
+                                            pos_b + 1, window=window,
+                                            ring=ring)
     elif mode == "prefill":
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device)[None].expand(b, s)
@@ -283,7 +356,8 @@ def _apply_attn(cfg, p: Params, x: torch.Tensor, *, mode: str, cache,
 # full layer and stack
 # ---------------------------------------------------------------------------
 
-def apply_layer(cfg, kind: str, p: Params, x, *, mode: str, cache, pos):
+def apply_layer(cfg, kind: str, p: Params, x, *, mode: str, cache, pos,
+                paged=None):
     if kind == "M":
         x, new_cache = ssm_mod.apply_ssm_layer(cfg, p["mix"], x, mode=mode,
                                                cache=cache)
@@ -292,7 +366,7 @@ def apply_layer(cfg, kind: str, p: Params, x, *, mode: str, cache, pos):
                                                     mode=mode, cache=cache)
     elif kind in ATTN_KINDS:
         x, new_cache = _apply_attn(cfg, p["mix"], x, mode=mode, cache=cache,
-                                   pos=pos, kind=kind)
+                                   pos=pos, kind=kind, paged=paged)
     else:
         raise NotImplementedError(f"layer kind {kind!r} is not one the port "
                                   f"carries ({', '.join(LAYER_KINDS)})")
@@ -312,7 +386,7 @@ def _index(tree, i: int):
     return tree[i]
 
 
-def _run_stack(cfg, params, x, *, mode: str, caches, pos):
+def _run_stack(cfg, params, x, *, mode: str, caches, pos, paged=None):
     """The reference scans the layer-stacked groups; here a Python loop
     walks the same stacked tensors layer by layer (views, no copies)."""
     unit, n_groups, tail = split_layers(cfg)
@@ -322,11 +396,12 @@ def _run_stack(cfg, params, x, *, mode: str, caches, pos):
         for i, kind in enumerate(unit):
             slot = f"slot{i}"
             x, _ = apply_layer(cfg, kind, gp[slot], x, mode=mode,
-                               cache=gc[slot], pos=pos)
+                               cache=gc[slot], pos=pos, paged=paged)
     for i, kind in enumerate(tail):
         name = f"tail{i}"
         x, _ = apply_layer(cfg, kind, params["tail"][name], x, mode=mode,
-                           cache=caches["tail"][name], pos=pos)
+                           cache=caches["tail"][name], pos=pos,
+                           paged=paged)
     return x, caches
 
 
@@ -398,23 +473,41 @@ def decode_step(cfg, params, caches, token, pos=None, *, live=None):
     the per-slot ``pos`` carried in the cache tree.  Writes each row's KV at
     its own slot in place and returns (logits (B, 1, V_padded), caches) with
     ``pos`` advanced by one, written into the tree's own ``pos`` tensor (a
-    replayed CUDA graph reads the buffer it captured)."""
+    replayed CUDA graph reads the buffer it captured).
+
+    A paged tree (one with a ``block_table``) writes and reads its
+    attention layers through the table, and only mapped rows advance: an
+    unmapped (released) row's ``pos`` stays frozen so its block index can
+    never creep out of range.  A row whose head block is a read-only
+    shared mapping (``-(p + 2)``) is mapped; only -1 means unmapped.  The
+    table's index (:class:`~repro_torch.models.attention.PagedIndex`) is
+    computed once a step: every attention layer reads and writes the same
+    blocks of its own arena."""
     check_supported(cfg)
     if live is not None:
         raise NotImplementedError(
             "live-masked decode belongs to fused decode horizons "
             "(ROADMAP Queue 1 item 5)")
-    if "block_table" in caches:
-        raise NotImplementedError(
-            "paged KV caches are not ported yet (ROADMAP Queue 1 item 4)")
+    block_table = caches.get("block_table")
     b = token.shape[0]
     if pos is None:
         pos = caches["pos"]
     pos = torch.as_tensor(pos, dtype=torch.int32, device=token.device)
     pos = pos.expand(b) if pos.dim() == 0 else pos
     x = embed(cfg, params, token)
+    arena = next((layer["k"] for top in ("groups", "tail")
+                  for layer in caches[top].values() if "k" in layer), None)
+    paged = None
+    if block_table is not None and arena is not None:
+        # arenas are (..., P + 1, bs, Hkv, hd), the last block the sink
+        paged = attn_mod.paged_index(block_table, pos, arena.shape[-3],
+                                     arena.shape[-4] - 1)
     x, caches = _run_stack(cfg, params, x, mode="decode", caches=caches,
-                           pos=pos)
+                           pos=pos, paged=paged)
     logits = logits_from_hidden(cfg, params, x)
-    caches["pos"].copy_(pos + 1)
+    if block_table is None:
+        caches["pos"].copy_(pos + 1)
+    else:
+        caches["pos"].copy_(torch.where(block_table[:, 0] != -1, pos + 1,
+                                        pos))
     return logits, caches

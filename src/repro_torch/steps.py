@@ -1,6 +1,6 @@
 """Serving step functions: the programs the Syscore hot-loads
-(port of the dense-cache serving part of ``repro/steps.py``; dense and
-MoE archs share it).
+(port of the serving part of ``repro/steps.py``, dense and paged
+caches; every ported family shares it).
 
 Each program works on the live cache tree in place and returns it, so the
 engine's call sites read as the reference's: ``caches, out = prog(...)``.
@@ -59,6 +59,58 @@ def make_prefill_slot_step(cfg, cache_len: int):
     return prefill_slot
 
 
+def make_paged_prefill_slot_step(cfg, cache_len: int, kv_block: int):
+    """Paged-arena admission program (repro_torch.core.paging).
+
+    Same contract as :func:`make_prefill_slot_step`, but the live cache
+    tree carries a physical-block KV arena and a per-slot block table
+    instead of dense per-slot buffers: the fresh batch-1 prefill cache is
+    computed exactly as in the dense path (so admission stays token-exact;
+    windowed layers prefill a full-length buffer, so logical block j holds
+    positions [j*bs, (j+1)*bs) for every kind), then its attention rows are
+    copied, block by block, into the arena blocks the host-side pager
+    mapped for this slot, while recurrent state rows go into the slot as
+    before.  Unmapped table entries (-1, beyond the request's reservation)
+    and read-only shared mappings (``-(p + 2)``) send their block to the
+    arena's sink (``attention.write_paged_kv``), the port's form of the
+    reference's out-of-range index under ``mode="drop"``."""
+    n_blocks = cache_len // kv_block
+
+    def to_arena(arena, full, dest, axis):
+        blocks = full.reshape(*full.shape[:axis], n_blocks, kv_block,
+                              *full.shape[axis + 1:])
+        arena.index_copy_(axis, dest, blocks.to(arena.dtype))
+
+    def prefill_slot(params, caches, tokens, slot, length):
+        slot = _index(slot, tokens.device).long()
+        length = _index(length, tokens.device)
+        fresh = transformer.init_cache(cfg, 1, cache_len, ring=False,
+                                       device=tokens.device)
+        logits, c1 = transformer.forward(
+            cfg, params, tokens, mode="prefill", caches=fresh,
+            lengths=length)
+        row = caches["block_table"].index_select(0, slot)[0]   # (n_blocks,)
+        caches["pos"].index_copy_(0, slot, c1["pos"])
+        # group-stacked leaves carry a leading (layers,) axis: the arena
+        # and batch axes are 1 there; tail leaves use axis 0
+        for top, axis in (("groups", 1), ("tail", 0)):
+            for name, layer in caches[top].items():
+                for leaf, buf in layer.items():
+                    full = c1[top][name][leaf]
+                    if leaf in ("k", "v"):
+                        sink = buf.shape[axis] - 1
+                        dest = torch.where(row >= 0, row,
+                                           torch.full_like(row, sink))
+                        to_arena(buf, full.select(axis, 0), dest.long(),
+                                 axis)
+                    else:
+                        buf.index_copy_(axis, slot, full)
+        last = logits[0].index_select(0, (length - 1).long())[0]
+        return caches, last
+
+    return prefill_slot
+
+
 def make_serve_step(cfg):
     """decode(params, caches, token (B,1)) -> (caches, next (B,1), logits).
 
@@ -77,9 +129,15 @@ def serve_program_specs(cfg, config, params, caches
     engine's ``params`` and ``caches``: ``prefill_slot`` (one admission
     into a live batch; its per-call inputs are the (1, prefill_len)
     tokens, the slot and the length) and ``decode`` (one greedy token for
-    every slot; its input is the (batch, 1) tokens)."""
+    every slot; its input is the (batch, 1) tokens).  A paged config
+    admits through :func:`make_paged_prefill_slot_step`; ``decode`` reads
+    the block table from the tree."""
     device = caches["pos"].device
     s = config.resolved_prefill_len
+    prefill = (make_paged_prefill_slot_step(cfg, config.max_len,
+                                            config.paging.kv_block)
+               if config.paged else
+               make_prefill_slot_step(cfg, config.max_len))
 
     def scalar(v):
         return torch.tensor(v, dtype=torch.int32, device=device)
@@ -88,7 +146,7 @@ def serve_program_specs(cfg, config, params, caches
     token = torch.zeros((config.batch, 1), dtype=torch.int32, device=device)
     return {
         "prefill_slot": ProgramSpec(
-            "prefill_slot", make_prefill_slot_step(cfg, config.max_len),
+            "prefill_slot", prefill,
             resident=(params, caches),
             inputs=(tokens, scalar(0), scalar(s))),
         "decode": ProgramSpec("decode", make_serve_step(cfg),
