@@ -105,7 +105,41 @@ and the script exits non-zero:
             decode p50, tok/s, admission ms, device ms a decode step,
             swap-out and page-fault host ms, arena occupancy, boot
             memory and (profiled last) device time and kernels a decode
-            step are reported beside the unpaged engine's.
+            step are reported beside the unpaged engine's;
+14. serve_horizon  fused decode horizons (``HorizonConfig(length=16)``)
+            at full width in bf16, on phase 8-11's params (and engines, as
+            the step engines): qwen3-0.6b, olmoe-1b-7b, mamba2-130m and
+            recurrentgemma-2b each serve 6 staggered requests of 48 new
+            tokens and then a saturated batch (4 requests at once, 65 new
+            each), and qwen3-0.6b serves phase 13's workload through phase
+            13's arena.  Every stream must equal the step engine's (phase
+            13's paged streams for the paged run) and
+            ``reference_generate``; a ``decode_horizon`` replay must launch
+            exactly 16 decode steps' kernels and each run's launches be
+            exact; the saturated run must take <= 1/8 dispatch a token; one
+            replay, with a row frozen mid-way and one throughout, must
+            equal 16 eager ``decode_step(live=...)`` calls bit for bit,
+            events and caches.  Reported: tok/s and ms a token beside the
+            step engine, the replay's span, wall and profiled device time,
+            and each program's capture time and graph pool;
+15. serve_spec  speculative decoding (``SpecConfig(k=3, ngram=2)``) on
+            the same params: qwen3-0.6b, mamba2-130m, recurrentgemma-2b,
+            olmoe-1b-7b, and qwen3-0.6b through a paged arena, serve one
+            prompt a slot built as ``benchmarks/bench_spec.py`` builds
+            them (8 random tokens and the model's own continuation), 48
+            new tokens each, then the same with every step forced through
+            verify.  Streams must equal the non-speculative engine's and
+            ``reference_generate``, launches be exact (a verify replay: 4
+            decode steps' kernels), ``check_invariants()`` hold after the
+            paged run; on the card, rows accepting t = 0, 1 and 3 drafts
+            must leave each row's cache bit-equal to its accepted tokens
+            decoded one at a time, and the verify replay equal its eager
+            function.  Reported: accept rate, tok/s beside the
+            non-speculative engine, verify's device time against 4 decode
+            steps', capture time and graph pool.  Last, qwen3-0.6b's
+            engine with both (``spec`` and ``horizon``), whose steps
+            without a draft fall back to fused horizons: streams and
+            launches as above.
 
 Then a ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.  The full record is also written to
@@ -148,6 +182,11 @@ RGLRU_TOL = 2e-4
 BATCH, MAX_LEN, PREFILL_LEN, MAX_NEW, MOE_MAX_NEW = 4, 512, 256, 32, 16
 # phase 13's arena: 64 blocks of 8 a slot, half the batch's 256 resident
 PAGED_BLOCK, PAGED_ARENA, PAGED_TIMESLICE = 8, 128, 8
+# phase 14: horizons of 16 steps, 48 new tokens a request so that they
+# fuse; phase 15: 3 drafts a verify from a bigram lookup, prompts of 8
+# random tokens and the model's own 56-token continuation
+HORIZON, HORIZON_MAX_NEW = 16, 48
+SPEC_K, SPEC_NGRAM, SPEC_WARM, SPEC_MAX_NEW = 3, 2, 56, 48
 
 RECORD = {"phases": []}
 
@@ -1374,7 +1413,9 @@ def main():
         path_routes[arch] = routes
         return eng, long_tokens, launches
 
-    path_launches, path_routes = {}, {}
+    # phases 8-11's engines stay: phases 13-15 serve on their params (no
+    # second draw), beside them as the step engines
+    path_launches, path_routes, served = {}, {}, {}
     with phase("serve") as out:
         eng, _, path_launches["qwen3-0.6b"] = serve_full(
             out, "qwen3-0.6b", [16, 200, 57, 120, 31, 180, 90, 140],
@@ -1384,7 +1425,7 @@ def main():
              "ssd_scan": (0, 0), "rglru_scan": (0, 0)})
         assert (eng.cfg.n_layers, eng.cfg.d_model, eng.cfg.padded_vocab) == \
             (28, 1024, 153_600), eng.cfg
-        del eng
+        served["qwen3-0.6b"] = eng
 
     k3 = {}
     with phase("serve_olmoe") as out:
@@ -1464,7 +1505,8 @@ def main():
                         "yardstick_factor": ms / yard}
         out["k3_timed"] = k3
         # the loop names hold views of the expert stacks (GBs) past the phase
-        del eng, seen, calls, buf, w1, _
+        del seen, calls, buf, w1, _
+        served["olmoe-1b-7b"] = eng
 
     with phase("serve_mamba2") as out:
         # the engine decodes at batch 4, its reference at batch 1: the
@@ -1530,7 +1572,8 @@ def main():
         layer0 = eng.caches["groups"]["slot0"]
         assert layer0["state"].dtype == torch.float32
         assert layer0["conv"].dtype == torch.bfloat16
-        del eng, layer0
+        del layer0
+        served["mamba2-130m"] = eng
 
     with phase("serve_recurrentgemma") as out:
         # the engine decodes at batch 4, its reference at batch 1: one "R"
@@ -1603,7 +1646,8 @@ def main():
             # max_len 512 < window 2048: the flat windowed layout
             assert attn[leaf].dtype == torch.bfloat16
             assert tuple(attn[leaf].shape) == (rg_l, BATCH, MAX_LEN, 1, 256)
-        del eng, layer, attn
+        del layer, attn
+        served["recurrentgemma-2b"] = eng
 
     # -- 12. card against CPU ----------------------------------------------
     with phase("parity") as out:
@@ -1689,7 +1733,8 @@ def main():
             prefill_len=PREFILL_LEN, clock="step", seed=0,
             paging=PagingConfig(kv_block=PAGED_BLOCK,
                                 arena_blocks=PAGED_ARENA,
-                                timeslice=PAGED_TIMESLICE)), device="cuda")
+                                timeslice=PAGED_TIMESLICE)), device="cuda",
+            params=served[arch].params)
         torch.cuda.synchronize()
         boot_s = time.perf_counter() - t0
         boot_peak = torch.cuda.max_memory_allocated()
@@ -1715,6 +1760,9 @@ def main():
         tree_bytes = sum(t.numel() * t.element_size()
                          for tree in (eng.params, eng.caches)
                          for t in leaves(tree))
+        # the params are phase 8's or 11's, allocated before ``base``
+        cache_bytes = sum(t.numel() * t.element_size()
+                          for t in leaves(eng.caches))
         work = paged_workload(n_req, cfg.vocab_size)
         reqs = [eng.submit(p, max_new=m) for p, m in work]
         assert all(r is not None for r in reqs), "a request was rejected"
@@ -1831,7 +1879,7 @@ def main():
             mem_after_boot_gib=round(after_boot / 2 ** 30, 3),
             params_and_caches_gib=round(tree_bytes / 2 ** 30, 3),
             boot_besides_trees_gib=round(
-                (after_boot - base - tree_bytes) / 2 ** 30, 3),
+                (after_boot - base - cache_bytes) / 2 ** 30, 3),
             unpaged=unpaged, card=smi)
         print(f"{arch} paged: decode p50 {stats['decode_p50_ms']:.3f} ms "
               f"(unpaged {dstats['decode_p50_ms']:.3f}), tok/s "
@@ -1844,9 +1892,11 @@ def main():
               f"{boot_peak / 2 ** 30:.3f} GiB ({tree_bytes / 2 ** 30:.3f} "
               f"GiB params and caches)", flush=True)
         path_launches[f"{arch}/paged"] = launches
+        paged_streams[arch] = (work, [r.generated for r in reqs])
         path_routes[f"{arch}/paged"] = routes
         del eng, dense
 
+    paged_streams = {}
     with phase("serve_paged") as out:
         out["qwen3-0.6b"] = {}
         serve_paged(out["qwen3-0.6b"], "qwen3-0.6b", 16,
@@ -1858,6 +1908,532 @@ def main():
                     {"matmul": (rg_per_step, rg_per_step),
                      "flash_attention": (0, rg_l), "moe_ffn": (0, 0),
                      "ssd_scan": (0, 0), "rglru_scan": (0, rg_r)})
+
+    # -- 14-15. fused decode horizons and speculative verify ---------------
+    from repro_torch.core.paging import cache_leaves, leaf_axis, leaf_kind
+    from repro_torch.engine_config import HorizonConfig, SpecConfig
+    from repro_torch.launch import serve as serve_mod
+
+    def boot(arch, **kw):
+        """A full-width bf16 engine at batch 4 on the params of phase 8-11's
+        engine for ``arch`` (no second draw), every program a captured
+        graph.  Returns the engine and its boot record: seconds, the
+        memory it took besides its caches (the graphs' static outputs and
+        buffers), and per program the warm-up and capture seconds and the
+        memory the capture reserved for the graph's own pool."""
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        eng = ServingEngine(arch, EngineConfig(
+            reduced=False, batch=BATCH, max_len=MAX_LEN,
+            prefill_len=PREFILL_LEN, clock="step", **kw), device="cuda",
+            params=served[arch].params)
+        torch.cuda.synchronize()
+        boot_s = time.perf_counter() - t0
+        cache_bytes = sum(t.numel() * t.element_size()
+                          for t in leaves(eng.caches))
+        programs = {}
+        for name, prog in eng.syscore.report()["programs"].items():
+            pool = eng.programs[name].program.stats.graph_bytes / 2 ** 20
+            print(f"{arch} {name}: source {prog['source']}, lower_s "
+                  f"{prog['lower_s']:.4f}, compile_s {prog['compile_s']:.4f}, "
+                  f"graph pool {pool:.1f} MiB", flush=True)
+            if prog["source"] != "cuda_graph" or not prog["compile_s"] > 0:
+                raise AssertionError(f"{arch} {name} is not a captured "
+                                     f"graph: {prog}")
+            programs[name] = {"lower_s": prog["lower_s"],
+                              "compile_s": prog["compile_s"],
+                              "graph_pool_mib": pool}
+        return eng, {
+            "boot_s": boot_s, "programs": programs,
+            "caches_gib": cache_bytes / 2 ** 30,
+            "boot_besides_params_and_caches_gib":
+                (torch.cuda.memory_allocated() - base - cache_bytes) / 2 ** 30}
+
+    def serve_counted(eng, work):
+        """Submit ``work`` ((prompt, max_new, arrival) each) and serve it,
+        the launch counts set to 0 just before; returns the requests, the
+        run's stats and its launches and routes."""
+        reqs = [eng.submit(p, max_new=m, arrival_time=a) for p, m, a in work]
+        assert all(r is not None for r in reqs), "a request was rejected"
+        ops.reset_launch_counts()
+        stats = eng.run()
+        launches, routes = ops.launch_counts(), ops.route_counts()
+        assert stats["requests"] == len(reqs), stats
+        return reqs, stats, launches, routes
+
+    def check_launches(name, per_pass, stats, launches, routes, fused):
+        """A run's launches against ``per_pass`` ({kernel: (per decode
+        step, per admission)}): for each ``key: n`` of ``fused`` the run's
+        ``stats[key]`` replays of an n-step program count n decode steps
+        each, every other dispatch one; every K1/K3/K4 call on the wgmma
+        route.  The run joins the kernels line as path ``name``."""
+        steps = stats["decode_steps"] + sum((n - 1) * stats[key]
+                                            for key, n in fused.items())
+        want = {k: step * steps + adm * stats["admitted"]
+                for k, (step, adm) in per_pass.items()}
+        if launches != want:
+            raise AssertionError(f"{name}: kernel launches {launches}, "
+                                 f"expected {want}")
+        if any(r["wgmma"] != launches[k] for k, r in routes.items()):
+            raise AssertionError(f"{name}: K1/K3/K4 calls off the wgmma "
+                                 f"route: {routes}")
+        path_launches[name], path_routes[name] = launches, routes
+
+    def check_streams(name, reqs, others):
+        """Every stream of ``reqs`` equals the same request's in ``others``
+        and ``reference_generate`` (phase 8-11's batch-1 engine)."""
+        ref_eng = served[name.split("/")[0]]
+        mism = []
+        for r, o in zip(reqs, others):
+            ref = ref_eng.reference_generate(r.prompt, r.max_new)
+            if not r.generated == o.generated == ref:
+                mism.append({"rid": r.rid, "engine": r.generated,
+                             "other": o.generated, "reference": ref})
+        if mism:
+            RECORD.setdefault("stream_mismatch", {})[name] = mism
+            raise AssertionError(f"{name}: {len(mism)} of {len(reqs)} "
+                                 f"streams differ: {mism[0]}")
+
+    def fill_slots(eng, seed):
+        """Admit a random prompt into every slot through the engine's
+        ``prefill_slot`` replay (a paged engine's slots mapped first, by
+        fake rids -1..-4, the arena split between them).  Returns the
+        (batch, 1) last tokens to decode from."""
+        if eng.paged:
+            for slot in range(BATCH):
+                eng.caches = eng.pager.admit(-1 - slot, PAGED_ARENA // BATCH,
+                                             slot, eng.caches)
+        gen = torch.Generator(device="cpu").manual_seed(seed)
+        for slot, n in enumerate((200, 57, 120, 31)):
+            prompt = torch.zeros((1, PREFILL_LEN), dtype=torch.int32)
+            prompt[0, :n] = torch.randint(1, eng.cfg.vocab_size, (n,),
+                                          generator=gen, dtype=torch.int32)
+            eng.programs["prefill_slot"](eng.params, eng.caches,
+                                         prompt.to(dev), slot, n)
+        return torch.randint(1, eng.cfg.vocab_size, (BATCH, 1),
+                             generator=gen, dtype=torch.int32).to(dev)
+
+    def unmap_slots(eng):
+        if eng.paged:
+            for slot in range(BATCH):
+                eng.caches = eng.pager.release(-1 - slot, slot, eng.caches)
+            eng.pager.check_invariants()
+
+    def horizon_vs_eager(eng, last):
+        """One ``decode_horizon`` replay against H eager
+        ``decode_step(live=...)`` calls with the same greedy feedback on a
+        copy of the same caches: row 1's budget of 7 freezes it mid-way,
+        row 3's of 0 throughout.  The events and every cache leaf (a paged
+        arena without its sink) must be bit-equal.  The caches are
+        restored after."""
+        cfg = eng.cfg
+        backup = clone_tree(eng.caches)
+        budgets = [HORIZON, 7, HORIZON, 0]
+        budget = torch.tensor(budgets, dtype=torch.int32, device=dev)
+        _, ev = eng.programs["decode_horizon"](eng.params, eng.caches, last,
+                                               budget)
+        got = {k: v.clone() for k, v in ev.items()}
+        eager = clone_tree(backup)
+        tok, live = last[:, 0], budget > 0
+        emitted = torch.zeros_like(budget)
+        ys, occ = [], []
+        for _ in range(HORIZON):
+            logits, _ = transformer.decode_step(cfg, eng.params, eager,
+                                                tok[:, None], live=live)
+            y = torch.where(live, transformer.greedy_token(cfg, logits[:, 0]),
+                            tok)
+            emitted = emitted + live.to(emitted.dtype)
+            occ.append(live.float().mean())
+            ys.append(y)
+            tok, live = y, live & (emitted < budget)
+        diffs = [f"cache {p}" for p in tree_diffs(
+            torch, without_sink(eng.caches), without_sink(eager))]
+        for key, want in (("tokens", torch.stack(ys, 1)),
+                          ("n_emitted", emitted),
+                          ("occupancy", torch.stack(occ))):
+            if not torch.equal(got[key], want):
+                diffs.append(f"events {key}")
+        if got["n_emitted"].tolist() != budgets:
+            diffs.append(f"n_emitted {got['n_emitted'].tolist()}")
+        copy_tree(eng.caches, backup)
+        torch.cuda.synchronize()
+        if diffs:
+            raise AssertionError(f"{eng.arch}: the decode_horizon replay and "
+                                 f"{HORIZON} eager decode_step(live) calls "
+                                 f"differ: {diffs[:8]}")
+        return {"steps": HORIZON, "budgets": budgets, "bit_equal": True}
+
+    def timed_replays(eng, name, args, steps):
+        """``name``'s replays on the live caches, timed (:func:`time_calls`);
+        the caches are restored after.  Returns the call (for the
+        profiler), the times and the caches as they were."""
+        backup = clone_tree(eng.caches)
+        prog = eng.programs[name]
+
+        def call():
+            return prog(eng.params, eng.caches, *args)
+
+        timed = time_calls(torch, call, steps)
+        copy_tree(eng.caches, backup)
+        return call, timed, backup
+
+    def serve_horizon(out, arch, per_pass, plens, arrivals):
+        """The horizon engine (H = 16) on phase 8-11's params beside that
+        phase's step engine: a staggered workload, then a saturated one
+        (every slot at time 0, 4H + 1 new tokens each); one replay against
+        eager steps; the replay timed beside a decode step."""
+        step_eng = served[arch]
+        eng, info = boot(arch, horizon=HorizonConfig(HORIZON))
+        cfg = eng.cfg
+        one = eng.programs["decode"].program.launches
+        fused = eng.programs["decode_horizon"].program.launches
+        if fused != {k: HORIZON * v for k, v in one.items()}:
+            raise AssertionError(f"{arch}: a decode_horizon replay launches "
+                                 f"{fused}, not {HORIZON} x {one}")
+        rng = np.random.default_rng(2)
+        work = [(rng.integers(1, cfg.vocab_size, size=p), HORIZON_MAX_NEW, a)
+                for p, a in zip(plens, arrivals)]
+        sat_work = [(rng.integers(1, cfg.vocab_size, size=64),
+                     4 * HORIZON + 1, 0.0) for _ in range(BATCH)]
+        runs = {}
+        for key, w in (("staggered", work), ("saturated", sat_work)):
+            step = serve_counted(step_eng, w)
+            fuse = serve_counted(eng, w)
+            reqs, stats, launches, routes = fuse
+            if stats["horizon_steps"] < 1:
+                raise AssertionError(f"{arch} {key}: no horizon fused: "
+                                     f"{stats}")
+            check_launches(f"{arch}/horizon/{key}", per_pass, stats,
+                           launches, routes, {"horizon_steps": HORIZON})
+            check_streams(f"{arch}/horizon/{key}", reqs, step[0])
+            ms_tok = [1e3 * s["wall_s"] / s["decode_tokens"]
+                      for s in (stats, step[1])]
+            runs[key] = {
+                "requests": len(w), "max_new": w[0][1],
+                "tok_per_s": stats["tok_per_s"],
+                "step_tok_per_s": step[1]["tok_per_s"],
+                "ms_per_token": ms_tok[0], "step_ms_per_token": ms_tok[1],
+                "decode_steps": stats["decode_steps"],
+                "horizon_steps": stats["horizon_steps"],
+                "step_decode_steps": step[1]["decode_steps"],
+                "dispatches_per_token": stats["dispatches_per_token"],
+                "step_dispatches_per_token":
+                    step[1]["dispatches_per_token"]}
+        if not runs["saturated"]["dispatches_per_token"] <= 1 / 8:
+            raise AssertionError(f"{arch}: {runs['saturated']} dispatches a "
+                                 f"token at H = {HORIZON}")
+        runs["staggered"].update(prompt_lens=plens, arrivals=arrivals)
+        last = fill_slots(eng, 3)
+        eager = horizon_vs_eager(eng, last)
+        full = torch.full((BATCH,), HORIZON, dtype=torch.int32, device=dev)
+        call, timed, backup = timed_replays(eng, "decode_horizon",
+                                            (last, full), 3)
+        _, step_timed, _ = timed_replays(eng, "decode", (last,), 5)
+        timed = profile_calls(torch, call, 1, timed)
+        copy_tree(eng.caches, backup)
+        prog = info["programs"]["decode_horizon"]
+        out.update(
+            model=arch, horizon=HORIZON, boot=info, **runs,
+            launches_per_replay=fused, launches_per_decode_step=one,
+            graph_equals_eager=eager, replay=timed, decode_step=step_timed,
+            streams_equal_step_engine_and_reference=True, card=smi)
+        sat = runs["saturated"]
+        print(f"{arch} horizon {HORIZON}: saturated tok/s "
+              f"{sat['tok_per_s']:.1f} (step engine "
+              f"{sat['step_tok_per_s']:.1f}), ms/token "
+              f"{sat['ms_per_token']:.3f} ({sat['step_ms_per_token']:.3f}), "
+              f"replay span {timed['events_device_ms_per_step']:.3f} ms, "
+              f"device {timed.get('device_ms_per_step')} ms, capture "
+              f"{prog['compile_s']:.3f} s, graph pool "
+              f"{prog['graph_pool_mib']:.1f} MiB", flush=True)
+
+    def serve_horizon_paged(out):
+        """qwen3-0.6b's horizon engine through phase 13's arena and
+        workload: its streams must be phase 13's paged engine's (which
+        equal the unpaged engine's and ``reference_generate``).  With no
+        timeslice: the adaptive policy never fuses while a request waits
+        and a timeslice could rotate a slot out, and under this workload
+        one always waits until the last requests."""
+        arch = "qwen3-0.6b"
+        eng, info = boot(arch, horizon=HorizonConfig(HORIZON),
+                         paging=PagingConfig(kv_block=PAGED_BLOCK,
+                                             arena_blocks=PAGED_ARENA))
+        work, streams = paged_streams[arch]
+        reqs, stats, launches, routes = serve_counted(
+            eng, [(p, m, 0.0) for p, m in work])
+        check_launches(f"{arch}/paged/horizon", qwen_pass, stats, launches,
+                       routes, {"horizon_steps": HORIZON})
+        eng.pager.check_invariants()
+        if [r.generated for r in reqs] != streams:
+            raise AssertionError(f"{arch}: paged horizon streams differ from "
+                                 f"phase 13's paged engine's")
+        if stats["horizon_steps"] < 1:
+            raise AssertionError(f"{arch}: the paged horizon run fused "
+                                 f"nothing: {stats}")
+        last = fill_slots(eng, 5)
+        eager = horizon_vs_eager(eng, last)
+        unmap_slots(eng)
+        out.update(model=arch, horizon=HORIZON, boot=info,
+                   requests=len(reqs),
+                   **{k: stats[k] for k in (
+                       "tok_per_s", "decode_steps", "horizon_steps",
+                       "dispatches_per_token", "arena_occupancy")},
+                   graph_equals_eager=eager,
+                   streams_equal_phase13_paged=True, invariants=True,
+                   card=smi)
+        print(f"{arch} paged horizon: tok/s {stats['tok_per_s']:.1f}, "
+              f"{stats['horizon_steps']} of {stats['decode_steps']} "
+              f"dispatches fused, arena occupancy "
+              f"{stats['arena_occupancy']:.3f}", flush=True)
+
+    qwen_pass = {"matmul": (per_step, per_step),
+                 "flash_attention": (0, n_layers), "moe_ffn": (0, 0),
+                 "ssd_scan": (0, 0), "rglru_scan": (0, 0)}
+    serve_passes = {
+        "qwen3-0.6b": qwen_pass,
+        "olmoe-1b-7b": {"matmul": (moe_per_step, moe_per_step),
+                        "flash_attention": (0, moe.n_layers),
+                        "moe_ffn": (moe.n_layers, moe.n_layers),
+                        "ssd_scan": (0, 0), "rglru_scan": (0, 0)},
+        "mamba2-130m": {"matmul": (ssm_per_step, ssm_per_step),
+                        "flash_attention": (0, 0), "moe_ffn": (0, 0),
+                        "ssd_scan": (0, ssm.n_layers), "rglru_scan": (0, 0)},
+        "recurrentgemma-2b": {"matmul": (rg_per_step, rg_per_step),
+                              "flash_attention": (0, rg_l), "moe_ffn": (0, 0),
+                              "ssd_scan": (0, 0), "rglru_scan": (0, rg_r)},
+    }
+    with phase("serve_horizon") as out:
+        for arch, per_pass in serve_passes.items():
+            out[arch] = {}
+            serve_horizon(out[arch], arch, per_pass,
+                          [16, 200, 57, 120, 31, 180], [0, 0, 0, 0, 3, 9])
+        out["qwen3-0.6b/paged"] = {}
+        serve_horizon_paged(out["qwen3-0.6b/paged"])
+
+    class ForcedProposer:
+        """Offers k drafts at every step, cycled from the observed history
+        (the rule of the repository's test double), so every step
+        verifies."""
+
+        def __init__(self, ngram):
+            self.h = []
+
+        def observe(self, toks):
+            self.h.extend(int(t) for t in toks)
+
+        def propose(self, k):
+            return [self.h[(len(self.h) + i) % len(self.h)]
+                    for i in range(k)]
+
+    def lookup_prompts(arch):
+        """One prompt a slot, built as ``benchmarks/bench_spec.py`` builds
+        them: 8 random tokens, then the model's own greedy continuation of
+        them (batch-1 ``reference_generate``), so that the continuation
+        revisits spans a prompt lookup finds."""
+        rng = np.random.default_rng(4)
+        prompts = []
+        for _ in range(BATCH):
+            seed = rng.integers(1, served[arch].cfg.vocab_size, size=8)
+            warm = served[arch].reference_generate(seed, SPEC_WARM)
+            prompts.append(np.concatenate([seed, np.asarray(warm)]))
+        return prompts
+
+    def row_slices(tree, row):
+        """{path: tensor} of what slot ``row`` owns in a cache tree: its
+        ``pos``, its rows of the dense KV and state leaves and, paged, the
+        arena blocks its block-table row maps."""
+        table = tree.get("block_table")
+        blocks = None
+        if table is not None:
+            blocks = torch.tensor([b for b in table[row].tolist() if b >= 0],
+                                  dtype=torch.long, device=dev)
+        out = {}
+        for path, leaf in cache_leaves(tree):
+            if path[0] == "pos":
+                out[path] = leaf[row]
+            elif path[0] != "block_table":
+                axis = leaf_axis(path)
+                out[path] = (leaf.index_select(axis, blocks)
+                             if leaf_kind(path) == "kv" and blocks is not None
+                             else leaf.select(axis, row))
+        return out
+
+    def verify_rollback(eng, last):
+        """On the card, through the engine's replays: rows 0-2 verify
+        drafts whose first t = 0, k/2 and k are the model's own tokens, row
+        3 random drafts.  Each row's cache after the verify must be
+        bit-equal to its accepted tokens fed through the decode replay one
+        at a time, and the verify replay to its eager function."""
+        cfg, k = eng.cfg, SPEC_K
+        decode, verify = eng.programs["decode"], eng.programs["verify"]
+        snap = clone_tree(eng.caches)
+        cont, tok = [], last
+        for _ in range(k + 1):
+            _, nt, _ = decode(eng.params, eng.caches, tok)
+            tok = nt.clone()
+            cont.append(tok[:, 0])
+        cont = torch.stack(cont, 1)
+        gen = torch.Generator(device="cpu").manual_seed(6)
+        drafts = torch.randint(1, cfg.vocab_size, (BATCH, k), generator=gen,
+                               dtype=torch.int32).to(dev)
+        for row, t in enumerate((0, k // 2, k)):
+            drafts[row, :t] = cont[row, :t]
+            drafts[row, t:] = (cont[row, t:k] + 1) % cfg.vocab_size
+        tokens = torch.cat([last, drafts], 1)
+        copy_tree(eng.caches, snap)
+        _, ys, n_new = verify(eng.params, eng.caches, tokens)
+        ys, n_new = ys.clone(), n_new.clone()
+        after = clone_tree(eng.caches)
+        eager = clone_tree(snap)
+        _, ys_e, n_e = verify.program.fn(eng.params, eager, tokens)
+        diffs = [f"eager: cache {p}" for p in tree_diffs(
+            torch, without_sink(after), without_sink(eager))]
+        if not (torch.equal(ys, ys_e) and torch.equal(n_new, n_e)):
+            diffs.append("eager: ys or n_new")
+        accepted = n_new.tolist()
+        if accepted[:3] != [1, k // 2 + 1, k + 1]:
+            diffs.append(f"n_new {accepted}")
+        feed = torch.cat([last, cont[:, :k]], 1)
+        for n in sorted(set(accepted)):
+            copy_tree(eng.caches, snap)
+            for j in range(n):
+                decode(eng.params, eng.caches, feed[:, j:j + 1].contiguous())
+            for row in (r for r, a in enumerate(accepted) if a == n):
+                if not torch.equal(ys[row, :n], cont[row, :n]):
+                    diffs.append(f"row {row}: accepted tokens")
+                seq = row_slices(eng.caches, row)
+                diffs += [f"row {row} ({n} accepted): {'/'.join(p)}"
+                          for p, x in row_slices(after, row).items()
+                          if not torch.equal(x, seq[p])]
+        copy_tree(eng.caches, snap)
+        torch.cuda.synchronize()
+        if diffs:
+            raise AssertionError(f"{eng.arch}: verify rollback: {diffs[:8]}")
+        return {"n_new": accepted, "bit_equal_sequential": True,
+                "graph_equals_eager": True}
+
+    def serve_spec(out, arch, per_pass, prompts, paged=False):
+        """The speculative engine (k = 3, n-gram 2) on phase 8-11's params
+        beside that phase's step engine: lookup prompts, then the same with
+        every step forced through verify; rollback and graph == eager on
+        the card; verify's replay timed beside the decode step's."""
+        name = f"{arch}/paged/spec" if paged else f"{arch}/spec"
+        kw = {"spec": SpecConfig(k=SPEC_K, ngram=SPEC_NGRAM)}
+        if paged:
+            kw["paging"] = PagingConfig(kv_block=PAGED_BLOCK,
+                                        arena_blocks=PAGED_ARENA,
+                                        timeslice=PAGED_TIMESLICE)
+        eng, info = boot(arch, **kw)
+        one = eng.programs["decode"].program.launches
+        multi = eng.programs["verify"].program.launches
+        if multi != {k: (SPEC_K + 1) * v for k, v in one.items()}:
+            raise AssertionError(f"{arch}: a verify replay launches {multi}, "
+                                 f"not {SPEC_K + 1} x {one}")
+        work = [(p, SPEC_MAX_NEW, 0.0) for p in prompts]
+        base = serve_counted(served[arch], work)
+        reqs, stats, launches, routes = serve_counted(eng, work)
+        check_launches(name, per_pass, stats, launches, routes,
+                       {"spec_steps": SPEC_K + 1})
+        check_streams(name, reqs, base[0])
+        real = serve_mod.NGramProposer
+        serve_mod.NGramProposer = ForcedProposer
+        try:
+            freqs, fstats, flaunch, froutes = serve_counted(eng, work)
+        finally:
+            serve_mod.NGramProposer = real
+        check_launches(f"{name}/forced", per_pass, fstats, flaunch, froutes,
+                       {"spec_steps": SPEC_K + 1})
+        if fstats["spec_steps"] != fstats["decode_steps"]:
+            raise AssertionError(f"{name}: forced drafts, yet "
+                                 f"{fstats['decode_steps']} dispatches for "
+                                 f"{fstats['spec_steps']} verifies")
+        if [r.generated for r in freqs] != [r.generated for r in reqs]:
+            raise AssertionError(f"{name}: forced-draft streams differ")
+        if paged:
+            eng.pager.check_invariants()
+            rep = eng.pager.report()
+            out.update(invariants=True, grown_blocks=rep["grown_blocks"],
+                       reclaimed_blocks=rep["reclaimed_blocks"])
+        last = fill_slots(eng, 7)
+        rollback = verify_rollback(eng, last)
+        drafts = torch.cat([last, last.repeat(1, SPEC_K)], 1)
+        vcall, vtimed, backup = timed_replays(eng, "verify", (drafts,), 5)
+        _, dtimed, _ = timed_replays(eng, "decode", (last,), 5)
+        vtimed = profile_calls(torch, vcall, 2, vtimed)
+        copy_tree(eng.caches, backup)
+        unmap_slots(eng)
+        ratio = vtimed["events_device_ms_per_step"] / \
+            ((SPEC_K + 1) * dtimed["events_device_ms_per_step"])
+        prog = info["programs"]["verify"]
+        out.update(
+            model=arch, k=SPEC_K, ngram=SPEC_NGRAM, boot=info,
+            requests=len(reqs), prompt_len=len(prompts[0]),
+            max_new=SPEC_MAX_NEW, accept_rate=stats["accept_rate"],
+            spec_steps=stats["spec_steps"],
+            draft_tokens=stats["draft_tokens"],
+            decode_steps=stats["decode_steps"], tokens=stats["tokens"],
+            tok_per_s=stats["tok_per_s"],
+            step_tok_per_s=base[1]["tok_per_s"],
+            step_decode_steps=base[1]["decode_steps"],
+            forced={k: fstats[k] for k in ("accept_rate", "spec_steps",
+                                           "tok_per_s")},
+            launches_per_verify=multi, launches_per_decode_step=one,
+            rollback=rollback, verify=vtimed, decode_step=dtimed,
+            verify_over_k1_decode_steps=ratio,
+            streams_equal_step_engine_and_reference=True, card=smi)
+        print(f"{name}: {stats['draft_tokens']} drafts, accept rate "
+              f"{stats['accept_rate']:.3f}, tok/s "
+              f"{stats['tok_per_s']:.1f} (non-speculative "
+              f"{base[1]['tok_per_s']:.1f}), verify "
+              f"{vtimed['events_device_ms_per_step']:.3f} ms against "
+              f"{SPEC_K + 1} x decode "
+              f"{dtimed['events_device_ms_per_step']:.3f} ms ({ratio:.3f}x), "
+              f"capture {prog['compile_s']:.3f} s, graph pool "
+              f"{prog['graph_pool_mib']:.1f} MiB", flush=True)
+
+    def serve_spec_horizon(out, arch, prompts):
+        """Both at once, as the engine entry point takes them
+        (``EngineConfig(spec=SpecConfig(k=3), horizon=HorizonConfig(16))``):
+        a step with no draft in any slot falls back to a fused horizon.
+        Streams against the step engine and ``reference_generate``,
+        launches exact with both programs' replays counted."""
+        name = f"{arch}/spec+horizon"
+        eng, info = boot(arch, spec=SpecConfig(k=SPEC_K, ngram=SPEC_NGRAM),
+                         horizon=HorizonConfig(HORIZON))
+        work = [(p, SPEC_MAX_NEW, 0.0) for p in prompts]
+        base = serve_counted(served[arch], work)
+        reqs, stats, launches, routes = serve_counted(eng, work)
+        check_launches(name, serve_passes[arch], stats, launches, routes,
+                       {"spec_steps": SPEC_K + 1, "horizon_steps": HORIZON})
+        check_streams(name, reqs, base[0])
+        out.update(model=arch, k=SPEC_K, horizon=HORIZON, boot=info,
+                   **{k: stats[k] for k in (
+                       "tok_per_s", "decode_steps", "spec_steps",
+                       "horizon_steps", "draft_tokens", "accept_rate",
+                       "dispatches_per_token")},
+                   step_tok_per_s=base[1]["tok_per_s"],
+                   streams_equal_step_engine_and_reference=True, card=smi)
+        print(f"{name}: {stats['spec_steps']} verifies and "
+              f"{stats['horizon_steps']} horizons of {stats['decode_steps']} "
+              f"dispatches, tok/s {stats['tok_per_s']:.1f} (non-speculative "
+              f"{base[1]['tok_per_s']:.1f})", flush=True)
+
+    with phase("serve_spec") as out:
+        qwen_prompts = lookup_prompts("qwen3-0.6b")
+        for arch in ("qwen3-0.6b", "mamba2-130m", "recurrentgemma-2b",
+                     "olmoe-1b-7b"):
+            out[arch] = {}
+            serve_spec(out[arch], arch, serve_passes[arch],
+                       qwen_prompts if arch == "qwen3-0.6b"
+                       else lookup_prompts(arch))
+        out["qwen3-0.6b/paged"] = {}
+        serve_spec(out["qwen3-0.6b/paged"], "qwen3-0.6b", qwen_pass,
+                   qwen_prompts, paged=True)
+        out["qwen3-0.6b/spec+horizon"] = {}
+        serve_spec_horizon(out["qwen3-0.6b/spec+horizon"], "qwen3-0.6b",
+                           qwen_prompts)
 
     def total(name):
         return sum(path[name] for path in path_launches.values())

@@ -96,9 +96,13 @@ def params_from_numpy(tree, cfg, device) -> dict:
     return _tree_from_numpy(tree, device)
 
 
-def cache_from_numpy(tree, cfg, batch: int, cache_len: int, device) -> dict:
-    """The reference's dense cache tree (numpy leaves) -> the port's."""
-    _check_shapes(tree, transformer.abstract_cache(cfg, batch, cache_len))
+def cache_from_numpy(tree, cfg, batch: int, cache_len: int, device, *,
+                     ring: bool = True) -> dict:
+    """The reference's dense cache tree (numpy leaves) -> the port's;
+    ``ring=False`` for the flat windowed buffers of a speculative
+    engine."""
+    _check_shapes(tree, transformer.abstract_cache(cfg, batch, cache_len,
+                                                   ring=ring))
     out = _tree_from_numpy(tree, device)
     out["pos"] = out["pos"].to(torch.int32)
     return out

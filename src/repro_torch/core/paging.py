@@ -64,12 +64,13 @@ def leaf_axis(path: Path) -> int:
     return 1 if path[0] == "groups" else 0
 
 
-def _flatten(caches, prefix: Path = ()) -> List[Tuple[Path, torch.Tensor]]:
+def cache_leaves(caches,
+                 prefix: Path = ()) -> List[Tuple[Path, torch.Tensor]]:
     """(key path, leaf) of the cache tree, keys in sorted order (the
     reference's tree order)."""
     if isinstance(caches, dict):
         return [item for k in sorted(caches)
-                for item in _flatten(caches[k], prefix + (k,))]
+                for item in cache_leaves(caches[k], prefix + (k,))]
     return [(prefix, caches)]
 
 
@@ -278,7 +279,7 @@ class PagedKVManager:
         writes them back (lazy swap-out, so a quick resume is free)."""
         page = self.pages[rid]
         page.state_rows = [_to_host(leaf.select(leaf_axis(path), slot))
-                           for path, leaf in _flatten(caches)
+                           for path, leaf in cache_leaves(caches)
                            if leaf_kind(path) == "state"]
         self.table.unpin(self._name(rid))
         return self._clear_row(caches, slot)
@@ -292,7 +293,7 @@ class PagedKVManager:
         caches = self._call_page(self._name(rid), caches)
         caches = self._write_row(caches, slot, page)
         rows = iter(page.state_rows)
-        for path, leaf in _flatten(caches):
+        for path, leaf in cache_leaves(caches):
             if leaf_kind(path) == "state":
                 leaf.select(leaf_axis(path), slot).copy_(next(rows))
         page.state_rows = None
@@ -333,7 +334,7 @@ class PagedKVManager:
                 # page fault: copy the blocks back from the usrmem tier
                 t0 = time.perf_counter()
                 blocks = iter(page.host_blocks)
-                for path, leaf in _flatten(self._caches):
+                for path, leaf in cache_leaves(self._caches):
                     if leaf_kind(path) != "kv":
                         continue
                     idx = torch.tensor(page.phys, device=leaf.device)
@@ -354,7 +355,7 @@ class PagedKVManager:
         rid = int(entry.name.split(":", 1)[1])
         page = self.pages[rid]
         page.host_blocks = []
-        for path, leaf in _flatten(self._caches):
+        for path, leaf in cache_leaves(self._caches):
             if leaf_kind(path) == "kv":
                 idx = torch.tensor(page.phys, device=leaf.device)
                 page.host_blocks.append(

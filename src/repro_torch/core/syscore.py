@@ -80,6 +80,8 @@ class ProgramSpec:
 class ProgramStats:
     lower_s: float = 0.0           # warm-up on the program's stream
     compile_s: float = 0.0         # graph capture and instantiation
+    graph_bytes: int = 0           # device memory the capture reserved for
+                                   # the graph's own pool
     load_s: float = 0.0            # hot_load in all
     executions: int = 0
     last_exec_s: float = 0.0       # host time of the last call (launches
@@ -230,9 +232,16 @@ class Syscore:
         op that would wait for the host fails there by name.  K2's split
         products take their scratch from a table the program keeps, made
         at the warm-up's shapes, so the graph's pointers stay valid as long
-        as the program does.  The launches the capture records are kept on
+        as the program does.  One scratch serves every product of the
+        program, those of all H steps of a horizon or k+1 of a verify
+        included: the capture records one stream, so the graph runs its
+        products one after another, and each product's last block resets
+        the arrival counters for the next.  The launches the capture
+        records (a multi-step program records every step's) are kept on
         the program and taken back off the kernels' counters (a capture
-        launches nothing); each replay adds them once."""
+        launches nothing); each replay adds them once.  ``outputs`` is
+        whatever the function returned, tensors the graph owns: a tuple,
+        or a dict of them inside one (the horizon's events)."""
         stream = torch.cuda.Stream(device)
         static = tuple(t.clone() for t in spec.inputs)
         args = (*spec.resident, *static)
@@ -248,6 +257,10 @@ class Syscore:
             torch.cuda.set_sync_debug_mode(mode)
         torch.cuda.synchronize(device)
         t1 = time.perf_counter()
+        # the capture empties the allocator's cache as it begins; emptied
+        # first, what the capture reserves is the graph's pool alone
+        torch.cuda.empty_cache()
+        reserved0 = torch.cuda.memory_reserved(device)
         launches0, routes0 = ops.launch_counts(), ops.route_counts()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, stream=stream), \
@@ -264,6 +277,8 @@ class Syscore:
         prog.inputs, prog.outputs = static, outputs
         prog.launches, prog.routes = launches, routes
         prog.stats.lower_s, prog.stats.compile_s = t1 - t0, t2 - t1
+        prog.stats.graph_bytes = torch.cuda.memory_reserved(device) \
+            - reserved0
 
     def report(self) -> Dict[str, Any]:
         """Same ``programs`` and ``hostcalls`` schema as the reference;

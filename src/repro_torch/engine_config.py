@@ -1,13 +1,15 @@
 """Typed serving-engine configuration: the reference's ``EngineConfig``
 (``repro/engine_config.py``) as far as the port carries it, plus
-``device``: the dense fields and ``paging`` (:class:`PagingConfig`, the
-paged KV arena of :mod:`repro_torch.core.paging`).
+``device``: the dense fields, ``paging`` (:class:`PagingConfig`, the
+paged KV arena of :mod:`repro_torch.core.paging`), ``spec``
+(:class:`SpecConfig`, speculative decoding) and ``horizon``
+(:class:`HorizonConfig`, fused decode horizons).
 
-Prefix sharing, speculative decoding, decode horizons and sharding are not
-ported yet (ROADMAP Queue 1 items 5-7 and 13); the config has no field
-for them, so asking for one fails at construction.  Burst admission
-(``group_prefill=True``) is not ported yet either and raises; with
-``paging`` it raises as in the reference, which cannot combine the two.
+Prefix sharing and sharding are not ported yet (ROADMAP Queue 1 items 7
+and 13); the config has no field for them, so asking for one fails at
+construction.  Burst admission (``group_prefill=True``) is not ported yet
+either and raises; with ``paging`` or ``spec`` it raises as in the
+reference, which cannot combine them.
 """
 from __future__ import annotations
 
@@ -47,6 +49,33 @@ class PagingConfig:
 
 
 @dataclass(frozen=True)
+class SpecConfig:
+    """Speculative decoding: ``k`` drafts per verify execution, proposed by
+    a suffix ``ngram`` prompt-lookup over each request's own history
+    (:class:`repro_torch.spec.NGramProposer`)."""
+    k: int = 3
+    ngram: int = 2
+
+    def __post_init__(self):
+        if self.k < 1:
+            raise ValueError(f"spec k must be >= 1: {self.k}")
+        if self.ngram < 1:
+            raise ValueError(f"spec ngram must be >= 1: {self.ngram}")
+
+
+@dataclass(frozen=True)
+class HorizonConfig:
+    """Fused decode horizons: up to ``length`` greedy decode iterations per
+    ``decode_horizon`` dispatch.  ``length`` < 2 is plain decode: construct
+    no HorizonConfig at all instead."""
+    length: int = 4
+
+    def __post_init__(self):
+        if self.length < 2:
+            raise ValueError(f"horizon length must be >= 2: {self.length}")
+
+
+@dataclass(frozen=True)
 class EngineConfig:
     """Everything a ``ServingEngine`` is, as one frozen value object.
 
@@ -64,6 +93,8 @@ class EngineConfig:
     group_prefill: bool = False
     device: Optional[str] = None
     paging: Optional[PagingConfig] = None
+    spec: Optional[SpecConfig] = None
+    horizon: Optional[HorizonConfig] = None
 
     def __post_init__(self):
         if self.clock not in ("wall", "step"):
@@ -80,6 +111,10 @@ class EngineConfig:
             if self.group_prefill:
                 raise ValueError("group_prefill rewrites every slot; "
                                  "incompatible with paging")
+        if self.spec is not None and self.group_prefill:
+            raise ValueError("group_prefill rewrites every slot; "
+                             "incompatible with the speculative non-ring "
+                             "cache layout")
         if self.group_prefill:
             raise NotImplementedError(
                 "group_prefill (burst admission through a whole-batch "
@@ -92,6 +127,14 @@ class EngineConfig:
     @property
     def paged(self) -> bool:
         return self.paging is not None
+
+    @property
+    def spec_k(self) -> Optional[int]:
+        return self.spec.k if self.spec is not None else None
+
+    @property
+    def horizon_length(self) -> Optional[int]:
+        return self.horizon.length if self.horizon is not None else None
 
     def replace(self, **kw) -> "EngineConfig":
         return dataclasses.replace(self, **kw)

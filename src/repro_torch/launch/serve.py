@@ -20,6 +20,21 @@ stream equals a batch-of-1 decode of the same prompt
 For MoE archs this holds while no decode step drops a token: a batch of at
 most 4 keeps the decode capacity at its floor of 4, as in the reference.
 
+Fused decode horizons (``EngineConfig(horizon=HorizonConfig(length=H))``):
+a ``decode_horizon`` program runs up to H greedy steps in one replay, the
+greedy token fed back and each slot's EOS or budget masked on the device;
+the host reads one event buffer back per horizon.  An adaptive policy
+(:meth:`ServingEngine._use_horizon`) shrinks to single steps while a
+waiting request could be admitted mid-horizon.
+
+Speculative decoding (``EngineConfig(spec=SpecConfig(k=...))``): each
+request keeps an n-gram prompt-lookup proposer
+(:class:`repro_torch.spec.NGramProposer`); a ``verify`` program scores
+every slot's last token and up to k drafts in one replay, accepts the
+longest greedy-matching prefix and rolls the rest back, so the stream is
+the non-speculative one.  A step with no proposal anywhere falls back to
+a horizon, when one is loaded, or to plain decode.
+
 Paged KV (``EngineConfig(paging=PagingConfig(...))``): attention caches
 live in a capacity-bounded block arena managed by
 :class:`~repro_torch.core.paging.PagedKVManager`, so the batch's KV
@@ -51,9 +66,11 @@ from repro_torch.core.syscore import (METRIC_KERNEL_BUILD_MS,
                                       METRIC_PROGRAM_COMPILE_MS,
                                       METRIC_PROGRAM_LOAD_MS, Syscore)
 from repro_torch.core.paging import PagedKVManager
-from repro_torch.engine_config import EngineConfig, PagingConfig
+from repro_torch.engine_config import (EngineConfig, HorizonConfig,
+                                       PagingConfig, SpecConfig)
 from repro_torch.kernels import _build
 from repro_torch.models import registry, transformer
+from repro_torch.spec import NGramProposer
 
 # CALL_METRIC name codes used by the engine (the reference's schema)
 METRIC_TTFT_MS = 1        # time-to-first-token per request, ms
@@ -64,6 +81,8 @@ METRIC_OCCUPANCY = 3      # active slots / batch, per decode step
 METRIC_PAGE_FAULT = 6     # paged KV swap-in copied blocks from host (value
                           # = blocks moved), per fault
 METRIC_ARENA_OCCUPANCY = 7  # resident arena blocks / capacity, per decode step
+METRIC_SPEC_ACCEPT = 8    # accepted / proposed draft tokens, per verify step
+METRIC_HORIZON_TOKENS = 9  # tokens emitted per fused decode-horizon dispatch
 
 
 @dataclass
@@ -135,6 +154,9 @@ class ServingEngine:
         self.clock = config.clock
         self.paged = config.paged
         self.timeslice = config.paging.timeslice if self.paged else None
+        self.spec_k = config.spec_k
+        self.spec_ngram = config.spec.ngram if config.spec is not None else 2
+        self.horizon = config.horizon_length
         self.syscore = Syscore(self.device)
         on_card = self.device.type == "cuda"
         if on_card:
@@ -149,6 +171,7 @@ class ServingEngine:
         # the programs are bound to these trees: allocated before hot_load
         if self.paged:
             self.kv_block = config.paging.kv_block
+            self.blocks_per_slot = self.max_len // self.kv_block
             self.arena_blocks = config.paging.resolved_arena_blocks(
                 self.batch, self.max_len)
             self.caches = transformer.init_paged_cache(
@@ -161,13 +184,22 @@ class ServingEngine:
                 on_fault=lambda blocks: self.syscore.hostcalls.dispatch(
                     CALL_METRIC, METRIC_PAGE_FAULT, float(blocks)))
         else:
+            # the speculative engine's windowed buffers are flat: rollback
+            # restores rejected writes at absolute slots
             self.caches = transformer.init_cache(self.cfg, self.batch,
                                                  self.max_len,
+                                                 ring=self.spec_k is None,
                                                  device=self.device)
         self._prompt = torch.zeros((1, self.prefill_len), dtype=torch.int32,
                                    pin_memory=on_card)
         self._last_tokens = torch.zeros((self.batch, 1), dtype=torch.int32,
                                         pin_memory=on_card)
+        if self.spec_k is not None:
+            self._drafts = torch.zeros((self.batch, self.spec_k + 1),
+                                       dtype=torch.int32, pin_memory=on_card)
+        if self.horizon is not None:
+            self._budget = torch.zeros((self.batch,), dtype=torch.int32,
+                                       pin_memory=on_card)
 
         specs = steps_lib.serve_program_specs(self.cfg, self.config,
                                               self.params, self.caches)
@@ -175,6 +207,8 @@ class ServingEngine:
                          for name, spec in specs.items()}
         self._prefill_slot = self.programs["prefill_slot"]
         self._decode = self.programs["decode"]
+        self._verify = self.programs.get("verify")
+        self._decode_horizon = self.programs.get("decode_horizon")
         # the card's warm-ups wrote the caches: boot them empty again (a
         # paged tree's block table unmapped, -1: 0 would map every slot to
         # physical block 0)
@@ -188,6 +222,12 @@ class ServingEngine:
         self.steps = 0                 # engine iterations (incl. idle ticks)
         self.decode_steps = 0          # decode-program dispatches
         self.decode_tokens = 0         # tokens emitted by the decode path
+        self.horizon_steps = 0         # decode_horizon executions
+        self.horizon_tokens = 0        # tokens emitted by fused horizons
+        self.spec_steps = 0            # verify executions
+        self.draft_tokens = 0          # drafts proposed
+        self.accepted_drafts = 0       # drafts accepted
+        self._proposers: Dict[int, NGramProposer] = {}
         self.admitted = 0
         self.rejected = 0
         self.refill_admissions = 0     # admissions while other slots active
@@ -233,6 +273,12 @@ class ServingEngine:
         """Post-prefill bookkeeping of an admission."""
         first = int(np.argmax(last_logits[: self.cfg.vocab_size]))
         req.generated.append(first)
+        if self.spec_k is not None:
+            # one prompt-lookup index per request, fed as tokens append;
+            # keyed by rid, so it survives a preempt / resume round trip
+            prop = self._proposers[req.rid] = NGramProposer(self.spec_ngram)
+            prop.observe(req.prompt.tolist())
+            prop.observe([first])
         req.t_first = time.perf_counter()
         req.slot = slot
         req.gen_at_admit = len(req.generated)
@@ -349,6 +395,7 @@ class ServingEngine:
         if len(req.generated) >= req.max_new or hit_eos or full:
             req.done = True
             req.t_done = time.perf_counter()
+            self._proposers.pop(req.rid, None)
             self.completed.append(req)
             if self.paged and req.rid in self.pager.pages:
                 # the request is done, so its blocks free instead of
@@ -359,10 +406,13 @@ class ServingEngine:
             if req.slot >= 0:
                 self.slots[req.slot] = None
 
-    def _step_metrics(self, dt: float, occupancy: float):
-        """ONE aggregated hostcall round trip per engine step (CALL_BATCH)."""
+    def _step_metrics(self, dt: float, occupancy: float, extra=()):
+        """ONE aggregated hostcall round trip per engine step (CALL_BATCH):
+        decode latency, occupancy, the ``extra`` calls and the step
+        report."""
         calls = [(CALL_METRIC, METRIC_DECODE_MS, 1e3 * dt),
                  (CALL_METRIC, METRIC_OCCUPANCY, occupancy)]
+        calls.extend(extra)
         if self.paged:
             calls.append((CALL_METRIC, METRIC_ARENA_OCCUPANCY,
                           self.pager.arena_occupancy()))
@@ -389,7 +439,164 @@ class ServingEngine:
             if req is None:
                 continue
             req.generated.append(int(nt[i, 0]))
+            if req.rid in self._proposers:
+                self._proposers[req.rid].observe(req.generated[-1:])
             self._maybe_finish(req)
+        return dt
+
+    def _verify_once(self):
+        """One speculative iteration: up to ``spec_k`` drafts per active
+        slot from its request's proposer, scored in one replay of
+        ``verify``, each row keeping its longest greedy-matching prefix.
+        A row with fewer proposals is padded with its last token (an
+        accepted token is always the model's own, so the padding is
+        exact).  With no proposal in any slot, the step falls back to
+        :meth:`_advance_decode`."""
+        k = self.spec_k
+        tokens = self._drafts.numpy()
+        tokens[:] = 0
+        n_props = np.zeros((self.batch,), np.int32)
+        for i, req in enumerate(self.slots):
+            if req is None:
+                continue
+            tokens[i, :] = req.generated[-1]
+            props = self._proposers[req.rid].propose(k)
+            n_props[i] = len(props)
+            tokens[i, 1:1 + len(props)] = props
+        drafted = int(n_props.sum())
+        if drafted == 0:
+            self._advance_decode()
+            return
+        active = sum(s is not None for s in self.slots)
+        if self.paged:
+            # speculative over-allocation: map blocks so that draft writes
+            # past the base reservation land somewhere real (from the free
+            # list only; a failed grow drops the overshoot into the sink)
+            for i, req in enumerate(self.slots):
+                if req is None:
+                    continue
+                pos0 = req.prompt_len + len(req.generated) - 1
+                need = min(-(-(pos0 + k + 1) // self.kv_block),
+                           self.blocks_per_slot)
+                self.caches = self.pager.grow(req.rid, need, i, self.caches)
+        t1 = time.perf_counter()
+        self.caches, ys, n_new = self._verify(self.params, self.caches,
+                                              self._drafts)
+        ys = ys.cpu().numpy()               # waits for the device result
+        n_new = n_new.cpu().numpy()
+        dt = time.perf_counter() - t1
+        self.decode_steps += 1
+        self.spec_steps += 1
+        accepted = 0
+        toks0 = self.decode_tokens
+        for i, req in enumerate(list(self.slots)):
+            if req is None:
+                continue
+            used = 0
+            for j in range(int(n_new[i])):
+                if req.done:
+                    break                   # EOS or budget inside the accept
+                req.generated.append(int(ys[i, j]))
+                used += 1
+                self._maybe_finish(req)
+            self.decode_tokens += used
+            accepted += min(used - 1, int(n_props[i]))
+            if req.rid in self._proposers:
+                self._proposers[req.rid].observe(req.generated[-used:])
+            if self.paged and req.rid in self.pager.pages and req.slot >= 0:
+                # reclaim on rejection: the speculative tail goes back to
+                # the free list (verify restored its bytes in the program)
+                self.caches = self.pager.trim_to_base(req.rid, i,
+                                                      self.caches)
+        self.draft_tokens += drafted
+        self.accepted_drafts += accepted
+        self._step_metrics(dt, active / self.batch,
+                           extra=[(CALL_METRIC, METRIC_SPEC_ACCEPT,
+                                   accepted / drafted)])
+        return dt
+
+    # -- fused decode horizons ------------------------------------------------
+    def _budget_left(self, req: Request) -> int:
+        """Tokens ``req`` may still emit (max_new and cache-length caps)."""
+        return min(req.max_new,
+                   self.max_len - req.prompt_len) - len(req.generated)
+
+    def _use_horizon(self) -> bool:
+        """Adaptive horizon policy: fuse only when it cannot hurt latency.
+
+        While an eligible request waits, a slot freed mid-horizon would
+        leave it stuck behind the fused dispatch, so the engine shrinks to
+        single steps, unless no admission is possible for the whole
+        horizon: every slot holds a request that cannot finish inside it,
+        which is known exactly when finishes come only from budgets (no
+        EOS) and no timeslice preemption can rotate a slot out.  A
+        saturated engine with a backed-up queue therefore still fuses.
+        Fusing also needs a row able to use a good part of the horizon: a
+        short tail (every remaining budget < H/2) runs as single steps."""
+        if self._decode_horizon is None:
+            return False
+        if self.queue and self.queue[0].arrival_time <= self.now():
+            if self.eos_id is not None or self.timeslice is not None:
+                return False
+            if not all(s is not None and self._budget_left(s) > self.horizon
+                       for s in self.slots):
+                return False
+        return any(s is not None and
+                   self._budget_left(s) >= max(2, self.horizon // 2)
+                   for s in self.slots)
+
+    def _advance_decode(self):
+        """One decode-path advance: a fused horizon when the adaptive
+        policy allows it, else a single decode step."""
+        if self._use_horizon():
+            self._decode_horizon_once()
+        else:
+            self._decode_once()
+
+    def _decode_horizon_once(self):
+        """One fused horizon: up to ``self.horizon`` decode steps in one
+        replay.  The host crosses the boundary once: the event buffer
+        (emitted tokens, per-slot counts, occupancy) comes back in one
+        transfer, and all bookkeeping (appends, EOS and budget finishes,
+        paged release, proposer feed, metrics) happens here."""
+        tokens = self._last_tokens.numpy()
+        budget = self._budget.numpy()
+        tokens[:] = 0
+        budget[:] = 0
+        for i, req in enumerate(self.slots):
+            if req is None:
+                continue
+            tokens[i, 0] = req.generated[-1]
+            budget[i] = min(self._budget_left(req), self.horizon)
+        t1 = time.perf_counter()
+        self.caches, events = self._decode_horizon(
+            self.params, self.caches, self._last_tokens, self._budget)
+        buf = events["buffer"].cpu().numpy()   # waits for the device result
+        dt = time.perf_counter() - t1
+        b, h = self.batch, self.horizon
+        toks = buf[:b * h].reshape(b, h)
+        n_emit = buf[b * h:b * h + b]
+        occ = buf[b * h + b:].view(np.float32)
+        emitted = int(n_emit.sum())
+        self.decode_steps += 1
+        self.horizon_steps += 1
+        self.decode_tokens += emitted
+        self.horizon_tokens += emitted
+        for i, req in enumerate(self.slots):
+            if req is None:
+                continue
+            new = [int(t) for t in toks[i, :n_emit[i]]]
+            req.generated.extend(new)
+            if new and req.rid in self._proposers:
+                self._proposers[req.rid].observe(new)
+            self._maybe_finish(req)
+        # one METRIC_OCCUPANCY entry per in-graph step that ran a live row,
+        # so run()'s occupancy mean stays weighted per decode step when
+        # fused and single steps mix
+        ran = [float(o) for o in occ if o > 0]
+        extra = [(CALL_METRIC, METRIC_OCCUPANCY, o) for o in ran[1:]]
+        extra.append((CALL_METRIC, METRIC_HORIZON_TOKENS, float(emitted)))
+        self._step_metrics(dt, ran[0] if ran else 0.0, extra=extra)
         return dt
 
     @property
@@ -416,13 +623,18 @@ class ServingEngine:
         }
 
     def step(self) -> bool:
-        """One engine iteration: admit into free slots, then one decode step
-        for every active slot.  Returns False when no work remains."""
+        """One engine iteration: admit into free slots, then one decode
+        advance for every active slot: a speculative verify, a fused
+        horizon or a single decode step.  Returns False when no work
+        remains."""
         if not self.has_work:
             return False
         self._admit()
         if any(s is not None for s in self.slots):
-            self._decode_once()
+            if self.spec_k is not None:
+                self._verify_once()
+            else:
+                self._advance_decode()
         elif self.clock == "wall" and self.queue:
             wait = self.queue[0].arrival_time - self.now()
             time.sleep(min(max(wait, 1e-4), 1e-2))
@@ -440,6 +652,9 @@ class ServingEngine:
         n_occ0 = len(metrics.get(METRIC_OCCUPANCY, []))
         n_arena0 = len(metrics.get(METRIC_ARENA_OCCUPANCY, []))
         dec_steps0, dec_toks0 = self.decode_steps, self.decode_tokens
+        hor0, hor_toks0 = self.horizon_steps, self.horizon_tokens
+        spec0, drf0, acc0 = (self.spec_steps, self.draft_tokens,
+                             self.accepted_drafts)
         adm0, ref0 = self.admitted, self.refill_admissions
         pre0, swi0 = self.preemptions, self.swap_ins
         pf0 = self.pager.page_faults if self.paged else 0
@@ -467,12 +682,28 @@ class ServingEngine:
             "occupancy": sum(occ) / max(len(occ), 1),
             "decode_steps": self.decode_steps - dec_steps0,
             "decode_tokens": dec_toks,
+            # decode-path dispatches per generated token, the number a
+            # fused horizon drives toward 1/H
             "dispatches_per_token": (self.decode_steps - dec_steps0)
                                     / max(dec_toks, 1),
             "admitted": self.admitted - adm0,
             "rejected": self.rejected,
             "refill_admissions": self.refill_admissions - ref0,
         }
+        if self._decode_horizon is not None:
+            stats.update({
+                "horizon_steps": self.horizon_steps - hor0,
+                "horizon_tokens": self.horizon_tokens - hor_toks0,
+            })
+        if self.spec_k is not None:
+            drafted = self.draft_tokens - drf0
+            accepted = self.accepted_drafts - acc0
+            stats.update({
+                "spec_steps": self.spec_steps - spec0,
+                "draft_tokens": drafted,
+                "accepted_drafts": accepted,
+                "accept_rate": accepted / max(drafted, 1),
+            })
         if self.paged:
             arena = metrics.get(METRIC_ARENA_OCCUPANCY, [])[n_arena0:]
             stats.update({
@@ -508,7 +739,7 @@ class ServingEngine:
         if ref is None:
             ref_config = self.config.replace(
                 batch=1, prefill_len=self.prefill_len, clock="step",
-                paging=None)
+                paging=None, spec=None, horizon=None)
             ref = self._ref_engine = ServingEngine(
                 self.arch, ref_config, params=self.params)
         req = ref.submit(prompt, max_new)
@@ -538,6 +769,14 @@ def main(argv=None):
     ap.add_argument("--timeslice", type=int, default=None,
                     help="preempt slots that decoded this many tokens when "
                          "the queue head cannot fit the arena")
+    ap.add_argument("--spec-k", type=int, default=None,
+                    help="speculative decoding: drafts per verify step "
+                         "(n-gram prompt lookup); none = plain decode")
+    ap.add_argument("--spec-ngram", type=int, default=2,
+                    help="suffix n-gram length the proposer matches on")
+    ap.add_argument("--horizon", type=int, default=None,
+                    help="fused decode horizon: up to H decode steps per "
+                         "dispatch (none or 1 = one per token)")
     args = ap.parse_args(argv)
     config = EngineConfig(
         reduced=not args.full, batch=args.batch,
@@ -545,7 +784,12 @@ def main(argv=None):
         paging=(PagingConfig(kv_block=args.kv_block,
                              arena_blocks=args.arena_blocks,
                              timeslice=args.timeslice)
-                if args.paged else None))
+                if args.paged else None),
+        spec=(SpecConfig(k=args.spec_k, ngram=args.spec_ngram)
+              if args.spec_k is not None else None),
+        horizon=(HorizonConfig(length=args.horizon)
+                 if args.horizon is not None and args.horizon >= 2
+                 else None))
     eng = ServingEngine(args.arch, config)
     rng = np.random.default_rng(0)
     for _ in range(args.requests):

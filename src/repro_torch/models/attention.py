@@ -68,7 +68,7 @@ def _paged_dest(block_table, pos, bs: int, sink: int, keep=None):
     """Physical block of each position's write (``pos``: (B,) or (B, S)),
     or ``sink`` where the write drops: an unmapped (-1) or read-only
     shared (``-(p + 2)``) entry, a position past the table, or ``keep``
-    False.  Also returns the clamped table entries."""
+    (shaped as ``pos``) False.  Also returns the clamped table entries."""
     m = block_table.shape[1]
     blk = torch.div(pos, bs, rounding_mode="floor")
     idx = blk.clamp(0, m - 1).long()
@@ -82,11 +82,12 @@ def _paged_dest(block_table, pos, bs: int, sink: int, keep=None):
 
 
 def paged_index(block_table: torch.Tensor, pos: torch.Tensor, bs: int,
-                sink: int) -> PagedIndex:
+                sink: int, live=None) -> PagedIndex:
     """The :class:`PagedIndex` of a (B, M) block table at positions
     ``pos`` (B,), for arenas of ``bs``-token blocks whose sink is block
-    ``sink``."""
-    dest, _ = _paged_dest(block_table, pos, bs, sink)
+    ``sink``.  A row with ``live`` (B,) False writes to the sink (the
+    reference's ``writable &= live``)."""
+    dest, _ = _paged_dest(block_table, pos, bs, sink, keep=live)
     return PagedIndex(_physical(block_table), dest,
                       torch.remainder(pos, bs).long())
 
@@ -137,6 +138,10 @@ def write_paged_kv(arena: torch.Tensor, block_table: torch.Tensor,
     :func:`gather_paged_kv`), or at a position beyond the table
     (speculative overshoot past the reservation).
 
+    ``live`` (B,) bool also drops the rows it marks False (a fused horizon
+    holds a finished row still while the others keep stepping); ``None``
+    means every row writes.
+
     The drop is a **sink block**: the arena holds one physical block more
     than the pager owns (index ``P``, the last), and every dropped row is
     written there.  The reference sends it out of range and lets the
@@ -146,15 +151,9 @@ def write_paged_kv(arena: torch.Tensor, block_table: torch.Tensor,
     it.  The sink is never on the free list, never gathered for a valid
     position and never copied to the host, so what lands there (several
     dropped rows may race for one offset) is never read.
-
-    ``live`` belongs to fused decode horizons (ROADMAP Queue 1 item 5) and
-    raises.
     """
-    if live is not None:
-        raise NotImplementedError(
-            "live-masked paged writes belong to fused decode horizons "
-            "(ROADMAP Queue 1 item 5)")
-    index = paged_index(block_table, pos, arena.shape[1], arena.shape[0] - 1)
+    index = paged_index(block_table, pos, arena.shape[1], arena.shape[0] - 1,
+                        live=live)
     return write_paged(arena, index, val)
 
 
@@ -169,18 +168,19 @@ def rollback_paged_kv(arena: torch.Tensor, orig: torch.Tensor,
     pre-verify bytes at the rejected positions makes the post-verify cache
     identical to having decoded only the accepted tokens one at a time.
 
-    arena: (P + 1, bs, H, D) post-verify, the last block the sink; orig:
-    same shape, pre-verify; pos_cand: (B, S) absolute position of each
-    candidate write; reject: (B, S) bool, True where the write must be
-    undone.  Unmapped, read-only or out-of-table positions were dropped
-    into the sink by :func:`write_paged_kv` and drop there again here.
+    arena: (..., P + 1, bs, H, D) post-verify, the last block the sink
+    (a group-stacked leaf carries its layers first); orig: same shape,
+    pre-verify; pos_cand: (B, S) absolute position of each candidate
+    write; reject: (B, S) bool, True where the write must be undone.
+    Unmapped, read-only or out-of-table positions were dropped into the
+    sink by :func:`write_paged_kv` and drop there again here.
     """
-    bs = arena.shape[1]
-    dest, phys = _paged_dest(block_table, pos_cand, bs, arena.shape[0] - 1,
+    bs = arena.shape[-3]
+    dest, phys = _paged_dest(block_table, pos_cand, bs, arena.shape[-4] - 1,
                              keep=reject)
     off = torch.remainder(pos_cand, bs).long()
-    vals = orig[phys.clamp(min=0).long(), off]             # (B, S, H, D)
-    arena[dest, off] = vals
+    vals = orig[..., phys.clamp(min=0).long(), off, :, :]  # (..., B, S, H, D)
+    arena[..., dest, off, :, :] = vals
     return arena
 
 

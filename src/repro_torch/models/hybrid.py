@@ -101,10 +101,11 @@ def rglru_decode(p, x, hprev):
 
 
 def apply_rglru_layer(cfg, p: Params, x: torch.Tensor, *, mode: str,
-                      cache) -> Tuple[torch.Tensor, Any]:
+                      cache, live=None) -> Tuple[torch.Tensor, Any]:
     """Full recurrent block: norm -> (x, gate) projections -> conv ->
     RG-LRU -> gated out projection.  Writes the layer's ``conv`` and ``h``
-    into ``cache`` in place."""
+    into ``cache`` in place; in decode mode a row with ``live`` (B,) False
+    keeps its old ones."""
     residual = x
     xn = apply_rmsnorm(p["ln"], x, cfg.norm_eps)
     xb = linear(xn, p["w_x"])
@@ -127,6 +128,11 @@ def apply_rglru_layer(cfg, p: Params, x: torch.Tensor, *, mode: str,
             f"(ROADMAP Queue 1 item 14)")
 
     out = linear(y * gate, p["w_out"])
+    if live is not None and mode == "decode":
+        new_conv = torch.where(live[:, None, None],
+                               new_conv.to(cache["conv"].dtype),
+                               cache["conv"])
+        hf = torch.where(live[:, None], hf, cache["h"])
     cache["conv"].copy_(new_conv)
     cache["h"].copy_(hf)
     return residual + out, cache

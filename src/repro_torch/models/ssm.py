@@ -101,9 +101,10 @@ def ssd_decode(x, dt, a, b, c, d_skip, hprev):
 
 
 def apply_ssm_layer(cfg, p: Params, x: torch.Tensor, *, mode: str,
-                    cache) -> Tuple[torch.Tensor, Any]:
+                    cache, live=None) -> Tuple[torch.Tensor, Any]:
     """Full Mamba-2 block: norm -> in_proj -> conv -> SSD -> gated out.
-    Writes the layer's ``conv`` and ``state`` into ``cache`` in place."""
+    Writes the layer's ``conv`` and ``state`` into ``cache`` in place; in
+    decode mode a row with ``live`` (B,) False keeps its old ones."""
     d_inner, h, n, phd = _dims(cfg)
     residual = x
     xn = apply_rmsnorm(p["ln"], x, cfg.norm_eps)
@@ -139,6 +140,11 @@ def apply_ssm_layer(cfg, p: Params, x: torch.Tensor, *, mode: str,
     y = y.reshape(bsz, s, d_inner)
     y = apply_rmsnorm(p["out_ln"], y * F.silu(z), cfg.norm_eps)
     out = linear(y, p["w_out"])
+    if live is not None and mode == "decode":
+        new_conv = torch.where(live[:, None, None],
+                               new_conv.to(cache["conv"].dtype),
+                               cache["conv"])
+        hf = torch.where(live[:, None, None, None], hf, cache["state"])
     cache["conv"].copy_(new_conv)
     cache["state"].copy_(hf)
     return residual + out, cache

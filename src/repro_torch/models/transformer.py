@@ -28,6 +28,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from repro_torch.core.paging import cache_leaves, leaf_axis, leaf_kind
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import hybrid as hybrid_mod
 from repro_torch.models import layers
@@ -279,24 +280,30 @@ def _write_prefill_cache(cache_kv: torch.Tensor, full: torch.Tensor,
 
 
 def _write_decode_cache(cache_kv: torch.Tensor, new: torch.Tensor,
-                        pos_b: torch.Tensor, *, ring: bool = False):
+                        pos_b: torch.Tensor, *, ring: bool = False,
+                        live=None):
     """Write row b's new key/value (B, Hkv, D) at slot ``pos_b[b] % C``, in
-    place.  A ring wraps and never drops.  A flat buffer drops a position
-    >= C (an idle slot left ticking) instead of wrapping onto slot 0, as
-    the reference's non-ring rule does (``transformer.py:216-234``); a
-    dropped row rewrites slot 0 with its own current bytes, so no host sync
+    place.  A ring wraps.  A flat buffer drops a position >= C (an idle
+    slot left ticking, or a speculative write past the buffer) instead of
+    wrapping onto slot 0, as the reference's non-ring rule does
+    (``transformer.py:216-234``).  A row with ``live`` (B,) False drops
+    too, ring or flat: a frozen row's write would land inside its
+    still-valid window.  A dropped row rewrites its slot (0 where the
+    position is out of range) with its own current bytes, so no host sync
     is needed to find the dropped rows."""
     b, c = cache_kv.shape[0], cache_kv.shape[1]
     rows = torch.arange(b, device=cache_kv.device)
-    hit = torch.ones_like(pos_b, dtype=torch.bool) if ring else pos_b < c
-    slot = torch.where(hit, pos_b % c, torch.zeros_like(pos_b)).long()
+    in_range = torch.ones_like(pos_b, dtype=torch.bool) if ring \
+        else pos_b < c
+    hit = in_range if live is None else in_range & live
+    slot = torch.where(in_range, pos_b % c, torch.zeros_like(pos_b)).long()
     old = cache_kv[rows, slot]
     cache_kv[rows, slot] = torch.where(hit[:, None, None],
                                        new.to(cache_kv.dtype), old)
 
 
 def _apply_attn(cfg, p: Params, x: torch.Tensor, *, mode: str, cache,
-                pos: torch.Tensor, kind: str, paged=None):
+                pos: torch.Tensor, kind: str, paged=None, live=None):
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     window = cfg.local_window if kind == "L" else 0
@@ -320,7 +327,8 @@ def _apply_attn(cfg, p: Params, x: torch.Tensor, *, mode: str, cache,
             # paged KV: the cache leaf is a (P + 1, bs, Hkv, hd) block arena
             # shared by every slot; the row's write and the logical gather
             # both resolve through the step's block-table index
-            # (repro_torch.core.paging)
+            # (repro_torch.core.paging), which sends a frozen row's write
+            # to the sink
             attn_mod.write_paged(cache["k"], paged, k[:, 0])
             attn_mod.write_paged(cache["v"], paged, v[:, 0])
             out = attn_mod.decode_attention(
@@ -329,8 +337,10 @@ def _apply_attn(cfg, p: Params, x: torch.Tensor, *, mode: str, cache,
                 pos_b + 1, window=window, ring=False)
         else:
             ring = bool(window) and cache["k"].shape[1] == window
-            _write_decode_cache(cache["k"], k[:, 0], pos_b, ring=ring)
-            _write_decode_cache(cache["v"], v[:, 0], pos_b, ring=ring)
+            _write_decode_cache(cache["k"], k[:, 0], pos_b, ring=ring,
+                                live=live)
+            _write_decode_cache(cache["v"], v[:, 0], pos_b, ring=ring,
+                                live=live)
             out = attn_mod.decode_attention(q, cache["k"], cache["v"],
                                             pos_b + 1, window=window,
                                             ring=ring)
@@ -357,16 +367,20 @@ def _apply_attn(cfg, p: Params, x: torch.Tensor, *, mode: str, cache,
 # ---------------------------------------------------------------------------
 
 def apply_layer(cfg, kind: str, p: Params, x, *, mode: str, cache, pos,
-                paged=None):
+                paged=None, live=None):
+    """One layer.  In decode mode ``live`` (B,) bool (``None``: every row)
+    freezes the other rows' cache: no KV write, no recurrent update."""
     if kind == "M":
         x, new_cache = ssm_mod.apply_ssm_layer(cfg, p["mix"], x, mode=mode,
-                                               cache=cache)
+                                               cache=cache, live=live)
     elif kind == "R":
         x, new_cache = hybrid_mod.apply_rglru_layer(cfg, p["mix"], x,
-                                                    mode=mode, cache=cache)
+                                                    mode=mode, cache=cache,
+                                                    live=live)
     elif kind in ATTN_KINDS:
         x, new_cache = _apply_attn(cfg, p["mix"], x, mode=mode, cache=cache,
-                                   pos=pos, kind=kind, paged=paged)
+                                   pos=pos, kind=kind, paged=paged,
+                                   live=live)
     else:
         raise NotImplementedError(f"layer kind {kind!r} is not one the port "
                                   f"carries ({', '.join(LAYER_KINDS)})")
@@ -386,7 +400,8 @@ def _index(tree, i: int):
     return tree[i]
 
 
-def _run_stack(cfg, params, x, *, mode: str, caches, pos, paged=None):
+def _run_stack(cfg, params, x, *, mode: str, caches, pos, paged=None,
+               live=None):
     """The reference scans the layer-stacked groups; here a Python loop
     walks the same stacked tensors layer by layer (views, no copies)."""
     unit, n_groups, tail = split_layers(cfg)
@@ -396,12 +411,13 @@ def _run_stack(cfg, params, x, *, mode: str, caches, pos, paged=None):
         for i, kind in enumerate(unit):
             slot = f"slot{i}"
             x, _ = apply_layer(cfg, kind, gp[slot], x, mode=mode,
-                               cache=gc[slot], pos=pos, paged=paged)
+                               cache=gc[slot], pos=pos, paged=paged,
+                               live=live)
     for i, kind in enumerate(tail):
         name = f"tail{i}"
         x, _ = apply_layer(cfg, kind, params["tail"][name], x, mode=mode,
                            cache=caches["tail"][name], pos=pos,
-                           paged=paged)
+                           paged=paged, live=live)
     return x, caches
 
 
@@ -475,6 +491,12 @@ def decode_step(cfg, params, caches, token, pos=None, *, live=None):
     ``pos`` advanced by one, written into the tree's own ``pos`` tensor (a
     replayed CUDA graph reads the buffer it captured).
 
+    ``live`` (B,) bool freezes rows: a non-live row's KV write, recurrent
+    update and ``pos`` advance are all masked out (``torch.where``, which
+    changes no bits of the live rows), so its cache is byte-identical
+    before and after the step while the live rows step normally: the fused
+    horizon's per-slot termination.  ``None`` means every row is live.
+
     A paged tree (one with a ``block_table``) writes and reads its
     attention layers through the table, and only mapped rows advance: an
     unmapped (released) row's ``pos`` stays frozen so its block index can
@@ -484,10 +506,6 @@ def decode_step(cfg, params, caches, token, pos=None, *, live=None):
     computed once a step: every attention layer reads and writes the same
     blocks of its own arena."""
     check_supported(cfg)
-    if live is not None:
-        raise NotImplementedError(
-            "live-masked decode belongs to fused decode horizons "
-            "(ROADMAP Queue 1 item 5)")
     block_table = caches.get("block_table")
     b = token.shape[0]
     if pos is None:
@@ -501,13 +519,137 @@ def decode_step(cfg, params, caches, token, pos=None, *, live=None):
     if block_table is not None and arena is not None:
         # arenas are (..., P + 1, bs, Hkv, hd), the last block the sink
         paged = attn_mod.paged_index(block_table, pos, arena.shape[-3],
-                                     arena.shape[-4] - 1)
+                                     arena.shape[-4] - 1, live=live)
     x, caches = _run_stack(cfg, params, x, mode="decode", caches=caches,
-                           pos=pos, paged=paged)
+                           pos=pos, paged=paged, live=live)
     logits = logits_from_hidden(cfg, params, x)
-    if block_table is None:
-        caches["pos"].copy_(pos + 1)
-    else:
-        caches["pos"].copy_(torch.where(block_table[:, 0] != -1, pos + 1,
-                                        pos))
+    advance = live
+    if block_table is not None:
+        mapped = block_table[:, 0] != -1
+        advance = mapped if live is None else mapped & live
+    caches["pos"].copy_(pos + 1 if advance is None
+                        else torch.where(advance, pos + 1, pos))
     return logits, caches
+
+
+def decode_horizon(cfg, params, caches, tokens, budget, *, horizon: int,
+                   eos_id=None):
+    """Fused multi-step decode: ``horizon`` greedy steps in one program.
+
+    tokens: (B, 1) int32, each slot's last accepted token (the greedy
+    feedback starts from it); budget: (B,) int32, the tokens row b may
+    emit this horizon (0 holds the row frozen throughout, e.g. an empty
+    slot).  A row freezes the step after it emits ``eos_id`` or exhausts
+    its budget (:func:`decode_step` with ``live``), so a finish inside the
+    horizon perturbs no other row.  Every step is the same
+    :func:`decode_step` and :func:`greedy_token` the sequential engine
+    runs, so each live row's tokens and cache bytes are those of stepping
+    one token at a time.
+
+    Returns ``(caches, events)``, the caches written in place and the
+    events in tensors the program owns:
+
+      * ``tokens`` (B, H) int32: the token emitted at each step (a frozen
+        row repeats its last one; read the first ``n_emitted``);
+      * ``n_emitted`` (B,) int32: the valid tokens of row b;
+      * ``occupancy`` (H,) f32: the share of rows live at each step;
+      * ``buffer``: the three above as views of this one int32 tensor
+        (tokens, n_emitted, then occupancy's bits), which the host reads
+        back in one transfer.
+    """
+    b = tokens.shape[0]
+    buffer = torch.empty(b * horizon + b + horizon, dtype=torch.int32,
+                         device=tokens.device)
+    ys = buffer[:b * horizon].view(b, horizon)
+    n_emitted = buffer[b * horizon:b * horizon + b]
+    occupancy = buffer[b * horizon + b:].view(torch.float32)
+    tok = tokens[:, 0]
+    emitted = torch.zeros_like(budget)
+    live = budget > 0
+    for i in range(horizon):
+        logits, caches = decode_step(cfg, params, caches, tok[:, None],
+                                     live=live)
+        y = torch.where(live, greedy_token(cfg, logits[:, 0]), tok)
+        emitted = emitted + live.to(emitted.dtype)
+        occupancy[i] = live.float().mean()
+        ys[:, i] = y
+        next_live = live & (emitted < budget)
+        if eos_id is not None:
+            next_live &= y != eos_id
+        tok, live = y, next_live
+    n_emitted.copy_(emitted)
+    return caches, {"tokens": ys, "n_emitted": n_emitted,
+                    "occupancy": occupancy, "buffer": buffer}
+
+
+def verify_decode(cfg, params, caches, tokens):
+    """Speculative verify: score S = k+1 tokens in one program, accept the
+    longest greedy-matching draft prefix, roll the rejected state back.
+
+    tokens: (B, S) int32, per row the last accepted token then k drafts.
+    Returns ``(caches, ys (B, S) int32, n_new (B,) int32)``: row b's
+    accepted continuation is ``ys[b, :n_new[b]]``, and its cache (written
+    in place) holds exactly the state of having decoded those tokens one
+    at a time, ``pos`` advanced by ``n_new``.  Every candidate goes through
+    the same :func:`decode_step` the sequential engine runs, so its logits
+    are the sequential ones bit for bit.
+
+    The caches are written in place, so what rollback restores is copied
+    first: the attention KV leaves whole before the first step, and each
+    recurrent state leaf after every step (clones, never views of the live
+    state).  Rollback by leaf kind (``core.paging.leaf_kind``):
+      * dense KV (flat buffers; the speculative engine builds no ring):
+        slots >= ``pos0 + n_new`` get their pre-verify bytes back;
+      * paged KV: the rejected writes are restored through the block
+        table (:func:`~repro_torch.models.attention.rollback_paged_kv`);
+      * recurrent state: per row, the snapshot after step ``n_new - 1``.
+    """
+    b, s = tokens.shape
+    pos0 = caches["pos"].clone()
+    block_table = caches.get("block_table")
+    kv = [(path, leaf) for path, leaf in cache_leaves(caches)
+          if leaf_kind(path) == "kv"]
+    state = [(path, leaf) for path, leaf in cache_leaves(caches)
+             if leaf_kind(path) == "state"]
+    orig = [leaf.clone() for _, leaf in kv]
+    snaps = [torch.empty((s,) + leaf.shape, dtype=leaf.dtype,
+                         device=leaf.device) for _, leaf in state]
+    ys = torch.empty((b, s), dtype=torch.int32, device=tokens.device)
+    for i in range(s):
+        logits, caches = decode_step(cfg, params, caches, tokens[:, i:i + 1])
+        ys[:, i] = greedy_token(cfg, logits[:, 0])
+        for snap, (_, leaf) in zip(snaps, state):
+            snap[i].copy_(leaf)
+    # draft i+1 is accepted iff it equals the model's token at input i;
+    # +1 for the model's own token, always kept
+    match = (tokens[:, 1:] == ys[:, :-1]).to(torch.int32)
+    n_new = (1 + torch.cumprod(match, dim=1).sum(dim=1)).to(torch.int32)
+    pos_new = pos0 + n_new
+    for snap, (path, leaf) in zip(snaps, state):
+        # batch sits at leaf_axis + 1 of the (S, ...) stack
+        shape = [1] * snap.dim()
+        shape[leaf_axis(path) + 1] = b
+        idx = (n_new - 1).long().reshape(shape).expand(
+            (1,) + snap.shape[1:])
+        leaf.copy_(torch.gather(snap, 0, idx)[0])
+    if block_table is not None:
+        steps_ = torch.arange(s, device=tokens.device)
+        pos_cand = pos0[:, None] + steps_[None, :]
+        reject = steps_[None, :] >= n_new[:, None]
+        for (_, leaf), old in zip(kv, orig):
+            attn_mod.rollback_paged_kv(leaf, old, block_table, pos_cand,
+                                       reject)
+        # only mapped slots advance, as in sequential paged decode
+        caches["pos"].copy_(torch.where(block_table[:, 0] != -1, pos_new,
+                                        pos0))
+    else:
+        for (path, leaf), old in zip(kv, orig):
+            ba = leaf_axis(path)
+            c = leaf.shape[ba + 1]
+            keep = torch.arange(c, device=leaf.device)[None, :] \
+                < pos_new[:, None]
+            shape = [1] * leaf.dim()
+            shape[ba], shape[ba + 1] = b, c
+            leaf.copy_(torch.where(keep.reshape(shape), leaf, old))
+        caches["pos"].copy_(pos_new)
+    return caches, ys, n_new

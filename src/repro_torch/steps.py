@@ -24,7 +24,7 @@ def _index(value, device) -> torch.Tensor:
                            device=device).reshape(1)
 
 
-def make_prefill_slot_step(cfg, cache_len: int):
+def make_prefill_slot_step(cfg, cache_len: int, ring: bool = True):
     """prefill_slot(params, caches, tokens (1,S), slot, length) ->
     (caches, last).
 
@@ -35,11 +35,12 @@ def make_prefill_slot_step(cfg, cache_len: int):
     valid prompt position.  ``slot`` and ``length`` are int32 scalars on
     the device, as in the reference (``.at[slot].set``, ``jnp.take``), or
     Python ints; the rows are written and read through device indices, so
-    the program never reads them on the host."""
+    the program never reads them on the host.  ``ring=False`` matches the
+    full-length windowed buffers of the speculative engine."""
     def prefill_slot(params, caches, tokens, slot, length):
         slot = _index(slot, tokens.device).long()
         length = _index(length, tokens.device)
-        fresh = transformer.init_cache(cfg, 1, cache_len,
+        fresh = transformer.init_cache(cfg, 1, cache_len, ring=ring,
                                        device=tokens.device)
         logits, c1 = transformer.forward(
             cfg, params, tokens, mode="prefill", caches=fresh,
@@ -123,6 +124,37 @@ def make_serve_step(cfg):
     return serve_step
 
 
+def make_verify_step(cfg):
+    """verify(params, caches, tokens (B, k+1)) -> (caches, ys (B, k+1),
+    n_new (B,)).
+
+    One execution scores each row's last accepted token and k drafts,
+    accepts the longest greedy-matching prefix and leaves the cache rolled
+    back to exactly the accepted state
+    (:func:`~repro_torch.models.transformer.verify_decode`)."""
+    def verify_step(params, caches, tokens):
+        return transformer.verify_decode(cfg, params, caches, tokens)
+
+    return verify_step
+
+
+def make_decode_horizon_step(cfg, horizon: int, eos_id=None):
+    """decode_horizon(params, caches, tokens (B, 1), budget (B,)) ->
+    (caches, events).
+
+    ``horizon`` greedy decode steps in one execution, with the greedy
+    token fed back on the device and per-slot termination (EOS or an
+    exhausted budget) masked there
+    (:func:`~repro_torch.models.transformer.decode_horizon`); the host
+    reads the event buffer back once per horizon."""
+    def decode_horizon_step(params, caches, tokens, budget):
+        return transformer.decode_horizon(cfg, params, caches, tokens,
+                                          budget, horizon=horizon,
+                                          eos_id=eos_id)
+
+    return decode_horizon_step
+
+
 def serve_program_specs(cfg, config, params, caches
                         ) -> Dict[str, ProgramSpec]:
     """The serving programs for an :class:`EngineConfig`, bound to the
@@ -131,20 +163,31 @@ def serve_program_specs(cfg, config, params, caches
     tokens, the slot and the length) and ``decode`` (one greedy token for
     every slot; its input is the (batch, 1) tokens).  A paged config
     admits through :func:`make_paged_prefill_slot_step`; ``decode`` reads
-    the block table from the tree."""
+    the block table from the tree.
+
+    With ``config.spec`` a ``verify`` program scores ``spec.k`` drafts per
+    slot in one execution (its input: the (batch, k+1) tokens), and a
+    dense admission prefills flat windowed buffers (``ring=False``, as the
+    engine's caches then are: rollback needs a rejected write at an
+    absolute slot past the truncated ``pos``, never inside a live ring
+    window).  With ``config.horizon`` a ``decode_horizon`` program runs
+    ``horizon.length`` greedy steps in one execution (its inputs: the
+    (batch, 1) tokens and the (batch,) budgets), with ``config.eos_id``
+    as its in-graph EOS."""
     device = caches["pos"].device
     s = config.resolved_prefill_len
     prefill = (make_paged_prefill_slot_step(cfg, config.max_len,
                                             config.paging.kv_block)
                if config.paged else
-               make_prefill_slot_step(cfg, config.max_len))
+               make_prefill_slot_step(cfg, config.max_len,
+                                      ring=config.spec is None))
 
     def scalar(v):
         return torch.tensor(v, dtype=torch.int32, device=device)
 
     tokens = torch.zeros((1, s), dtype=torch.int32, device=device)
     token = torch.zeros((config.batch, 1), dtype=torch.int32, device=device)
-    return {
+    specs = {
         "prefill_slot": ProgramSpec(
             "prefill_slot", prefill,
             resident=(params, caches),
@@ -152,3 +195,18 @@ def serve_program_specs(cfg, config, params, caches
         "decode": ProgramSpec("decode", make_serve_step(cfg),
                               resident=(params, caches), inputs=(token,)),
     }
+    if config.spec is not None:
+        drafts = torch.zeros((config.batch, config.spec.k + 1),
+                             dtype=torch.int32, device=device)
+        specs["verify"] = ProgramSpec("verify", make_verify_step(cfg),
+                                      resident=(params, caches),
+                                      inputs=(drafts,))
+    if config.horizon is not None:
+        budget = torch.zeros((config.batch,), dtype=torch.int32,
+                             device=device)
+        specs["decode_horizon"] = ProgramSpec(
+            "decode_horizon",
+            make_decode_horizon_step(cfg, config.horizon.length,
+                                     config.eos_id),
+            resident=(params, caches), inputs=(token, budget))
+    return specs

@@ -245,11 +245,7 @@ def test_32_greedy_tokens_equal_reference():
 def test_unported_paths_raise():
     cfg = tregistry.get_config(ARCH, reduced=True)
     params = ttf.init_params(cfg, 0)
-    caches = ttf.init_cache(cfg, 1, 8)
     tok = torch.zeros((1, 1), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        ttf.decode_step(cfg, params, caches, tok,
-                        live=torch.ones(1, dtype=torch.bool))
     with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
         ttf.forward(cfg, params, tok, mode="train")
     with pytest.raises(NotImplementedError, match="item 8.5"):

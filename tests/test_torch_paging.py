@@ -250,10 +250,16 @@ def test_write_paged_kv_matches_reference(case):
     if case == "all_dropped":
         # every row dropped: the pager's blocks keep their bytes
         assert torch.equal(arena[:P], before[:P])
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tattn.write_paged_kv(arena, torch.from_numpy(TABLE),
-                             torch.from_numpy(pos), torch.from_numpy(val),
-                             live=torch.ones(4, dtype=torch.bool))
+    # a fused horizon's frozen rows (live False) drop as well
+    live = np.asarray([True, False, True, False])
+    want = np.asarray(jattn.write_paged_kv(
+        jnp.asarray(ref), jnp.asarray(TABLE), jnp.asarray(pos),
+        jnp.asarray(val), live=jnp.asarray(live)))
+    arena.copy_(before)
+    tattn.write_paged_kv(arena, torch.from_numpy(TABLE),
+                         torch.from_numpy(pos), torch.from_numpy(val),
+                         live=torch.from_numpy(live))
+    np.testing.assert_array_equal(arena[:P].numpy(), want)
 
 
 @pytest.mark.parametrize("seed", [0, 1])

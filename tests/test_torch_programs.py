@@ -9,8 +9,11 @@ bridged fp32 weights, at the model tolerance of the other port tests
 (rtol/atol 1e-4), leaving the other slot untouched bit for bit; a handle
 refuses a tree it is not bound to; the CPU report says no capture ran; a
 replay copies its inputs into the static buffers and adds the captured
-launches once; and K2's split-K scratch of a captured program is a table
-of its own, which a capture never grows.
+launches once; K2's split-K scratch of a captured program is a table of
+its own, which a capture never grows; and the engine config's ``spec``
+and ``horizon`` are validated and add the ``verify`` and
+``decode_horizon`` programs only when asked, a speculative engine's
+windowed caches flat.
 """
 import jax
 import jax.numpy as jnp
@@ -24,7 +27,8 @@ from repro.models import transformer as jtf
 from repro.sharding import make_rules
 from repro_torch import bridge, steps
 from repro_torch.core import syscore
-from repro_torch.engine_config import EngineConfig
+from repro_torch.engine_config import (EngineConfig, HorizonConfig,
+                                       PagingConfig, SpecConfig)
 from repro_torch.kernels import matmul as k2
 from repro_torch.kernels import ops
 from repro_torch.launch.serve import ServingEngine
@@ -204,3 +208,49 @@ def test_k2_scratch_of_a_program_is_its_own_and_never_grows_in_capture(
     capturing["now"] = False
     assert k2._scratch(cpu, 7, 1 << 21, 4)[0].numel() == 1 << 21
     assert table[(None, 7)][0] is ws                 # the program's: kept
+
+
+def test_spec_and_horizon_configs_validate():
+    assert (SpecConfig().k, SpecConfig().ngram, HorizonConfig().length) == \
+        (3, 2, 4)
+    for bad in (lambda: SpecConfig(k=0), lambda: SpecConfig(ngram=0),
+                lambda: HorizonConfig(length=1)):
+        with pytest.raises(ValueError):
+            bad()
+    with pytest.raises(ValueError, match="speculative"):
+        EngineConfig(spec=SpecConfig(), group_prefill=True)
+    cfg = EngineConfig(spec=SpecConfig(k=5), horizon=HorizonConfig(16))
+    assert (cfg.spec_k, cfg.horizon_length) == (5, 16)
+    assert (EngineConfig().spec_k, EngineConfig().horizon_length) == \
+        (None, None)
+
+
+@pytest.mark.parametrize("spec,horizon,paged", [
+    (None, None, False), (SpecConfig(k=2), None, False),
+    (None, HorizonConfig(3), True), (SpecConfig(k=2), HorizonConfig(3), True)])
+def test_serve_program_specs_add_verify_and_horizon_only_when_asked(
+        spec, horizon, paged):
+    tcfg = tregistry.get_config("recurrentgemma-2b", reduced=True)
+    eng = ServingEngine("recurrentgemma-2b", EngineConfig(
+        batch=2, max_len=CACHE_LEN, prefill_len=PREFILL_LEN, clock="step",
+        device="cpu", spec=spec, horizon=horizon,
+        paging=PagingConfig(kv_block=8) if paged else None))
+    specs = steps.serve_program_specs(tcfg, eng.config, eng.params,
+                                      eng.caches)
+    want = {"prefill_slot", "decode"} | ({"verify"} if spec else set()) \
+        | ({"decode_horizon"} if horizon else set())
+    assert set(specs) == want == set(eng.programs)
+    if spec:
+        assert tuple(specs["verify"].inputs[0].shape) == (2, spec.k + 1)
+    if horizon:
+        assert [tuple(t.shape) for t in specs["decode_horizon"].inputs] == \
+            [(2, 1), (2,)]
+    if not paged:
+        # the "L" layer (window 8): a ring of 8 slots, flat with spec
+        attn = eng.caches["groups"]["slot2"]["k"]
+        assert attn.shape[2] == (CACHE_LEN if spec else tcfg.local_window)
+    eng.submit(np.arange(1, 12), max_new=6)
+    stats = eng.run()
+    assert stats["requests"] == 1
+    assert ("spec_steps" in stats) == bool(spec)
+    assert ("horizon_steps" in stats) == bool(horizon)
