@@ -31,7 +31,16 @@ and the script exits non-zero:
             times (library: ``scaled_dot_product_attention``); at head dim
             256 (recurrentgemma's MQA, 10 heads over 1) every case is
             timed; every bf16 case's heads at batch 1 must equal the same
-            heads inside the batch-2 call, bit for bit;
+            heads inside the batch-2 call, bit for bit; then queries from
+            a start on the device (``q_start``, a warm prefix admission's
+            suffix over 512 keys) on both routes, bf16 at D 128 and 256
+            and f32, Sq 1, 7 and 16, window 0 and 64, starts 0, 200 and
+            right-aligned, each against the plain version with the same
+            start;
+            the rows of a warm call (Sq 16 from 200) must equal the same
+            rows of the cold call (Sq = Sk = 216) bit for bit on each
+            route; the warm shapes of phase 16 timed (library: SDPA with
+            the boolean mask);
 5. moe_ffn  K3 against ``moe_ffn_ref`` at the olmoe shapes (C = 1, 4, 37,
             40), small ragged shapes, and with per-expert row counts that
             leave experts empty, bf16 and f32, each naming its route (the
@@ -139,7 +148,34 @@ and the script exits non-zero:
             steps', capture time and graph pool.  Last, qwen3-0.6b's
             engine with both (``spec`` and ``horizon``), whose steps
             without a draft fall back to fused horizons: streams and
-            launches as above.
+            launches as above;
+16. serve_prefix  prefix sharing (``PrefixConfig``) on the paged arena at
+            full width in bf16, on phase 8-11's params: first
+            ``benchmarks/bench_prefix.py``'s workload on qwen3-0.6b (a
+            257-token popular prompt, kv_block 8, max_suffix 1, batch 2,
+            max_len 320, prefill_len 264; one cold request, then 4 warm
+            ones): every stream must equal the batch-1 reference of that
+            geometry, every shared block be mapped by >= 2 requests,
+            launches be exact, the ``prefill_offset`` graph equal its
+            eager function and its last logits equal the reference's cold
+            ``prefill_slot`` logits bit for bit; warm and cold TTFT are
+            reported with their ratio (not a limit).  Then
+            ``tests/test_prefix.py``'s sharing workload at kv_block 8
+            (max_suffix 16, max_len 64, prefill_len 32) on qwen3-0.6b in
+            plain, speculative (k 3) and horizon (H 16) modes and on
+            recurrentgemma-2b and olmoe-1b-7b in plain mode (tier 2: a
+            full prefill over the shared blocks): streams equal to the
+            reference, qwen3 >= 3 warm admissions, tier 2 none and >= 3
+            prefix admissions, ``check_invariants()``, exact launches,
+            hostcall 10 once a prefix admission, and every resident
+            shared block equal to its ``PrefixStore`` copy;
+17. serve_burst  burst admission (``group_prefill=True``) at full width on
+            qwen3-0.6b and mamba2-130m, batch 4: 4 requests at step 0,
+            then 4 that refill freed slots one by one; ``prefill`` must run
+            once, streams equal ``reference_generate``, launches be exact,
+            every K1 and K4 call take the wgmma route and the ``prefill``
+            replay equal its eager function; the burst's admission ms is
+            reported beside 4 ``prefill_slot`` admissions'.
 
 Then a ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.  The full record is also written to
@@ -187,6 +223,8 @@ PAGED_BLOCK, PAGED_ARENA, PAGED_TIMESLICE = 8, 128, 8
 # random tokens and the model's own 56-token continuation
 HORIZON, HORIZON_MAX_NEW = 16, 48
 SPEC_K, SPEC_NGRAM, SPEC_WARM, SPEC_MAX_NEW = 3, 2, 56, 48
+# phase 16's sharing workload: new tokens a request
+PREFIX_MAX_NEW = 12
 
 RECORD = {"phases": []}
 
@@ -889,6 +927,103 @@ def main():
                                              f"batch 1 differ from batch 2: "
                                              f"{row}")
                 checks.append(row)
+        # q_start: the queries from a start on the device (a warm prefix
+        # admission's suffix over its slot's gathered row, Sk = MAX_LEN),
+        # on both routes, each case against the plain version with the
+        # same start
+        qs_cases = [(heads, kv_heads, hd, "bfloat16"),
+                    (rg_h, rg_kv, rg_hd, "bfloat16"),
+                    (heads, kv_heads, hd, "float32")]
+        qs_checks = []
+        sk = MAX_LEN
+        for h, kv, d, dname in qs_cases:
+            dt, tol = dtypes[dname], FLASH_TOL[dname]
+            for sq in (1, 7, 16):
+                for window in (0, 64):
+                    for start in (200, 0, sk - sq):
+                        q = randn((h, sq, d), dt)
+                        k = randn((kv, sk, d), dt)
+                        v = randn((kv, sk, d), dt)
+                        st = torch.tensor([start], dtype=torch.int32,
+                                          device=dev)
+                        before = dict(flash_attention.launches_by_route)
+                        got = flash_attention(q, k, v, window=window,
+                                              q_start=st)
+                        took = [r for r, n in flash_attention
+                                .launches_by_route.items() if n != before[r]]
+                        want = flash_attention_ref(q, k, v, window=window,
+                                                   q_start=st)
+                        torch.cuda.synchronize()
+                        viol, err = max_violation(got, want, tol)
+                        row = {"dtype": dname, "H": h, "Hk": kv, "D": d,
+                               "window": window, "Sq": sq, "Sk": sk,
+                               "q_start": start, "route": took,
+                               "max_abs_err": err, "tol": tol}
+                        if viol > 0 or took != [fa_route(dt, d)]:
+                            raise AssertionError(f"flash_attention with "
+                                                 f"q_start: {row}")
+                        qs_checks.append(row)
+        # the design's proof: the rows of a warm call (Sq 16 from q_start
+        # 200 over 512 keys, the first 216 the cold call's, the rest other
+        # finite values) equal the same rows of the cold call (Sq = Sk =
+        # 216, right-aligned) bit for bit, on both routes
+        warm_cold = []
+        for h, kv, d, dname in qs_cases:
+            dt = dtypes[dname]
+            start, sq, cold_s = 200, 16, 216
+            for window in (0, 64):
+                q = randn((h, cold_s, d), dt)
+                k = randn((kv, cold_s, d), dt)
+                v = randn((kv, cold_s, d), dt)
+                k_warm = torch.cat([k, randn((kv, sk - cold_s, d), dt)], 1)
+                v_warm = torch.cat([v, randn((kv, sk - cold_s, d), dt)], 1)
+                cold = flash_attention(q, k, v, window=window)
+                warm = flash_attention(
+                    q[:, start:].contiguous(), k_warm, v_warm, window=window,
+                    q_start=torch.tensor([start], dtype=torch.int32,
+                                         device=dev))
+                row = {"dtype": dname, "H": h, "Hk": kv, "D": d,
+                       "window": window, "q_start": start, "Sq": sq,
+                       "Sk": sk, "cold_S": cold_s,
+                       "route": fa_route(dt, d),
+                       "bit_equal": torch.equal(cold[:, start:], warm)}
+                if not row["bit_equal"]:
+                    raise AssertionError(f"flash_attention: warm rows differ "
+                                         f"from the cold call's: {row}")
+                warm_cold.append(row)
+        # times at the warm shapes: phase 16's (one suffix token at 256
+        # over max_len 320) and the proof's (16 rows from 200 over 512),
+        # SDPA given the same boolean mask as the yardstick; the bound
+        # counts the keys the causal rows need
+        for key, sq, sk_w, start in (("warm_bench", 1, 320, 256),
+                                     ("warm", 16, MAX_LEN, 200)):
+            q = randn((heads, sq, hd), torch.bfloat16)
+            k = randn((kv_heads, sk_w, hd), torch.bfloat16)
+            v = randn((kv_heads, sk_w, hd), torch.bfloat16)
+            st = torch.tensor([start], dtype=torch.int32, device=dev)
+            q_pos = torch.arange(sq, device=dev)[:, None] + start
+            mask = q_pos >= torch.arange(sk_w, device=dev)[None, :]
+            qs = q[None]
+            ks = k.repeat_interleave(heads // kv_heads, 0)[None]
+            vs = v.repeat_interleave(heads // kv_heads, 0)[None]
+            ms = cuda_ms(torch, lambda: flash_attention(q, k, v, q_start=st),
+                         iters=50)
+            plain = cuda_ms(torch, lambda: flash_attention_ref(
+                q, k, v, q_start=st), iters=50)
+            lib = cuda_ms(torch, lambda: torch.nn.functional
+                          .scaled_dot_product_attention(qs, ks, vs,
+                                                        attn_mask=mask),
+                          iters=50)
+            needed = min(sk_w, start + sq)
+            b_ms, b_by = bound_ms((2 * heads * sq + 2 * kv_heads * needed)
+                                  * hd * 2,
+                                  4 * hd * int(mask.sum()) * heads,
+                                  "bfloat16")
+            fa[key] = {"dtype": "bfloat16", "H": heads, "Hk": kv_heads,
+                       "D": hd, "Sq": sq, "Sk": sk_w, "q_start": start,
+                       "route": fa_route(torch.bfloat16, hd), "ms": ms,
+                       "plain_ms": plain, "library_ms": lib,
+                       "bound_ms": b_ms, "bound_by": b_by}
         # times at the paths' shapes: one layer's prefill of one admission
         # (bf16 and f32 for qwen3, bf16 for olmoe)
         d, s = hd, PREFILL_LEN
@@ -964,14 +1099,25 @@ def main():
         out["timed_head_dim_256"] = fa_rg
         out["bits_equal_B1_B2"] = all(c["bits_equal_B1_B2"] for c in checks
                                       if "bits_equal_B1_B2" in c)
+        out["q_start_checks"] = len(qs_checks)
+        out["q_start_max_abs_err"] = max(c["max_abs_err"] for c in qs_checks)
+        out["q_start_detail"] = qs_checks
+        out["warm_equals_cold"] = warm_cold
+        for c in warm_cold:
+            emit({"flash_attention_warm_vs_cold": c})
+        for key in ("warm_bench", "warm"):
+            emit({f"flash_attention_{key}": {
+                k: (round(v, 6) if isinstance(v, float) else v)
+                for k, v in fa[key].items()}})
         for c in checks:
             emit({"flash_attention": {key: (round(v, 6) if isinstance(
                 v, float) else v) for key, v in c.items()}})
         for c in fa_rg:
             emit({"flash_attention_d256": {key: (round(v, 6) if isinstance(
                 v, float) else v) for key, v in c.items()}})
-    flash_err = out["max_abs_err"]
+    flash_err = max(out["max_abs_err"], out["q_start_max_abs_err"])
     flash_bits = out["bits_equal_B1_B2"]
+    flash_warm_cold = out["warm_equals_cold"]
 
     # -- 5. K3 moe_ffn ---------------------------------------------------
     moe_e, moe_f = moe.n_experts, moe.d_ff
@@ -1925,9 +2071,9 @@ def main():
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
-        eng = ServingEngine(arch, EngineConfig(
+        eng = ServingEngine(arch, EngineConfig(**dict(dict(
             reduced=False, batch=BATCH, max_len=MAX_LEN,
-            prefill_len=PREFILL_LEN, clock="step", **kw), device="cuda",
+            prefill_len=PREFILL_LEN, clock="step"), **kw)), device="cuda",
             params=served[arch].params)
         torch.cuda.synchronize()
         boot_s = time.perf_counter() - t0
@@ -2435,6 +2581,378 @@ def main():
         serve_spec_horizon(out["qwen3-0.6b/spec+horizon"], "qwen3-0.6b",
                            qwen_prompts)
 
+    # -- 16-17. prefix sharing and burst admission ------------------------
+    from repro_torch.engine_config import PrefixConfig
+
+    def reference_streams(arch, prompts, max_new, max_len, prefill_len):
+        """Each prompt through a batch-1 dense engine of this geometry on
+        phase 8-11's params: what ``reference_generate`` of an engine of
+        that ``max_len`` and ``prefill_len`` runs (built once for all the
+        engines of one geometry)."""
+        ref = ServingEngine(arch, EngineConfig(
+            reduced=False, batch=1, max_len=max_len, prefill_len=prefill_len,
+            clock="step"), device="cuda", params=served[arch].params)
+        streams = []
+        for p in prompts:
+            req = ref.submit(p, max_new)
+            ref.run()
+            ref.drain_completed()
+            streams.append(req.generated)
+        return ref, streams
+
+    def offset_vs_eager(eng, prompt, offset, slot=0):
+        """One ``prefill_offset`` replay against its eager function on a
+        clone of the same caches, the slot mapped through the pager by a
+        fake rid with ``prompt``'s published head: the last logits and
+        every cache leaf (the arena without its sink) must be bit-equal.
+        Returns the replay's last logits; the caches and the pager are
+        restored."""
+        shared = eng.pager.match_prefix(prompt)
+        n = eng._blocks_needed(len(prompt), 1)
+        eng.caches = eng.pager.admit(-1, n, slot, eng.caches, shared=shared)
+        tokens = torch.zeros((1, eng.prefix_suffix), dtype=torch.int32)
+        tokens[0, :len(prompt) - offset] = torch.from_numpy(
+            np.asarray(prompt[offset:], np.int32))
+        tokens = tokens.to(dev)
+        backup = clone_tree(eng.caches)
+        prog = eng.programs["prefill_offset"]
+        _, last = prog(eng.params, eng.caches, tokens, slot, offset,
+                       len(prompt))
+        last = last.clone()
+        eager = clone_tree(backup)
+        _, last_e = prog.program.fn(eng.params, eager, tokens, slot, offset,
+                                    len(prompt))
+        diffs = [f"cache {p}" for p in tree_diffs(
+            torch, without_sink(eng.caches), without_sink(eager))]
+        if not torch.equal(last, last_e):
+            diffs.append("last logits")
+        copy_tree(eng.caches, backup)
+        eng.caches = eng.pager.release(-1, slot, eng.caches)
+        eng.pager.check_invariants()
+        torch.cuda.synchronize()
+        if diffs:
+            raise AssertionError(f"{eng.arch}: the prefill_offset replay and "
+                                 f"its eager function differ: {diffs[:8]}")
+        return last
+
+    def serve_prefix_bench(out):
+        """``benchmarks/bench_prefix.py``'s workload at full width on
+        qwen3-0.6b: a 257-token popular prompt, kv_block 8 (32 shared
+        blocks, a 1-token suffix), max_suffix 1, batch 2; one cold request,
+        then 4 warm ones, after an untimed cold + warm pair on another
+        prompt.  Streams against the batch-1 reference of this geometry,
+        every shared block mapped by >= 2 requests, launches exact, the
+        prefill_offset replay == eager, and its last logits == the
+        reference's cold prefill_slot logits at the same position, bit for
+        bit."""
+        arch, max_len, plen, prefill_len, n_warm = "qwen3-0.6b", 320, 257, \
+            264, 4
+        eng, info = boot(arch, batch=2, max_len=max_len,
+                         prefill_len=prefill_len,
+                         paging=PagingConfig(kv_block=PAGED_BLOCK),
+                         prefix=PrefixConfig(max_suffix=1))
+        if not eng._prefix_tier1:
+            raise AssertionError(f"{arch} does not take the warm path")
+        rng = np.random.default_rng(0)
+        warmup = rng.integers(1, eng.cfg.vocab_size, size=plen)
+        base = rng.integers(1, eng.cfg.vocab_size, size=plen)
+        for p in (warmup, warmup.copy()):
+            eng.submit(p, max_new=2)
+            eng.run()
+        ops.reset_launch_counts()
+        reqs, runs = [], []
+        for p in [base] + [base.copy() for _ in range(n_warm)]:
+            req = eng.submit(p, max_new=4)
+            runs.append(eng.run())
+            reqs.append(req)
+        launches, routes = ops.launch_counts(), ops.route_counts()
+        stats = {k: sum(r[k] for r in runs)
+                 for k in ("decode_steps", "admitted", "warm_admissions",
+                           "prefix_admissions", "prefix_tokens_reused")}
+        check_launches(f"{arch}/prefix/bench", qwen_pass, stats, launches,
+                       routes, {})
+        shared_blocks = (plen - 1) // PAGED_BLOCK
+        if stats["warm_admissions"] != n_warm:
+            raise AssertionError(f"{arch}: {stats} warm admissions, not "
+                                 f"{n_warm}")
+        popular = [sb for sb in eng.pager._shared.values() if sb.hits >= 2]
+        if len(popular) < shared_blocks:
+            raise AssertionError(f"{len(popular)} shared blocks mapped by >= "
+                                 f"2 requests, not {shared_blocks}")
+        ref, want = reference_streams(arch, [base], 4, max_len, prefill_len)
+        if any(r.generated != want[0] for r in reqs):
+            RECORD.setdefault("stream_mismatch", {})[f"{arch}/prefix"] = [
+                r.generated for r in reqs] + want
+            raise AssertionError(f"{arch}: a prefix stream differs from the "
+                                 f"cold reference: "
+                                 f"{[r.generated for r in reqs]} vs {want}")
+        eng.pager.check_invariants()
+        prog = eng.syscore.report()["programs"]["prefill_offset"]
+        if prog["source"] != "cuda_graph":
+            raise AssertionError(f"prefill_offset is not a graph: {prog}")
+        offset = shared_blocks * PAGED_BLOCK
+        last = offset_vs_eager(eng, base, offset)
+        # the engine-level proof: the warm suffix's logits are the cold
+        # prefill's at the same position, bit for bit
+        prompt = torch.zeros((1, prefill_len), dtype=torch.int32)
+        prompt[0, :plen] = torch.from_numpy(base.astype(np.int32))
+        _, cold_last = ref.programs["prefill_slot"](
+            ref.params, ref.caches, prompt.to(dev), 0, plen)
+        if not torch.equal(last, cold_last):
+            raise AssertionError(f"{arch}: warm last logits differ from the "
+                                 f"cold prefill's (max abs "
+                                 f"{float((last.float() - cold_last.float()).abs().max())})")
+        # a warm and a cold admission's replays on the host clock with a
+        # sync (median of 5), the caches restored after each
+        shared = eng.pager.match_prefix(base)
+        eng.caches = eng.pager.admit(-1, eng._blocks_needed(plen, 1), 0,
+                                     eng.caches, shared=shared)
+        suffix = torch.zeros((1, 1), dtype=torch.int32)
+        suffix[0, 0] = int(base[offset])
+        suffix = suffix.to(dev)
+        backup = clone_tree(eng.caches)
+        prompt = prompt.to(dev)
+        calls = {"warm": lambda: eng.programs["prefill_offset"](
+                     eng.params, eng.caches, suffix, 0, offset, plen),
+                 "cold": lambda: eng.programs["prefill_slot"](
+                     eng.params, eng.caches, prompt, 0, plen)}
+        warm_ms = median_wall_ms(torch, calls["warm"], 5)
+        cold_ms = median_wall_ms(torch, calls["cold"], 5)
+        # where each replay's device time goes (the profiler last)
+        timed = {k: time_calls(torch, c, 5) for k, c in calls.items()}
+        profiles = {k: profile_calls(torch, c, 3, timed[k])
+                    for k, c in calls.items()}
+        copy_tree(eng.caches, backup)
+        eng.caches = eng.pager.release(-1, 0, eng.caches)
+        eng.pager.check_invariants()
+        cold_ttft = reqs[0].ttft_s * 1e3
+        warm_ttft = [r.ttft_s * 1e3 for r in reqs[1:]]
+        rep = eng.pager.report()["prefix"]
+        out.update(
+            model=arch, batch=2, max_len=max_len, prefill_len=prefill_len,
+            prompt_len=plen, kv_block=PAGED_BLOCK, max_suffix=1,
+            shared_blocks=shared_blocks, warm_requests=n_warm, boot=info,
+            ttft_cold_ms=cold_ttft, ttft_warm_ms=warm_ttft,
+            ttft_warm_over_cold=min(warm_ttft) / cold_ttft,
+            replay_wall_ms={"prefill_offset": warm_ms,
+                            "prefill_slot": cold_ms,
+                            "ratio": warm_ms / cold_ms},
+            replay_profile={"prefill_offset": profiles["warm"],
+                            "prefill_slot": profiles["cold"]},
+            popular_blocks=len(popular), prefix=rep, **stats,
+            launches=launches, graph_equals_eager=True,
+            warm_last_equals_cold_prefill=True,
+            streams_equal_reference=True, card=smi)
+        print(f"{arch} prefix bench: TTFT cold {cold_ttft:.3f} ms, warm "
+              f"{min(warm_ttft):.3f} ms ({min(warm_ttft) / cold_ttft:.3f}x); "
+              f"replays {warm_ms:.3f} / {cold_ms:.3f} ms; prefill_offset "
+              f"capture {info['programs']['prefill_offset']['compile_s']:.3f}"
+              f" s, graph pool "
+              f"{info['programs']['prefill_offset']['graph_pool_mib']:.1f} "
+              f"MiB", flush=True)
+        del eng, ref
+
+    def sharing_workload():
+        """``tests/test_prefix.py``'s prompts at kv_block 8 (lengths x2): a
+        cold base, a repeat (warm), two divergences inside the warm suffix
+        window, one long-suffix divergence (tier 2), a fresh prompt."""
+        rng = np.random.default_rng(0)
+        base = rng.integers(1, 500, size=24)
+        fresh = rng.integers(1, 500, size=20)
+        alt = rng.integers(1, 500, size=32)
+        return [base, base.copy(), np.concatenate([base[:18], alt[:6]]),
+                np.concatenate([base[:16], alt[:14]]),
+                np.concatenate([base[:8], alt[:20]]), fresh]
+
+    def serve_prefix_matrix(out, arch, mode, per_pass, want):
+        """The sharing workload through one full-width prefix engine (batch
+        2, max_len 64, prefill_len 32, kv_block 8, max_suffix 16) in
+        ``mode``: streams against ``want`` (the batch-1 reference),
+        warm / tier-2 counts, invariants, launches exact (a
+        ``prefill_offset`` counts as an admission: the same K2 products and
+        one K1 per layer), hostcall 10 per prefix admission, and after the
+        speculative run every resident shared block equal to its store
+        copy."""
+        name = f"{arch}/prefix/{mode}"
+        kw = {"spec": SpecConfig(k=SPEC_K, ngram=SPEC_NGRAM)} \
+            if mode == "spec" else \
+            {"horizon": HorizonConfig(HORIZON)} if mode == "horizon" else {}
+        eng, info = boot(arch, batch=2, max_len=64, prefill_len=32,
+                         paging=PagingConfig(kv_block=PAGED_BLOCK),
+                         prefix=PrefixConfig(), **kw)
+        prompts = sharing_workload()
+        reqs, stats, launches, routes = serve_counted(
+            eng, [(p, PREFIX_MAX_NEW, 0.0) for p in prompts])
+        fused = {"spec": {"spec_steps": SPEC_K + 1},
+                 "horizon": {"horizon_steps": HORIZON}}.get(mode, {})
+        check_launches(name, per_pass, stats, launches, routes, fused)
+        got = [r.generated for r in reqs]
+        if got != want:
+            RECORD.setdefault("stream_mismatch", {})[name] = {
+                "engine": got, "reference": want}
+            raise AssertionError(f"{name}: streams differ from the "
+                                 f"reference: {got} vs {want}")
+        eng.pager.check_invariants()
+        if eng._prefix_tier1:
+            if stats["warm_admissions"] < 3:
+                raise AssertionError(f"{name}: {stats}")
+            warm_runs = eng.programs["prefill_offset"].stats.executions
+            if warm_runs != stats["warm_admissions"]:
+                raise AssertionError(f"{name}: {warm_runs} prefill_offset "
+                                     f"runs for {stats}")
+        elif stats["warm_admissions"] != 0 or \
+                stats["prefix_admissions"] < 3:
+            raise AssertionError(f"{name}: tier 2 expected: {stats}")
+        hits = eng.syscore.report()["hostcalls"]["metrics"].get(10, {})
+        if hits.get("count", 0) != stats["prefix_admissions"]:
+            raise AssertionError(f"{name}: {hits} prefix-hit metrics for "
+                                 f"{stats['prefix_admissions']} admissions")
+        intact = 0
+        for sb in eng.pager._shared.values():
+            if sb.phys is None:
+                continue
+            live = [leaf.index_select(leaf_axis(path), torch.tensor(
+                [sb.phys], device=dev)).cpu()
+                for path, leaf in cache_leaves(eng.caches)
+                if leaf_kind(path) == "kv"]
+            if not all(torch.equal(a, b) for a, b in zip(
+                    live, eng.prefix_store.get(sb.key))):
+                raise AssertionError(f"{name}: shared block {sb.key} differs "
+                                     f"from its store copy")
+            intact += 1
+        if not eng._prefix_tier1:
+            # a tier-2 admission (the base prompt over its published head)
+            # beside the same prompt unshared, the same program either way:
+            # replays on the host clock with a sync, median of 5
+            base = prompts[0]
+            tokens = torch.zeros((1, 32), dtype=torch.int32)
+            tokens[0, :len(base)] = torch.from_numpy(base.astype(np.int32))
+            tokens = tokens.to(dev)
+
+            def admit_ms(shared):
+                eng.caches = eng.pager.admit(
+                    -1, eng._blocks_needed(len(base), 1), 0, eng.caches,
+                    shared=shared)
+                backup = clone_tree(eng.caches)
+                ms = median_wall_ms(torch, lambda: eng.programs[
+                    "prefill_slot"](eng.params, eng.caches, tokens, 0,
+                                    len(base)), 5)
+                copy_tree(eng.caches, backup)
+                eng.caches = eng.pager.release(-1, 0, eng.caches)
+                return ms
+            out["tier2_admission_ms"] = {
+                "shared_head": admit_ms(eng.pager.match_prefix(base)),
+                "unshared": admit_ms([])}
+            eng.pager.check_invariants()
+        out.update(model=arch, mode=mode, boot=info,
+                   **{k: stats[k] for k in (
+                       "prefix_admissions", "warm_admissions",
+                       "prefix_tokens_reused", "decode_steps", "admitted",
+                       "tok_per_s")},
+                   horizon_steps=stats.get("horizon_steps"),
+                   spec_steps=stats.get("spec_steps"),
+                   prefix=eng.pager.report()["prefix"],
+                   shared_blocks_equal_store=intact, invariants=True,
+                   streams_equal_reference=True, card=smi)
+        print(f"{name}: {stats['prefix_admissions']} prefix admissions, "
+              f"{stats['warm_admissions']} warm, "
+              f"{stats['prefix_tokens_reused']} tokens reused", flush=True)
+        del eng
+
+    with phase("serve_prefix") as out:
+        out["bench"] = {}
+        serve_prefix_bench(out["bench"])
+        for arch, modes in (("qwen3-0.6b", ("plain", "spec", "horizon")),
+                            ("recurrentgemma-2b", ("plain",)),
+                            ("olmoe-1b-7b", ("plain",))):
+            _, want = reference_streams(arch, sharing_workload(),
+                                        PREFIX_MAX_NEW, 64, 32)
+            for mode in modes:
+                out[f"{arch}/{mode}"] = {}
+                serve_prefix_matrix(out[f"{arch}/{mode}"], arch, mode,
+                                    serve_passes[arch], want)
+            gc.collect()
+
+    def serve_burst(out, arch, per_pass):
+        """Burst admission at full width (batch 4, max_len 512): 4 requests
+        at step 0 with budgets that end one at a time, then 4 more that
+        refill the freed slots one by one.  ``prefill`` must run once,
+        every stream equal ``reference_generate``, launches be exact (a
+        burst counts as one admission's launches: K2 at M = 4 x 256 and
+        one K1 or K4 per layer over 4 rows), every K1 and K4 call take the
+        wgmma route, and a ``prefill`` replay equal its eager function."""
+        eng, info = boot(arch, group_prefill=True)
+        rng = np.random.default_rng(8)
+        work = [(rng.integers(1, eng.cfg.vocab_size, size=int(n)), int(m), a)
+                for n, m, a in zip((200, 57, 120, 31, 90, 16, 140, 64),
+                                   (8, 14, 20, 26, 12, 12, 12, 12),
+                                   (0, 0, 0, 0, 1, 2, 3, 4))]
+        reqs, stats, launches, routes = serve_counted(eng, work)
+        progs = eng.syscore.report()["programs"]
+        if progs["prefill"]["executions"] != 1 or \
+                progs["prefill_slot"]["executions"] != 4:
+            raise AssertionError(f"{arch}: prefill ran "
+                                 f"{progs['prefill']['executions']} times, "
+                                 f"prefill_slot "
+                                 f"{progs['prefill_slot']['executions']}")
+        # the burst placed 4 requests with one program's launches
+        counted = dict(stats, admitted=stats["admitted"] - 3)
+        check_launches(f"{arch}/burst", per_pass, counted, launches, routes,
+                       {})
+        ref_eng = served[arch]
+        mism = [r.rid for r in reqs if r.generated !=
+                ref_eng.reference_generate(r.prompt, r.max_new)]
+        if mism:
+            raise AssertionError(f"{arch}: burst streams {mism} differ from "
+                                 f"reference_generate")
+        # the prefill replay against its eager function, and its time
+        # beside 4 prefill_slot replays of the same prompts
+        tokens = torch.zeros((BATCH, PREFILL_LEN), dtype=torch.int32)
+        lens = [len(p) for p, _, _ in work[:BATCH]]
+        for i, (p, _, _) in enumerate(work[:BATCH]):
+            tokens[i, :len(p)] = torch.from_numpy(p.astype(np.int32))
+        tokens = tokens.to(dev)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        backup = clone_tree(eng.caches)
+        prog = eng.programs["prefill"]
+        _, last = prog(eng.params, eng.caches, tokens, lengths)
+        last = last.clone()
+        eager = clone_tree(backup)
+        _, last_e = prog.program.fn(eng.params, eager, tokens, lengths)
+        diffs = [f"cache {p}" for p in tree_diffs(torch, eng.caches, eager)]
+        if not torch.equal(last, last_e):
+            diffs.append("last logits")
+        if diffs:
+            raise AssertionError(f"{arch}: the prefill replay and its eager "
+                                 f"function differ: {diffs[:8]}")
+        burst_ms = median_wall_ms(torch, lambda: prog(
+            eng.params, eng.caches, tokens, lengths), 5)
+        slot_prog = eng.programs["prefill_slot"]
+
+        def four():
+            for i in range(BATCH):
+                slot_prog(eng.params, eng.caches, tokens[i:i + 1], i,
+                          lens[i])
+        slots_ms = median_wall_ms(torch, four, 5)
+        copy_tree(eng.caches, backup)
+        out.update(model=arch, batch=BATCH, boot=info, requests=len(reqs),
+                   **{k: stats[k] for k in ("decode_steps", "admitted",
+                                            "refill_admissions",
+                                            "tok_per_s")},
+                   prefill_executions=1, launches=launches,
+                   burst_admission_ms=burst_ms,
+                   four_prefill_slot_ms=slots_ms,
+                   graph_equals_eager=True, streams_equal_reference=True,
+                   card=smi)
+        print(f"{arch} burst: prefill of {BATCH} {burst_ms:.3f} ms, "
+              f"4 prefill_slot {slots_ms:.3f} ms", flush=True)
+        del eng
+
+    with phase("serve_burst") as out:
+        for arch in ("qwen3-0.6b", "mamba2-130m"):
+            out[arch] = {}
+            serve_burst(out[arch], arch, serve_passes[arch])
+
     def total(name):
         return sum(path[name] for path in path_launches.values())
 
@@ -2476,6 +2994,8 @@ def main():
                 f"H={heads}, Hk={kv_heads}, D={hd}",
          "olmoe": fa["olmoe"], "recurrentgemma": fa["recurrentgemma"],
          "recurrentgemma_float32": fa["recurrentgemma_float32"],
+         "warm": fa["warm"], "warm_bench": fa["warm_bench"],
+         "warm_rows_equal_cold": flash_warm_cold,
          "bits_equal_B1_B2": flash_bits, "build": k1_build},
         {"name": "matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/matmul.cu",

@@ -1,15 +1,16 @@
 """Typed serving-engine configuration: the reference's ``EngineConfig``
 (``repro/engine_config.py``) as far as the port carries it, plus
-``device``: the dense fields, ``paging`` (:class:`PagingConfig`, the
-paged KV arena of :mod:`repro_torch.core.paging`), ``spec``
-(:class:`SpecConfig`, speculative decoding) and ``horizon``
+``device``: the dense fields, burst admission (``group_prefill``: a
+whole-batch ``prefill`` program), ``paging`` (:class:`PagingConfig`, the
+paged KV arena of :mod:`repro_torch.core.paging`), ``prefix``
+(:class:`PrefixConfig`, cross-request prefix sharing over that arena),
+``spec`` (:class:`SpecConfig`, speculative decoding) and ``horizon``
 (:class:`HorizonConfig`, fused decode horizons).
 
-Prefix sharing and sharding are not ported yet (ROADMAP Queue 1 items 7
-and 13); the config has no field for them, so asking for one fails at
-construction.  Burst admission (``group_prefill=True``) is not ported yet
-either and raises; with ``paging`` or ``spec`` it raises as in the
-reference, which cannot combine them.
+Sharding is not ported yet (ROADMAP Queue 1 item 13); the config has no
+field for it, so asking for one fails at construction.
+``group_prefill`` with ``paging`` or ``spec`` raises as in the reference,
+which cannot combine them.
 """
 from __future__ import annotations
 
@@ -46,6 +47,32 @@ class PagingConfig:
         assert max_len % self.kv_block == 0, (max_len, self.kv_block)
         return (self.arena_blocks if self.arena_blocks is not None
                 else batch * (max_len // self.kv_block))
+
+
+@dataclass(frozen=True)
+class PrefixConfig:
+    """Cross-request prefix sharing over the paged KV arena
+    (repro_torch.core.paging trie + PrefixStore).  Requires ``paging``.
+
+    max_suffix: static suffix capacity of the ``prefill_offset`` program,
+        the most tokens recomputed past a matched prefix on the warm
+        admission path; ``None`` -> ``2 * kv_block`` (the worst-case
+        remainder of a prompt whose whole head matched).  Longer
+        divergences fall back to the full prefill program: its storage is
+        still deduplicated (matched blocks map read-only; the block-table
+        write guard drops the recomputed duplicates), only the compute
+        saving is lost.
+    min_blocks: smallest trie match worth taking the warm path for;
+        below it the full prefill runs (shared mappings still apply).
+    """
+    max_suffix: Optional[int] = None
+    min_blocks: int = 1
+
+    def __post_init__(self):
+        if self.max_suffix is not None and self.max_suffix < 1:
+            raise ValueError(f"max_suffix must be >= 1: {self.max_suffix}")
+        if self.min_blocks < 1:
+            raise ValueError(f"min_blocks must be >= 1: {self.min_blocks}")
 
 
 @dataclass(frozen=True)
@@ -93,6 +120,7 @@ class EngineConfig:
     group_prefill: bool = False
     device: Optional[str] = None
     paging: Optional[PagingConfig] = None
+    prefix: Optional[PrefixConfig] = None
     spec: Optional[SpecConfig] = None
     horizon: Optional[HorizonConfig] = None
 
@@ -111,14 +139,19 @@ class EngineConfig:
             if self.group_prefill:
                 raise ValueError("group_prefill rewrites every slot; "
                                  "incompatible with paging")
+        if self.prefix is not None:
+            if self.paging is None:
+                raise ValueError("prefix sharing indexes paged KV blocks: "
+                                 "set paging too")
+            if self.resolved_prefix_suffix > self.resolved_prefill_len:
+                raise ValueError(
+                    f"prefix max_suffix exceeds prefill_len: "
+                    f"{self.resolved_prefix_suffix}, "
+                    f"{self.resolved_prefill_len}")
         if self.spec is not None and self.group_prefill:
             raise ValueError("group_prefill rewrites every slot; "
                              "incompatible with the speculative non-ring "
                              "cache layout")
-        if self.group_prefill:
-            raise NotImplementedError(
-                "group_prefill (burst admission through a whole-batch "
-                "prefill program) is not ported yet (ROADMAP Queue 1 item 3c)")
 
     @property
     def resolved_prefill_len(self) -> int:
@@ -135,6 +168,15 @@ class EngineConfig:
     @property
     def horizon_length(self) -> Optional[int]:
         return self.horizon.length if self.horizon is not None else None
+
+    @property
+    def resolved_prefix_suffix(self) -> int:
+        """Static token capacity of the warm-path ``prefill_offset``
+        program (see :class:`PrefixConfig`)."""
+        assert self.prefix is not None
+        return (self.prefix.max_suffix
+                if self.prefix.max_suffix is not None
+                else 2 * self.paging.kv_block)
 
     def replace(self, **kw) -> "EngineConfig":
         return dataclasses.replace(self, **kw)

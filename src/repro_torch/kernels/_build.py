@@ -173,10 +173,10 @@ def _bind(cdll: ctypes.CDLL):
     cdll.repro_matmul_smem_bytes.argtypes = [i]
     cdll.repro_matmul_smem_bytes.restype = i
     cdll.repro_flash_attention.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
-                                           i, p]
+                                           p, i, p]
     cdll.repro_flash_attention.restype = i
     cdll.repro_flash_attention_wgmma.argtypes = [p, p, p, p, i, i, i, i, i,
-                                                 i, i, p]
+                                                 i, i, p, p]
     cdll.repro_flash_attention_wgmma.restype = i
     cdll.repro_flash_attention_wgmma_smem.argtypes = [i]
     cdll.repro_flash_attention_wgmma_smem.restype = i

@@ -6,7 +6,20 @@
 // q (BH,Sq,D), k and v (BHk,Sk,D), out (BH,Sq,D) in q's dtype.  Queries are
 // right-aligned against the keys (query i sits at absolute position
 // Sk - Sq + i), so one kernel serves a full prefill and a chunk against a
-// longer cache.  GQA goes by index, as the Pallas index_map does: query row
+// longer cache, unless the caller gives a query start on the device
+// (*q_start, an int32 each block reads when it begins): then query i sits
+// at *q_start + i, which a captured graph may change between replays.  A
+// warm prefix admission uses it: its suffix rows attend over the slot's
+// whole gathered block row.  Both routes walk key
+// tiles at absolute multiples of their width, so a query row at position p
+// sees the same tiles in the same order whatever its tile's start; the
+// extra tiles a longer key row or another start adds are masked for that
+// row, and a masked tile leaves m, l and the accumulator bit for bit as
+// they were (p = 0, alpha = 1; or, before the row's first visible key, a
+// sum that the first visible tile multiplies by alpha = 0).  So a row's
+// bits are those of the cold prefill at the same position, provided every
+// key the kernel loads is finite (a masked key still meets p = 0 in p.v).
+// GQA goes by index, as the Pallas index_map does: query row
 // bh reads K/V row bh / G with G = BH / BHk, and K/V are never repeated.
 // As in the Pallas kernel, the running max and sum are fp32 and p is
 // rounded to v's dtype before the p.v product.  Ragged Sq and Sk are masked
@@ -85,7 +98,7 @@ __global__ void __launch_bounds__(THREADS)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ out,
                            int Sq, int Sk, int G, int causal, int window,
-                           float scale) {
+                           const int* __restrict__ q_start, float scale) {
   constexpr int ACC = (D + 31) / 32;
   extern __shared__ float smem[];
   float* qs = smem;               // [BQ][D]
@@ -97,7 +110,7 @@ __global__ void __launch_bounds__(THREADS)
   const int q0 = blockIdx.x * BQ;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int q_offset = Sk - Sq;
+  const int q_offset = q_start != nullptr ? *q_start : Sk - Sq;
   const T* qb = q + (long long)bh * Sq * D;
   const T* kb = k + (long long)(bh / G) * Sk * D;
   const T* vb = v + (long long)(bh / G) * Sk * D;
@@ -205,7 +218,7 @@ __global__ void __launch_bounds__(THREADS)
 template <typename T, int D>
 cudaError_t launch_d(const void* q, const void* k, const void* v, void* out,
                      int BH, int BHk, int Sq, int Sk, int causal, int window,
-                     cudaStream_t stream) {
+                     const int* q_start, cudaStream_t stream) {
   constexpr size_t smem = sizeof(float) * (BQ * D + BK * (D + 1) + BK * D);
   static_assert(smem <= 232448, "tiles fit one block's shared memory");
   if (smem > 48 * 1024) {
@@ -218,25 +231,25 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* out,
   flash_attention_kernel<T, D><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, BH / BHk,
-      causal, window, 1.f / sqrtf((float)D));
+      causal, window, q_start, 1.f / sqrtf((float)D));
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int BH, int BHk, int Sq, int Sk, int D, int causal,
-                   int window, cudaStream_t stream) {
+                   int window, const int* qs, cudaStream_t stream) {
   switch (D) {
     case 16:
-      return launch_d<T, 16>(q, k, v, out, BH, BHk, Sq, Sk, causal, window, stream);
+      return launch_d<T, 16>(q, k, v, out, BH, BHk, Sq, Sk, causal, window, qs, stream);
     case 32:
-      return launch_d<T, 32>(q, k, v, out, BH, BHk, Sq, Sk, causal, window, stream);
+      return launch_d<T, 32>(q, k, v, out, BH, BHk, Sq, Sk, causal, window, qs, stream);
     case 64:
-      return launch_d<T, 64>(q, k, v, out, BH, BHk, Sq, Sk, causal, window, stream);
+      return launch_d<T, 64>(q, k, v, out, BH, BHk, Sq, Sk, causal, window, qs, stream);
     case 128:
-      return launch_d<T, 128>(q, k, v, out, BH, BHk, Sq, Sk, causal, window, stream);
+      return launch_d<T, 128>(q, k, v, out, BH, BHk, Sq, Sk, causal, window, qs, stream);
     case 256:
-      return launch_d<T, 256>(q, k, v, out, BH, BHk, Sq, Sk, causal, window, stream);
+      return launch_d<T, 256>(q, k, v, out, BH, BHk, Sq, Sk, causal, window, qs, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -277,6 +290,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                                  const __grid_constant__ CUtensorMap map_v,
                                  __nv_bfloat16* __restrict__ out, int Sq,
                                  int Sk, int G, int causal, int window,
+                                 const int* __restrict__ q_start,
                                  float scale_log2) {
   constexpr int DB = D / 64;        // 64-column boxes (and n64 pieces) of D
   constexpr uint32_t TILE = tile_bytes<D>();
@@ -296,7 +310,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int q0 = blockIdx.x * BQ;
   const int kvh = bh / G;
   // keys any query of this tile can see (absolute positions)
-  const int q_offset = Sk - Sq;
+  const int q_offset = q_start != nullptr ? *q_start : Sk - Sq;
   const int q_lo = q_offset + q0;
   const int q_hi = q_offset + min(q0 + BQ, Sq) - 1;
   int k_begin = 0, k_end = Sk;
@@ -488,7 +502,7 @@ bool map_heads(CUtensorMap* out, const void* ptr, int heads, int rows,
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int BH, int BHk, int Sq, int Sk, int causal, int window,
-                   cudaStream_t stream) {
+                   const int* q_start, cudaStream_t stream) {
   constexpr uint32_t smem = smem_bytes<D>();
   static_assert(smem <= 232448, "tiles fit one block's shared memory");
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
@@ -516,16 +530,19 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   const dim3 grid((Sq + BQ - 1) / BQ, BH);
   flash_attention_kernel_wgmma<D><<<grid, THREADS, smem, stream>>>(
       mq.m, mk.m, mv.m, static_cast<__nv_bfloat16*>(out), Sq, Sk, BH / BHk,
-      causal, window, 1.4426950408889634f / sqrtf((float)D));
+      causal, window, q_start, 1.4426950408889634f / sqrtf((float)D));
   return cudaGetLastError();
 }
 
 }  // namespace fa_tc
 
+// q_start: null (queries right-aligned), or the int32 query start on the
+// device
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* out, int BH,
                                      int BHk, int Sq, int Sk, int D,
-                                     int causal, int window, int dtype,
+                                     int causal, int window,
+                                     const int* q_start, int dtype,
                                      void* stream) {
   if (BH <= 0 || BHk <= 0 || BH % BHk != 0 || BH > 65535 || Sq <= 0 ||
       Sk <= 0)
@@ -533,10 +550,11 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case repro::kFloat32:
-      return launch<float>(q, k, v, out, BH, BHk, Sq, Sk, D, causal, window, s);
+      return launch<float>(q, k, v, out, BH, BHk, Sq, Sk, D, causal, window,
+                           q_start, s);
     case repro::kBFloat16:
       return launch<__nv_bfloat16>(q, k, v, out, BH, BHk, Sq, Sk, D, causal,
-                                   window, s);
+                                   window, q_start, s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -548,6 +566,7 @@ extern "C" int repro_flash_attention_wgmma(const void* q, const void* k,
                                            const void* v, void* out, int BH,
                                            int BHk, int Sq, int Sk, int D,
                                            int causal, int window,
+                                           const int* q_start,
                                            void* stream) {
   hopper::refusal() = "";
   if (BH <= 0 || BHk <= 0 || BH % BHk != 0 || BH > 65535 || Sq <= 0 ||
@@ -557,10 +576,10 @@ extern "C" int repro_flash_attention_wgmma(const void* q, const void* k,
   switch (D) {
     case 128:
       return fa_tc::launch<128>(q, k, v, out, BH, BHk, Sq, Sk, causal,
-                                window, s);
+                                window, q_start, s);
     case 256:
       return fa_tc::launch<256>(q, k, v, out, BH, BHk, Sq, Sk, causal,
-                                window, s);
+                                window, q_start, s);
     default:
       return hopper::refuse("the wgmma route takes head dim 128 or 256");
   }

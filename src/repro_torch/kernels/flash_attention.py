@@ -6,7 +6,11 @@ kernel in ``csrc/flash_attention.cu`` (its header says what bounds it).
 Layout as in the reference: q (BH,Sq,D), k and v (BHk,Sk,D) with
 BH % BHk == 0; query row ``bh`` reads K/V row ``bh // (BH // BHk)``, so a
 (B,S,H,D) tensor laid out as (B*H,S,D) needs no K/V repeat.  Queries are
-right-aligned against the keys.  CPU tensors take
+right-aligned against the keys, unless ``q_start`` gives their absolute
+start on the device: an int32 tensor of one value, which a captured graph
+may rewrite between replays (a warm prefix
+admission's suffix over its slot's gathered block row; the kernel's
+header says why its rows then equal a cold prefill's).  CPU tensors take
 :func:`flash_attention_ref`; CUDA tensors launch the kernel of their route
 or raise.  :func:`route` picks the route before launch, from the dtype and
 the head dim alone: bf16 at head dim 128 or 256 (every served call) runs
@@ -56,19 +60,29 @@ def wgmma_smem_bytes(d: int) -> int:
     return (1 + 2 * WGMMA_STAGES) * tile + 8 * (1 + 3 * WGMMA_STAGES) + 1024
 
 
+def _check_start(q_start: torch.Tensor, q: torch.Tensor):
+    if q_start.dtype != torch.int32 or q_start.numel() != 1:
+        raise ValueError(f"q_start takes one int32 value: got "
+                         f"{q_start.dtype}, {tuple(q_start.shape)}")
+    if q_start.device != q.device:
+        raise ValueError(f"q_start on {q_start.device}, q on {q.device}")
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, causal: bool = True,
-                        window: int = 0) -> torch.Tensor:
+                        *, causal: bool = True, window: int = 0,
+                        q_start=None) -> torch.Tensor:
     """Plain version (``repro/kernels/ref.py:flash_attention``): repeat K/V
     over the query groups, fp32 scores, masked softmax, p cast to v's dtype
-    before the p.v product."""
+    before the p.v product.  ``q_start`` places the queries as
+    ``attention.reference_attention``'s ``q_offset`` does."""
     bh, sq, d = q.shape
     bhk, sk, _ = k.shape
     g = bh // bhk
     k = k.repeat_interleave(g, dim=0)
     v = v.repeat_interleave(g, dim=0)
     scores = torch.einsum("bqd,bkd->bqk", q, k).float() * d ** -0.5
-    q_pos = torch.arange(sq, device=q.device) + (sk - sq)
+    start = sk - sq if q_start is None else q_start.reshape(()).long()
+    q_pos = torch.arange(sq, device=q.device) + start
     k_pos = torch.arange(sk, device=q.device)
     mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
     if causal:
@@ -98,10 +112,14 @@ def _check(q, k, v):
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
+                    causal: bool = True, window: int = 0,
+                    q_start=None) -> torch.Tensor:
     _check(q, k, v)
+    if q_start is not None:
+        _check_start(q_start, q)
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window)
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   q_start=q_start)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention has no route for device {q.device}")
     bh, sq, d = q.shape
@@ -113,6 +131,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("flash_attention kernel needs contiguous q, k, v")
     lib = _build.library()
     kind = route(q.dtype, d)
+    start = None if q_start is None else q_start.data_ptr()
     if kind == "wgmma":
         # TMA reads from 16-byte aligned bases: copy a view that is not
         q, k, v = (t if tma_error(t.shape[1:], t.stride()[1:],
@@ -121,7 +140,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         out = torch.empty_like(q)
         err = lib.repro_flash_attention_wgmma(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh,
-            bhk, sq, sk, d, int(causal), int(window), _build.stream_handle())
+            bhk, sq, sk, d, int(causal), int(window), start,
+            _build.stream_handle())
         why = lib.repro_refusal().decode() if err else ""
         if why:
             raise ValueError(f"flash_attention refused (BH={bh}, Sq={sq}, "
@@ -130,7 +150,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         out = torch.empty_like(q)
         err = lib.repro_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh,
-            bhk, sq, sk, d, int(causal), int(window),
+            bhk, sq, sk, d, int(causal), int(window), start,
             _build.DTYPE_CODES[q.dtype], _build.stream_handle())
     _build.check(err, "flash_attention")
     flash_attention.launches += 1

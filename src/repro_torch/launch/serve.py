@@ -46,6 +46,21 @@ them back (a page fault).  Every pager edit happens between replays, in
 place on the tree the programs are bound to.  Page faults and arena
 occupancy are hostcall metrics 6 and 7.
 
+Prefix sharing (``EngineConfig(prefix=PrefixConfig(...))``, on the paged
+arena): the pager keeps a trie of published prompt blocks, backed by a
+:class:`~repro_torch.core.paging.PrefixStore` on the host.  A request
+whose prompt matches published blocks maps them read-only into its row.
+An attention-only, non-MoE arch (qwen3 among the ported ones) then runs
+only the suffix, through the ``prefill_offset`` program (the warm path);
+the others run a full ``prefill_slot`` whose writes into the shared
+blocks drop (tier 2: memory shared, compute not).  A cold or tier-2
+admission publishes its full prompt blocks.  Matched tokens per prefix
+admission are hostcall metric 10.
+
+Burst admission (``EngineConfig(group_prefill=True)``, dense caches only):
+when the batch is idle and two or more requests are due, one execution of
+the whole-batch ``prefill`` program admits up to ``batch`` of them.
+
 The engine runs on the card unless asked otherwise: ``device=None`` means
 ``"cuda"``, and a missing card is an error, never a quiet move to the CPU.
 """
@@ -65,9 +80,10 @@ from repro_torch.core.hostcall import CALL_BATCH, CALL_METRIC, CALL_STEP_REPORT
 from repro_torch.core.syscore import (METRIC_KERNEL_BUILD_MS,
                                       METRIC_PROGRAM_COMPILE_MS,
                                       METRIC_PROGRAM_LOAD_MS, Syscore)
-from repro_torch.core.paging import PagedKVManager
+from repro_torch.core.paging import PagedKVManager, PrefixStore
 from repro_torch.engine_config import (EngineConfig, HorizonConfig,
-                                       PagingConfig, SpecConfig)
+                                       PagingConfig, PrefixConfig,
+                                       SpecConfig)
 from repro_torch.kernels import _build
 from repro_torch.models import registry, transformer
 from repro_torch.spec import NGramProposer
@@ -83,6 +99,8 @@ METRIC_PAGE_FAULT = 6     # paged KV swap-in copied blocks from host (value
 METRIC_ARENA_OCCUPANCY = 7  # resident arena blocks / capacity, per decode step
 METRIC_SPEC_ACCEPT = 8    # accepted / proposed draft tokens, per verify step
 METRIC_HORIZON_TOKENS = 9  # tokens emitted per fused decode-horizon dispatch
+METRIC_PREFIX_HIT = 10    # prompt tokens served from shared prefix blocks
+                          # (value = matched tokens), per prefix admission
 
 
 @dataclass
@@ -134,11 +152,15 @@ class ServingEngine:
     ``params``: a parameter tree already on ``device`` (e.g. from
     :func:`repro_torch.bridge.params_from_numpy`), else ``config.seed``
     draws one.  ``device`` overrides ``config.device``; both ``None`` means
-    ``"cuda"``.
+    ``"cuda"``.  ``prefix_store``: with ``config.prefix``, a
+    :class:`~repro_torch.core.paging.PrefixStore` to share (an engine
+    booted on a store another engine published into serves its prefixes
+    warm); ``None`` makes one of the engine's own.
     """
 
     def __init__(self, arch: str, config: Optional[EngineConfig] = None, *,
-                 params=None, device: Optional[str] = None):
+                 params=None, device: Optional[str] = None,
+                 prefix_store: Optional[PrefixStore] = None):
         config = config if config is not None else EngineConfig()
         self.device = resolve_device(device or config.device)
         self.config = config.replace(device=str(self.device))
@@ -152,11 +174,18 @@ class ServingEngine:
         self.eos_id = config.eos_id
         self.max_queue = config.max_queue
         self.clock = config.clock
+        self.group_prefill = config.group_prefill
         self.paged = config.paged
         self.timeslice = config.paging.timeslice if self.paged else None
         self.spec_k = config.spec_k
         self.spec_ngram = config.spec.ngram if config.spec is not None else 2
         self.horizon = config.horizon_length
+        self.prefix_cfg = config.prefix
+        self.prefix_store = None
+        self.prefix_suffix = (config.resolved_prefix_suffix
+                              if config.prefix is not None else 0)
+        self._prefix_tier1 = (config.prefix is not None and
+                              steps_lib.warm_prefix_capable(self.cfg))
         self.syscore = Syscore(self.device)
         on_card = self.device.type == "cuda"
         if on_card:
@@ -177,10 +206,14 @@ class ServingEngine:
             self.caches = transformer.init_paged_cache(
                 self.cfg, self.batch, self.max_len, kv_block=self.kv_block,
                 arena_blocks=self.arena_blocks, device=self.device)
+            if self.prefix_cfg is not None:
+                self.prefix_store = (prefix_store if prefix_store is not None
+                                     else PrefixStore())
             self.pager = PagedKVManager(
                 self.arena_blocks,
                 transformer.paged_block_bytes(self.cfg, self.kv_block),
-                uva=self.syscore.uva,
+                uva=self.syscore.uva, kv_block=self.kv_block,
+                prefix_store=self.prefix_store,
                 on_fault=lambda blocks: self.syscore.hostcalls.dispatch(
                     CALL_METRIC, METRIC_PAGE_FAULT, float(blocks)))
         else:
@@ -200,12 +233,23 @@ class ServingEngine:
         if self.horizon is not None:
             self._budget = torch.zeros((self.batch,), dtype=torch.int32,
                                        pin_memory=on_card)
+        if self._prefix_tier1:
+            self._suffix = torch.zeros((1, self.prefix_suffix),
+                                       dtype=torch.int32, pin_memory=on_card)
+        if self.group_prefill:
+            self._burst = torch.zeros((self.batch, self.prefill_len),
+                                      dtype=torch.int32, pin_memory=on_card)
+            self._burst_lengths = torch.zeros((self.batch,),
+                                              dtype=torch.int32,
+                                              pin_memory=on_card)
 
         specs = steps_lib.serve_program_specs(self.cfg, self.config,
                                               self.params, self.caches)
         self.programs = {name: self.syscore.hot_load(spec)
                          for name, spec in specs.items()}
+        self._prefill = self.programs.get("prefill")
         self._prefill_slot = self.programs["prefill_slot"]
+        self._prefill_offset = self.programs.get("prefill_offset")
         self._decode = self.programs["decode"]
         self._verify = self.programs.get("verify")
         self._decode_horizon = self.programs.get("decode_horizon")
@@ -233,6 +277,9 @@ class ServingEngine:
         self.refill_admissions = 0     # admissions while other slots active
         self.preemptions = 0
         self.swap_ins = 0
+        self.prefix_admissions = 0     # admissions that mapped shared blocks
+        self.warm_admissions = 0       # of those, through prefill_offset
+        self.prefix_tokens_reused = 0  # prompt tokens never re-prefilled
         self._n_submitted = 0
         self._t0 = time.perf_counter()
 
@@ -303,11 +350,52 @@ class ServingEngine:
             self.params, self.caches, self._prompt, slot, req.prompt_len)
         self._place(slot, req, last.float().cpu().numpy())
 
+    def _admit_offset(self, slot: int, req: Request, offset: int):
+        """Warm admission (a prefix hit): the slot's first ``offset``
+        prompt tokens are already in shared arena blocks mapped into its
+        block-table row, so only the suffix runs, one execution of the
+        hot-loaded ``prefill_offset`` program from position ``offset``."""
+        suffix = req.prompt[offset:]
+        assert 1 <= len(suffix) <= self.prefix_suffix, \
+            (req.rid, offset, req.prompt_len)
+        tokens = self._suffix.numpy()
+        tokens[:] = 0
+        tokens[0, :len(suffix)] = suffix
+        self.caches, last = self._prefill_offset(
+            self.params, self.caches, self._suffix, slot, offset,
+            req.prompt_len)
+        self._place(slot, req, last.float().cpu().numpy())
+
+    def _admit_burst(self, reqs: List[Request]):
+        """Cold-start burst: admit every request in ONE execution of the
+        whole-batch ``prefill`` program (the engine is idle: the program
+        rewrites every row; unused rows get a length-1 dummy prompt)."""
+        tokens = self._burst.numpy()
+        lengths = self._burst_lengths.numpy()
+        tokens[:] = 0
+        lengths[:] = 1
+        for i, req in enumerate(reqs):
+            tokens[i, :req.prompt_len] = req.prompt
+            lengths[i] = req.prompt_len
+        self.caches, last = self._prefill(self.params, self.caches,
+                                          self._burst, self._burst_lengths)
+        last = last.float().cpu().numpy()     # waits for the device result
+        for i, req in enumerate(reqs):
+            self._place(i, req, last[i])
+
     def _admit(self):
-        """Refill free slots from the queue, earliest arrival first."""
+        """Refill free slots from the queue, earliest arrival first; an
+        idle ``group_prefill`` engine admits a due burst in one
+        execution."""
         t = self.now()
         if self.paged:
             self._admit_paged(t)
+            return
+        eligible = sum(1 for r in self.queue if r.arrival_time <= t)
+        if (self.group_prefill and eligible >= 2
+                and not any(s is not None for s in self.slots)):
+            self._admit_burst([self.queue.pop(0)
+                               for _ in range(min(eligible, self.batch))])
             return
         for i, s in enumerate(self.slots):
             if s is not None:
@@ -324,7 +412,12 @@ class ServingEngine:
         """FIFO admission under memory pressure: the queue head admits only
         when its block reservation can be made resident without touching a
         pinned (actively decoding) page; otherwise it waits — optionally
-        rotating out slots that have used up their timeslice first."""
+        rotating out slots that have used up their timeslice first.  With
+        prefix sharing a fresh request maps its prompt's published blocks
+        read-only; an attention-only arch then runs only the suffix when
+        it fits ``prefill_offset`` (the warm path), else the full
+        ``prefill_slot`` runs over the shared mappings (tier 2).  A cold
+        or tier-2 admission publishes its full prompt blocks."""
         for i, s in enumerate(self.slots):
             if s is not None:
                 continue
@@ -332,10 +425,14 @@ class ServingEngine:
                 break
             req = self.queue[0]
             n_blocks = self._blocks_needed(req.prompt_len, req.max_new)
-            if not self.pager.can_admit(req.rid, n_blocks):
+            shared = (self.pager.match_prefix(req.prompt)
+                      if self.prefix_cfg is not None and not req.needs_resume
+                      else [])
+            if not self.pager.can_admit(req.rid, n_blocks, shared=shared):
                 if self.timeslice is not None:
                     self._preempt_expired()
-                if not self.pager.can_admit(req.rid, n_blocks):
+                if not self.pager.can_admit(req.rid, n_blocks,
+                                            shared=shared):
                     break
             # remove by identity: _preempt_expired may have re-queued a
             # victim AHEAD of the peeked head (same arrival time, smaller
@@ -346,10 +443,31 @@ class ServingEngine:
                     break
             if req.needs_resume:
                 self._resume_one(i, req)
+                continue
+            self.caches = self.pager.admit(req.rid, n_blocks, i, self.caches,
+                                           shared=shared)
+            matched = len(shared) * self.kv_block
+            warm = bool(shared) and self._prefix_tier1 and \
+                len(shared) >= self.prefix_cfg.min_blocks and \
+                req.prompt_len - matched <= self.prefix_suffix
+            if warm:
+                self._admit_offset(i, req, matched)
             else:
-                self.caches = self.pager.admit(req.rid, n_blocks, i,
-                                               self.caches)
                 self._admit_one(i, req)
+            if shared:
+                self.prefix_admissions += 1
+                self.warm_admissions += warm
+                self.prefix_tokens_reused += matched
+                self.syscore.hostcalls.dispatch(
+                    CALL_METRIC, METRIC_PREFIX_HIT, float(matched))
+            # publish only full-prefill blocks: the cold path's bytes are
+            # the ones every later consumer (warm or tier 2) reproduces.
+            # Skipped when the request already finished in its admission
+            # (its blocks went back to the free list with it)
+            if self.prefix_cfg is not None and not warm \
+                    and req.rid in self.pager.pages:
+                self.caches = self.pager.publish(req.rid, req.prompt, i,
+                                                 self.caches)
 
     def _resume_one(self, slot: int, req: Request):
         """Swap a preempted request back into a slot: the pager restores
@@ -657,6 +775,8 @@ class ServingEngine:
                              self.accepted_drafts)
         adm0, ref0 = self.admitted, self.refill_admissions
         pre0, swi0 = self.preemptions, self.swap_ins
+        pa0, wa0 = self.prefix_admissions, self.warm_admissions
+        ptr0 = self.prefix_tokens_reused
         pf0 = self.pager.page_faults if self.paged else 0
         swo0 = self.pager.swap_outs if self.paged else 0
         self._sync()
@@ -713,6 +833,12 @@ class ServingEngine:
                 "swap_outs": self.pager.swap_outs - swo0,
                 "arena_occupancy": sum(arena) / max(len(arena), 1),
             })
+        if self.prefix_cfg is not None:
+            stats.update({
+                "prefix_admissions": self.prefix_admissions - pa0,
+                "warm_admissions": self.warm_admissions - wa0,
+                "prefix_tokens_reused": self.prefix_tokens_reused - ptr0,
+            })
         return stats
 
     def drain_completed(self) -> List[Request]:
@@ -739,7 +865,8 @@ class ServingEngine:
         if ref is None:
             ref_config = self.config.replace(
                 batch=1, prefill_len=self.prefill_len, clock="step",
-                paging=None, spec=None, horizon=None)
+                group_prefill=False, paging=None, prefix=None, spec=None,
+                horizon=None)
             ref = self._ref_engine = ServingEngine(
                 self.arch, ref_config, params=self.params)
         req = ref.submit(prompt, max_new)
@@ -769,6 +896,14 @@ def main(argv=None):
     ap.add_argument("--timeslice", type=int, default=None,
                     help="preempt slots that decoded this many tokens when "
                          "the queue head cannot fit the arena")
+    ap.add_argument("--prefix", action="store_true",
+                    help="cross-request prefix sharing over the paged "
+                         "arena (implies --paged)")
+    ap.add_argument("--prefix-max-suffix", type=int, default=None,
+                    help="warm-path suffix capacity; None = 2*kv_block")
+    ap.add_argument("--group-prefill", action="store_true",
+                    help="burst admission: one whole-batch prefill when "
+                         "the batch is idle (dense caches only)")
     ap.add_argument("--spec-k", type=int, default=None,
                     help="speculative decoding: drafts per verify step "
                          "(n-gram prompt lookup); none = plain decode")
@@ -781,10 +916,13 @@ def main(argv=None):
     config = EngineConfig(
         reduced=not args.full, batch=args.batch,
         max_len=512 if args.full else 128, device=args.device,
+        group_prefill=args.group_prefill,
         paging=(PagingConfig(kv_block=args.kv_block,
                              arena_blocks=args.arena_blocks,
                              timeslice=args.timeslice)
-                if args.paged else None),
+                if args.paged or args.prefix else None),
+        prefix=(PrefixConfig(max_suffix=args.prefix_max_suffix)
+                if args.prefix else None),
         spec=(SpecConfig(k=args.spec_k, ngram=args.spec_ngram)
               if args.spec_k is not None else None),
         horizon=(HorizonConfig(length=args.horizon)
@@ -792,8 +930,13 @@ def main(argv=None):
                  else None))
     eng = ServingEngine(args.arch, config)
     rng = np.random.default_rng(0)
+    # with --prefix, every prompt starts with the same 16 tokens
+    head = (rng.integers(0, eng.cfg.vocab_size, size=16) if args.prefix
+            else np.zeros(0, np.int64))
     for _ in range(args.requests):
-        eng.submit(rng.integers(0, eng.cfg.vocab_size, size=8), args.max_new)
+        eng.submit(np.concatenate(
+            [head, rng.integers(0, eng.cfg.vocab_size, size=8)]),
+            args.max_new)
     print(eng.run())
     print(eng.syscore.report()["programs"])
     if eng.paged:

@@ -6,7 +6,9 @@ through a (B, M) block table (``gather_paged_kv``, ``write_paged_kv``,
 ``rollback_paged_kv``: plain PyTorch, as the reference computes them
 outside any Pallas kernel).  Prefill attention runs through K1
 (``kernels.ops.flash_attention``), which maps query heads to their KV head
-by index, so K/V are never repeated on that path.  Decode attention (one
+by index, so K/V are never repeated on that path; so does a warm prefix
+admission's suffix, over its slot's gathered block row with the queries
+at a start on the device.  Decode attention (one
 query per row against its cache slots) is plain PyTorch, as the reference
 leaves it to XLA.
 """
@@ -47,13 +49,15 @@ def _valid_cache_slots(cache_len, b: int, c: int, *, window: int,
 
 
 class PagedIndex(NamedTuple):
-    """Where one decode step reads and writes a paged arena, the same for
-    every attention layer (they share the block table, ``pos``, the block
-    size and the sink), so a step computes it once.
+    """Where one decode step (or one warm admission's suffix) reads and
+    writes a paged arena, the same for every attention layer (they share
+    the block table, ``pos``, the block size and the sink), so a step
+    computes it once.
 
     blocks: (B, M) physical block of each logical block (read-only shared
-    entries decoded, unmapped ones at block 0); dest, off: (B,) physical
-    block and offset of each row's write, dest the sink where it drops."""
+    entries decoded, unmapped ones at block 0); dest, off: shaped as the
+    positions, (B,) or (B, S), the physical block and offset of each
+    write, dest the sink where it drops."""
     blocks: torch.Tensor
     dest: torch.Tensor
     off: torch.Tensor
@@ -84,9 +88,9 @@ def _paged_dest(block_table, pos, bs: int, sink: int, keep=None):
 def paged_index(block_table: torch.Tensor, pos: torch.Tensor, bs: int,
                 sink: int, live=None) -> PagedIndex:
     """The :class:`PagedIndex` of a (B, M) block table at positions
-    ``pos`` (B,), for arenas of ``bs``-token blocks whose sink is block
-    ``sink``.  A row with ``live`` (B,) False writes to the sink (the
-    reference's ``writable &= live``)."""
+    ``pos`` (B,) or (B, S), for arenas of ``bs``-token blocks whose sink
+    is block ``sink``.  A row with ``live`` (shaped as ``pos``) False
+    writes to the sink (the reference's ``writable &= live``)."""
     dest, _ = _paged_dest(block_table, pos, bs, sink, keep=live)
     return PagedIndex(_physical(block_table), dest,
                       torch.remainder(pos, bs).long())
@@ -101,7 +105,9 @@ def gather_paged(arena: torch.Tensor, blocks: torch.Tensor) -> torch.Tensor:
 
 def write_paged(arena: torch.Tensor, index: PagedIndex,
                 val: torch.Tensor) -> torch.Tensor:
-    """Row b's value (B, H, D) into ``arena[dest[b], off[b]]``, in place."""
+    """Values shaped as the index's positions plus (H, D) into
+    ``arena[dest, off]``, in place: (B, H, D) for a decode step, (B, S, H,
+    D) for a suffix."""
     arena[index.dest, index.off] = val.to(arena.dtype)
     return arena
 
@@ -121,7 +127,11 @@ def gather_paged_kv(arena: torch.Tensor,
     as in the reference; callers mask them through the valid-length check
     of :func:`decode_attention`, whose masked products are exact zeros
     (``torch.where`` on the scores), so what they hold never reaches a
-    result.
+    result.  K1 over a gathered row (a warm admission's suffix) multiplies
+    masked keys by p = 0 too, so it needs them finite, not only masked:
+    every block of the arena is, since the engine boots it zeroed and
+    every write into it (a program's K/V, a copy back from the host tier)
+    is a finite K/V row.
     """
     return gather_paged(arena, _physical(block_table))
 
@@ -209,18 +219,22 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                      causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q: (B, S, H, D), k/v: (B, S, Hkv, D) -> (B, S, H, D) through K1.
+                      causal: bool = True, window: int = 0,
+                      q_start=None) -> torch.Tensor:
+    """q: (B, Sq, H, D), k/v: (B, Sk, Hkv, D) -> (B, Sq, H, D) through K1,
+    queries right-aligned against the keys, or from ``q_start`` (an int32
+    device tensor of one start, as K1 takes it).
 
-    Laid out as (B*H, S, D) and (B*Hkv, S, D): query row b*H + h reads KV
-    row (b*H + h) // G = b*Hkv + h // G, the kernel's GQA map."""
-    b, s, h, d = q.shape
-    hk = k.shape[2]
-    qf = q.permute(0, 2, 1, 3).reshape(b * h, s, d).contiguous()
-    kf = k.permute(0, 2, 1, 3).reshape(b * hk, s, d).contiguous()
-    vf = v.permute(0, 2, 1, 3).reshape(b * hk, s, d).contiguous()
-    out = ops.flash_attention(qf, kf, vf, causal=causal, window=window)
-    return out.reshape(b, h, s, d).permute(0, 2, 1, 3)
+    Laid out as (B*H, Sq, D) and (B*Hkv, Sk, D): query row b*H + h reads
+    KV row (b*H + h) // G = b*Hkv + h // G, the kernel's GQA map."""
+    b, sq, h, d = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    qf = q.permute(0, 2, 1, 3).reshape(b * h, sq, d).contiguous()
+    kf = k.permute(0, 2, 1, 3).reshape(b * hk, sk, d).contiguous()
+    vf = v.permute(0, 2, 1, 3).reshape(b * hk, sk, d).contiguous()
+    out = ops.flash_attention(qf, kf, vf, causal=causal, window=window,
+                              q_start=q_start)
+    return out.reshape(b, h, sq, d).permute(0, 2, 1, 3)
 
 
 def reference_attention(q, k, v, *, causal=True, window=0, q_offset=0):

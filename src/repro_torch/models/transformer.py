@@ -17,9 +17,9 @@ position like a "G" layer's, and reads keep only the last ``window``
 positions.
 
 Unlike the reference, which is functional, cache writes here are made in
-place: ``forward(mode="prefill")`` and ``decode_step`` fill the cache
-tensors they are given, ``pos`` included, and return the same tree.
-Callers that need the old cache keep a copy.
+place: ``forward(mode="prefill")``, ``prefill_offset`` and ``decode_step``
+fill the cache tensors they are given, ``pos`` included, and return the
+same tree.  Callers that need the old cache keep a copy.
 """
 from __future__ import annotations
 
@@ -344,6 +344,19 @@ def _apply_attn(cfg, p: Params, x: torch.Tensor, *, mode: str, cache,
             out = attn_mod.decode_attention(q, cache["k"], cache["v"],
                                             pos_b + 1, window=window,
                                             ring=ring)
+    elif mode == "suffix":
+        # a warm admission's suffix: ``pos`` (1, S) holds its absolute
+        # positions; K/V go to the slot's blocks (shared, unmapped and
+        # past-the-table positions to the sink), and K1 runs over the
+        # slot's whole gathered row with the queries from pos[0, 0]
+        q = apply_rope(q, pos, theta)
+        k = apply_rope(k, pos, theta)
+        attn_mod.write_paged(cache["k"], paged, k)
+        attn_mod.write_paged(cache["v"], paged, v)
+        out = attn_mod.prefill_attention(
+            q, attn_mod.gather_paged(cache["k"], paged.blocks),
+            attn_mod.gather_paged(cache["v"], paged.blocks),
+            causal=True, window=window, q_start=pos[:, 0])
     elif mode == "prefill":
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device)[None].expand(b, s)
@@ -370,6 +383,10 @@ def apply_layer(cfg, kind: str, p: Params, x, *, mode: str, cache, pos,
                 paged=None, live=None):
     """One layer.  In decode mode ``live`` (B,) bool (``None``: every row)
     freezes the other rows' cache: no KV write, no recurrent update."""
+    if mode == "suffix" and kind not in ATTN_KINDS:
+        raise ValueError(f"a suffix at an offset needs attention-only "
+                         f"layers: a {kind!r} layer's state would have to "
+                         f"replay the whole prompt")
     if kind == "M":
         x, new_cache = ssm_mod.apply_ssm_layer(cfg, p["mix"], x, mode=mode,
                                                cache=cache, live=live)
@@ -471,6 +488,40 @@ def forward(cfg, params, tokens, *, mode: str = "prefill", caches=None,
     x, caches = _run_stack(cfg, params, x, mode=mode, caches=caches, pos=pos)
     logits = logits_from_hidden(cfg, params, x)
     caches["pos"].copy_(pos)
+    return logits, caches
+
+
+def prefill_offset(cfg, params, caches, tokens, slot, offset, length):
+    """A warm prefix admission's suffix over one slot of a paged tree.
+
+    tokens: (1, S) int, the prompt's tokens from ``offset`` on, right-
+    padded; slot, offset, length: (1,) int32 on the tokens' device.  The slot's first ``offset`` positions are already in
+    its blocks (read-only shared ones): only the suffix runs, at positions
+    ``offset + j``.  Each attention layer writes the suffix's K/V into the
+    slot's blocks through its block-table row and runs K1 over the slot's
+    whole gathered row with the queries starting at ``offset``, so each
+    valid row attends exactly as in a cold prefill of the whole prompt
+    (the kernel's header says why the bits are the same).  Every other
+    op is row-wise and its bits do not depend on the number of rows.
+    ``pos[slot]`` ends at ``length``; no other row is touched.  Attention-
+    only configs alone (a recurrent layer raises).
+
+    Returns (logits (1, S, V_padded), caches)."""
+    check_supported(cfg)
+    s = tokens.shape[1]
+    positions = offset.reshape(1, 1) + torch.arange(
+        s, dtype=torch.int32, device=tokens.device)[None]
+    row = caches["block_table"].index_select(0, slot.long())   # (1, M)
+    arena = next(layer["k"] for top in ("groups", "tail")
+                 for layer in caches[top].values() if "k" in layer)
+    # arenas are (..., P + 1, bs, Hkv, hd), the last block the sink
+    paged = attn_mod.paged_index(row, positions, arena.shape[-3],
+                                 arena.shape[-4] - 1)
+    x = embed(cfg, params, tokens)
+    x, caches = _run_stack(cfg, params, x, mode="suffix", caches=caches,
+                           pos=positions, paged=paged)
+    logits = logits_from_hidden(cfg, params, x)
+    caches["pos"].index_copy_(0, slot.long(), length)
     return logits, caches
 
 

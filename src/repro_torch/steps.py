@@ -24,6 +24,39 @@ def _index(value, device) -> torch.Tensor:
                            device=device).reshape(1)
 
 
+def warm_prefix_capable(cfg) -> bool:
+    """The reference's tier-1 rule (``repro/launch/serve.py:310-322``):
+    only attention-only, non-MoE configs admit a prefix hit by computing
+    the suffix alone (``prefill_offset``).  A recurrent layer must replay
+    the whole prompt to rebuild its state, and MoE routing runs over the
+    whole prompt's tokens; both take tier 2, a full ``prefill_slot`` over
+    the shared blocks mapped read-only."""
+    unit, _, tail = transformer.split_layers(cfg)
+    return all(k in transformer.ATTN_KINDS for k in unit + tail) and \
+        cfg.n_experts == 0
+
+
+def make_prefill_step(cfg):
+    """prefill(params, caches, tokens (B, S), lengths (B,)) -> (caches,
+    last (B, V)).
+
+    Burst admission: one whole-batch prefill into the live dense tree,
+    every row rewritten; row b is right-padded to S, its ``pos`` set to
+    ``lengths[b]`` and its ``last`` taken at position ``lengths[b] - 1``
+    (``repro/steps.py:make_prefill_step``).  ``lengths`` is an int32
+    device tensor, read by index, never on the host."""
+    def prefill(params, caches, tokens, lengths):
+        lengths = lengths.to(device=tokens.device, dtype=torch.int32)
+        logits, caches = transformer.forward(cfg, params, tokens,
+                                             mode="prefill", caches=caches,
+                                             lengths=lengths)
+        idx = (lengths - 1).long()[:, None, None].expand(
+            -1, 1, logits.shape[-1])
+        return caches, logits.gather(1, idx)[:, 0]
+
+    return prefill
+
+
 def make_prefill_slot_step(cfg, cache_len: int, ring: bool = True):
     """prefill_slot(params, caches, tokens (1,S), slot, length) ->
     (caches, last).
@@ -112,6 +145,37 @@ def make_paged_prefill_slot_step(cfg, cache_len: int, kv_block: int):
     return prefill_slot
 
 
+def make_paged_prefill_offset_step(cfg, max_suffix: int):
+    """prefill_offset(params, caches, tokens (1, max_suffix), slot, offset,
+    length) -> (caches, last (V,)).
+
+    Warm prefix admission (``repro/steps.py:279``): the slot's first
+    ``offset`` prompt tokens are already in shared arena blocks mapped
+    read-only into its block-table row, so only the suffix
+    ``tokens[0, :length - offset]`` runs
+    (:func:`~repro_torch.models.transformer.prefill_offset`).  The pager
+    keeps ``offset`` block-aligned and below ``length``, so at least one
+    token runs and every suffix write lands in the slot's private blocks.
+    The reference runs the suffix as a scan of ``decode_step``; here it is
+    one batch-1 prefill at the offset, through K1 over the slot's gathered
+    row, so its rows have a cold prefill's bits on the card (decode
+    attention rounds differently from K1 in bf16).  ``last`` is row
+    ``length - offset - 1`` of the suffix's logits, taken by index; slot,
+    offset and length are int32 device scalars or Python ints."""
+    assert max_suffix >= 1
+
+    def prefill_offset(params, caches, tokens, slot, offset, length):
+        slot = _index(slot, tokens.device)
+        offset = _index(offset, tokens.device)
+        length = _index(length, tokens.device)
+        logits, caches = transformer.prefill_offset(
+            cfg, params, caches, tokens, slot, offset, length)
+        last = logits[0].index_select(0, (length - offset - 1).long())[0]
+        return caches, last
+
+    return prefill_offset
+
+
 def make_serve_step(cfg):
     """decode(params, caches, token (B,1)) -> (caches, next (B,1), logits).
 
@@ -173,7 +237,16 @@ def serve_program_specs(cfg, config, params, caches
     window).  With ``config.horizon`` a ``decode_horizon`` program runs
     ``horizon.length`` greedy steps in one execution (its inputs: the
     (batch, 1) tokens and the (batch,) budgets), with ``config.eos_id``
-    as its in-graph EOS."""
+    as its in-graph EOS.
+
+    With ``config.group_prefill`` a ``prefill`` program admits a burst
+    into the whole dense batch (:func:`make_prefill_step`; its inputs: the
+    (batch, prefill_len) tokens and the (batch,) lengths).  With
+    ``config.prefix`` and an attention-only, non-MoE config
+    (:func:`warm_prefix_capable`) a ``prefill_offset`` program admits a
+    prefix hit by its suffix alone (:func:`make_paged_prefill_offset_step`;
+    its inputs: the (1, max_suffix) tokens, the slot, the offset and the
+    length)."""
     device = caches["pos"].device
     s = config.resolved_prefill_len
     prefill = (make_paged_prefill_slot_step(cfg, config.max_len,
@@ -195,6 +268,20 @@ def serve_program_specs(cfg, config, params, caches
         "decode": ProgramSpec("decode", make_serve_step(cfg),
                               resident=(params, caches), inputs=(token,)),
     }
+    if config.group_prefill:
+        specs["prefill"] = ProgramSpec(
+            "prefill", make_prefill_step(cfg), resident=(params, caches),
+            inputs=(torch.zeros((config.batch, s), dtype=torch.int32,
+                                device=device),
+                    torch.full((config.batch,), s, dtype=torch.int32,
+                               device=device)))
+    if config.prefix is not None and warm_prefix_capable(cfg):
+        ms = config.resolved_prefix_suffix
+        specs["prefill_offset"] = ProgramSpec(
+            "prefill_offset", make_paged_prefill_offset_step(cfg, ms),
+            resident=(params, caches),
+            inputs=(torch.zeros((1, ms), dtype=torch.int32, device=device),
+                    scalar(0), scalar(0), scalar(ms)))
     if config.spec is not None:
         drafts = torch.zeros((config.batch, config.spec.k + 1),
                              dtype=torch.int32, device=device)

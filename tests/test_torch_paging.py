@@ -32,8 +32,8 @@ from repro.models import transformer as jtf
 from repro.sharding import make_rules
 from repro_torch import bridge, steps
 from repro_torch.core import dynamic_calls, placement
-from repro_torch.core.paging import (PagedKVManager, decode_block_table,
-                                     encode_shared)
+from repro_torch.core.paging import (PagedKVManager, PrefixStore,
+                                     decode_block_table, encode_shared)
 from repro_torch.core.uva import UVARegistry
 from repro_torch.engine_config import EngineConfig, PagingConfig
 from repro_torch.launch.serve import (METRIC_ARENA_OCCUPANCY,
@@ -520,10 +520,21 @@ def test_grow_and_trim_to_base_and_prefix_raises():
     assert len(_mapped(caches, 1)) == 2 and mgr.reclaimed_blocks == 2
     assert len(mgr.free) == 4
     mgr.check_invariants()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        PagedKVManager(4, 16, prefix_store=object())
-    with pytest.raises(NotImplementedError, match="item 7"):
-        mgr.admit(1, 2, 0, caches, shared=[object()])
+    # prefix sharing over a real store: rid 0 publishes its two full
+    # blocks, rid 1 maps them read-only and takes one private block
+    mgr = PagedKVManager(6, 16, kv_block=2, prefix_store=PrefixStore())
+    caches = _toy_caches(torch.float32, n_phys=6, n_blocks=5)
+    caches = mgr.admit(rid=0, n_blocks=3, slot=0, caches=caches)
+    caches = mgr.publish(0, [1, 2, 3, 4, 5], 0, caches)
+    shared = mgr.match_prefix([1, 2, 3, 4, 9])
+    assert [sb.chunk for sb in shared] == [(1, 2), (3, 4)]
+    caches = mgr.admit(1, 3, 1, caches, shared=shared)
+    row = caches["block_table"][1].tolist()
+    assert row[:2] == [encode_shared(sb.phys) for sb in shared]
+    assert row[2] >= 0 and row[3:] == [-1, -1]
+    assert all(sb.refs == 2 for sb in shared)
+    assert mgr.report()["prefix"]["prefix_hits"] == 2
+    mgr.check_invariants()
 
 
 # ---------------------------------------------------------------------------

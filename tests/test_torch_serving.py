@@ -16,7 +16,7 @@ from repro.models import registry as jregistry
 from repro.models import transformer as jtf
 from repro_torch import bridge
 from repro_torch.core.syscore import UnknownProgramError
-from repro_torch.engine_config import EngineConfig
+from repro_torch.engine_config import EngineConfig, PagingConfig, SpecConfig
 from repro_torch.launch import serve as tserve
 from repro_torch.launch.serve import (METRIC_DECODE_MS, METRIC_OCCUPANCY,
                                       METRIC_TTFT_MS, ServingEngine)
@@ -63,8 +63,17 @@ def test_streams_equal_reference_generate_and_jax_engine(served):
 
 
 def test_group_prefill_is_not_accepted_yet():
-    with pytest.raises(NotImplementedError, match="group_prefill"):
-        EngineConfig(batch=2, max_len=64, device="cpu", group_prefill=True)
+    """``group_prefill`` builds the whole-batch ``prefill`` program; with
+    paging or speculation it still raises, as in the reference."""
+    eng = ServingEngine(ARCH, EngineConfig(batch=2, max_len=64, device="cpu",
+                                           group_prefill=True))
+    assert "prefill" in eng.programs and eng.group_prefill
+    with pytest.raises(ValueError, match="group_prefill"):
+        EngineConfig(batch=2, max_len=64, device="cpu", group_prefill=True,
+                     paging=PagingConfig())
+    with pytest.raises(ValueError, match="group_prefill"):
+        EngineConfig(batch=2, max_len=64, device="cpu", group_prefill=True,
+                     spec=SpecConfig())
 
 
 def test_hostcall_metrics_and_program_registry(served):
