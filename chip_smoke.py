@@ -21,10 +21,13 @@ and the script exits non-zero:
             bf16 and f32, with kernel, plain, library (``torch.matmul``, a
             yardstick only) and bound times (device time: a sleep kernel
             holds the card while the calls queue), the wrapper's host us
-            per call, and the plan (S, tiles) of each product; then at every
-            served (K, N), heads included, rows of a bf16 product at M in
-            {1, 2, 4, 8} must equal the rows computed alone (M = 37 and 256
-            reported);
+            per call, and the plan (S, tiles) of each product; the same in
+            bf16 at every (K, N) of llama3.2-3b, gemma3-4b, gemma3-12b and
+            internvl2-26b, heads included, at a decode batch and an
+            admission (a head timed as it comes, cold: larger than the L2
+            by itself); then at every served (K, N), heads included, rows
+            of a bf16 product at M in {1, 2, 4, 8} must equal the rows
+            computed alone (M = 37 and 256 reported);
 4. flash    K1 against ``flash_attention_ref`` over GQA, MHA, causal,
             window, ragged and right-aligned cases, each naming the route
             it took (bf16 at head dim 128 and 256: wgmma), with the same
@@ -40,7 +43,11 @@ and the script exits non-zero:
             the rows of a warm call (Sq 16 from 200) must equal the same
             rows of the cold call (Sq = Sk = 216) bit for bit on each
             route; the warm shapes of phase 16 timed (library: SDPA with
-            the boolean mask);
+            the boolean mask); then phases 18-21's layouts in bf16 (D 128
+            at G 3 and G 6, D 256 at G 2 with the "L" window of 1024 and
+            without), S 256 and 512 (and 1024 for gemma3-4b), each on the
+            wgmma route, batch 1's heads bit-equal to batch 2's, timed
+            beside causal SDPA;
 5. moe_ffn  K3 against ``moe_ffn_ref`` at the olmoe shapes (C = 1, 4, 37,
             40), small ragged shapes, and with per-expert row counts that
             leave experts empty, bf16 and f32, each naming its route (the
@@ -93,12 +100,15 @@ and the script exits non-zero:
             window 2048, tied head over vocab 256,000) in bf16 serving 8
             staggered requests, with the same checks for K1, K2 and K5,
             after a batch-4-vs-1 bit check of its decode layers;
-12. parity  reduced qwen3-0.6b, olmoe-1b-7b, mamba2-130m and
-            recurrentgemma-2b in fp32 on the card and on the CPU, with
-            weights drawn once: the greedy streams must be equal, through
-            the dense engine and through the paged engine (an arena of 6
-            blocks of 8 under 3 requests, timeslice 3), whose card streams
-            must also equal the dense engine's;
+12. parity  reduced qwen3-0.6b, olmoe-1b-7b, mamba2-130m,
+            recurrentgemma-2b, llama3.2-3b, gemma3-4b, gemma3-12b and
+            internvl2-26b in fp32 on the card and on the CPU, with weights
+            drawn once: the greedy streams must be equal, through the dense
+            engine and through the paged engine (an arena of 6 blocks of 8
+            under 3 requests, timeslice 3), whose card streams must also
+            equal the dense engine's; and internvl2's ``forward`` with 4
+            prefix embeddings from a numpy seed, card against CPU at
+            rtol/atol 1e-4;
 13. serve_paged  the paged KV arena at full width in bf16: qwen3-0.6b
             (16 requests) and recurrentgemma-2b (8 requests) through a
             ``PagingConfig(kv_block=8, arena_blocks=128, timeslice=8)``
@@ -175,7 +185,39 @@ and the script exits non-zero:
             once, streams equal ``reference_generate``, launches be exact,
             every K1 and K4 call take the wgmma route and the ``prefill``
             replay equal its eager function; the burst's admission ms is
-            reported beside 4 ``prefill_slot`` admissions'.
+            reported beside 4 ``prefill_slot`` admissions';
+18. serve_llama  llama3.2-3b at full width (28 layers, d 3072, 24 heads
+            over 8, tied head over vocab 129,024) in bf16, phases 8-11's
+            engines freed first: phase 8's workload and checks (streams
+            equal ``reference_generate``, launches exact: K2 7 L + 1 a
+            pass, K1 L an admission, K3-K5 none; every K1 call on the
+            wgmma route; 4 decode steps and one admission through the
+            graphs equal the eager functions bit for bit) and figures, and
+            (n_layers, d_model, padded_vocab) against the published config;
+19. serve_gemma3_4b  gemma3-4b at full width (34 layers = 5 x (5 L + G) +
+            4 L, d 2560, 8 heads over 4 of 256, window 1024, tied head over
+            vocab 262,144) with phase 18's checks; then its family row on
+            the same params: the paged engine (phase 13's geometry, 8
+            requests), the horizon engine (H 16, phase 14's workloads), the
+            speculative engine (k 3, phase 15's lookup prompts and forced
+            drafts), phase 16's sharing workload (the warm path) and, last,
+            an engine at prefill_len 1024 (the window) and max_len 1152
+            whose "L" caches are rings, serving 2 requests of 960 and 1000
+            tokens with 96 new each, so that decode wraps each ring; every
+            stream equal to ``reference_generate`` of its geometry;
+20. serve_gemma3_12b  gemma3-12b at full width (48 layers, d 3840, 16
+            heads over 8 of 256, d_ff 15,360) with phase 18's checks, 6
+            requests of 16 new tokens;
+21. serve_internvl2  internvl2-26b's text backbone at full width (48
+            layers, d 6144, 48 heads over 8, untied head over vocab 94,208)
+            with phase 18's checks, 6 requests of 16 new tokens, as the
+            reference's engine serves it; then its frontend: the
+            whole-batch ``prefill`` program, captured at batch 2 and 1,
+            with 256 patch embeddings (bf16, numpy seed 0) before 200 text
+            tokens (S = 456), and 16 greedy ``decode_step``s from its
+            cache: finite logits, batch 1 equal to row 0 of batch 2 bit for
+            bit (prefill logits and tokens), each replay equal to its eager
+            function.
 
 Then a ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.  The full record is also written to
@@ -660,14 +702,21 @@ def main():
     # -- 3. K2 matmul ----------------------------------------------------
     from repro_torch.models import registry
     full = registry.get_config("qwen3-0.6b")
-    n_layers, d_model, d_ff = full.n_layers, full.d_model, full.d_ff
+    n_layers, d_model = full.n_layers, full.d_model
     vocab = full.padded_vocab
     heads, kv_heads, hd = full.n_heads, full.n_kv_heads, full.resolved_head_dim
-    # (K, N) of each layer's products and how many of each: wq; wk, wv; wo;
-    # gate, up; down.  The tied head is (d_model, padded vocab).
-    per_layer = [((d_model, heads * hd), 1), ((d_model, kv_heads * hd), 2),
-                 ((heads * hd, d_model), 1), ((d_model, d_ff), 2),
-                 ((d_ff, d_model), 1)]
+
+    def dense_layer(c):
+        """(K, N) of a dense layer's products and how many of each: wq;
+        wk, wv; wo; gate, up; down."""
+        hd = c.resolved_head_dim
+        return [((c.d_model, c.n_heads * hd), 1),
+                ((c.d_model, c.n_kv_heads * hd), 2),
+                ((c.n_heads * hd, c.d_model), 1), ((c.d_model, c.d_ff), 2),
+                ((c.d_ff, c.d_model), 1)]
+
+    # qwen3's tied head is (d_model, padded vocab)
+    per_layer = dense_layer(full)
     per_step = n_layers * sum(c for _, c in per_layer) + 1
     # olmoe-1b-7b: wq, wk, wv (MHA) and wo of (d, d), the router (d, E);
     # the expert FFN is K3's; the untied head is a row-major (d, vocab)
@@ -705,6 +754,17 @@ def main():
     rg_pass = [(kn, c * rg_r) for kn, c in rg_r_layer] + \
         [(kn, c * rg_l) for kn, c in rg_l_layer]
     rg_per_step = sum(c for _, c in rg_pass) + 1
+    # the dense and vision-backbone configs of phases 18-21: each layer's
+    # 7 products and one head, tied (the (V, d) table read in place as
+    # embed.t()) or untied (internvl2's (d, V) lm_head)
+    new_cfgs = {a: registry.get_config(a) for a in (
+        "llama3.2-3b", "gemma3-4b", "gemma3-12b", "internvl2-26b")}
+    new_layers = {a: dense_layer(c) for a, c in new_cfgs.items()}
+    # {kernel: (per decode step, per admission)}: K2 7 L + 1, K1 L
+    new_passes = {a: {"matmul": (7 * c.n_layers + 1,) * 2,
+                      "flash_attention": (0, c.n_layers), "moe_ffn": (0, 0),
+                      "ssd_scan": (0, 0), "rglru_scan": (0, 0)}
+                  for a, c in new_cfgs.items()}
     # (K, N, head kind) per M: qwen3's at four batch sizes, olmoe's,
     # mamba2's and recurrentgemma's at the two their paths run (decode
     # batch, one admission)
@@ -821,6 +881,74 @@ def main():
             bits.append(row)
             del w, x, alone
         del table, tables
+        # phases 18-21's configs at full width, bf16: every served (K, N)
+        # against the plain version at a decode batch and an admission,
+        # timed there (kernel, plain, torch.matmul as the yardstick; the
+        # layers' weights rotated past the L2, a head, itself larger than
+        # the L2, timed as it comes: cold), and the rows of a product at M
+        # in {1, 2, 4, 8} bit-equal to the rows computed alone (37 and 256
+        # reported)
+        tol = MATMUL_TOL["bfloat16"]
+        new_checks = []
+        for arch, c in new_cfgs.items():
+            head_kn = (c.d_model, c.padded_vocab)
+            for k, n in sorted({kn for kn, _ in new_layers[arch]}) + \
+                    [head_kn]:
+                head = None if (k, n) != head_kn else \
+                    "tied" if c.tie_embeddings else "untied"
+                w = (crandn((n, k), torch.bfloat16, 0.02).t()
+                     if head == "tied" else
+                     crandn((k, n), torch.bfloat16,
+                            1.0 if head is None else 0.02))
+                xs = crandn((PREFILL_LEN, k), torch.bfloat16,
+                            1.0 / math.sqrt(k) if head is None else 1.0)
+                nbytes_w = k * n * 2
+                copies = [w] + [w.clone() for _ in range(
+                    min(63, (128 << 20) // nbytes_w))] if head is None \
+                    else [w]
+                it = {"i": 0}
+
+                def nxt():
+                    it["i"] += 1
+                    return copies[it["i"] % len(copies)]
+
+                for m in (BATCH, PREFILL_LEN):
+                    x = xs[:m]
+                    viol, err = max_violation(matmul(x, w),
+                                              matmul_ref(x, w), tol)
+                    if viol > 0:
+                        raise AssertionError(
+                            f"matmul {arch} bf16 M={m} K={k} N={n}: max "
+                            f"err {err} exceeds tol {tol}")
+                    b_ms, b_by = bound_ms((m * k + k * n + m * n) * 2,
+                                          2 * m * n * k, "bfloat16")
+                    row = {"arch": arch, "dtype": "bfloat16", "M": m,
+                           "K": k, "N": n, "head": head,
+                           "max_abs_err": err, "tol": tol,
+                           "ms": cuda_ms(torch, lambda: matmul(x, nxt())),
+                           "plain_ms": cuda_ms(
+                               torch, lambda: matmul_ref(x, nxt())),
+                           "library_ms": cuda_ms(
+                               torch, lambda: torch.matmul(x, nxt())),
+                           "bound_ms": b_ms, "bound_by": b_by,
+                           "host_us": host_us(torch, lambda: matmul(x, w)),
+                           "library_host_us": host_us(
+                               torch, lambda: torch.matmul(x, w)),
+                           "S": plan(k, n, torch.bfloat16).segments}
+                    row["bound_share"] = b_ms / row["ms"]
+                    new_checks.append(row)
+                    mm[("bfloat16", m, k, n)] = row
+                alone = torch.cat([matmul(xs[i:i + 1], w)
+                                   for i in range(PREFILL_LEN)])
+                row = {"arch": arch, "K": k, "N": n, "head": head,
+                       "S": plan(k, n, torch.bfloat16).segments}
+                for m in (1, 2, 4, 8, 37, 256):
+                    got = matmul(xs[:m], w)
+                    row[f"rows_differing_M{m}"] = int(
+                        (got != alone[:m]).any(dim=1).sum())
+                bits.append(row)
+                del w, xs, x, alone, copies, got
+        checks += new_checks
         out["bits"] = bits
         small_m_differ = [r for r in bits if any(
             r[f"rows_differing_M{m}"] for m in (1, 2, 4, 8))]
@@ -1092,6 +1220,69 @@ def main():
                 key = "recurrentgemma" + \
                     ("" if row["dtype"] == "bfloat16" else "_float32")
                 fa[key] = row
+        # phases 18-21's head layouts, bf16 (the wgmma route): llama's 24
+        # heads over 8 (G 3) and internvl2's 48 over 8 (G 6) at D 128,
+        # gemma3-4b's 8 over 4 and gemma3-12b's 16 over 8 at D 256 (G 2)
+        # with the "L" layers' window of 1024 and the "G" layers' none; S
+        # 256 (an admission), 512 (internvl2's patch prefill reaches 456)
+        # and, for gemma3-4b, 1024 (phase 19's ring engine).  Each against
+        # the plain version at B 2, batch 1's heads bit-equal to the batch
+        # 2 call's, then timed at B 1 beside causal SDPA (the window does
+        # not bite at S <= 1024) and the bound
+        fa_new = []
+        for arch, c in new_cfgs.items():
+            h, kv, d = c.n_heads, c.n_kv_heads, c.resolved_head_dim
+            windows = sorted({c.local_window if k_ == "L" else 0
+                              for k_ in c.pattern_for_layers()})
+            lens = (PREFILL_LEN, MAX_LEN) + \
+                ((1024,) if arch == "gemma3-4b" else ())
+            for window in windows:
+                for s_ in lens:
+                    q = randn((2 * h, s_, d), torch.bfloat16)
+                    k = randn((2 * kv, s_, d), torch.bfloat16)
+                    v = randn((2 * kv, s_, d), torch.bfloat16)
+                    before = dict(flash_attention.launches_by_route)
+                    got = flash_attention(q, k, v, window=window)
+                    took = [r for r, n in flash_attention.launches_by_route
+                            .items() if n != before[r]]
+                    want = flash_attention_ref(q, k, v, window=window)
+                    torch.cuda.synchronize()
+                    viol, err = max_violation(got, want,
+                                              FLASH_TOL["bfloat16"])
+                    one = flash_attention(q[:h].contiguous(),
+                                          k[:kv].contiguous(),
+                                          v[:kv].contiguous(), window=window)
+                    row = {"arch": arch, "dtype": "bfloat16", "H": h,
+                           "Hk": kv, "G": h // kv, "D": d, "causal": True,
+                           "window": window, "Sq": s_, "Sk": s_,
+                           "route": took, "max_abs_err": err,
+                           "tol": FLASH_TOL["bfloat16"],
+                           "bits_equal_B1_B2": torch.equal(one, got[:h])}
+                    if viol > 0 or took != ["wgmma"] or \
+                            not row["bits_equal_B1_B2"]:
+                        raise AssertionError(f"flash_attention at a new "
+                                             f"layout: {row}")
+                    q1, k1, v1 = q[:h], k[:kv], v[:kv]
+                    qs = q1[None]
+                    ks = k1.repeat_interleave(h // kv, 0)[None]
+                    vs = v1.repeat_interleave(h // kv, 0)[None]
+                    pairs = s_ * (s_ + 1) // 2
+                    b_ms, b_by = bound_ms((2 * h + 2 * kv) * s_ * d * 2,
+                                          4 * d * pairs * h, "bfloat16")
+                    row.update(
+                        ms=cuda_ms(torch, lambda: flash_attention(
+                            q1, k1, v1, window=window), iters=20),
+                        plain_ms=cuda_ms(torch, lambda: flash_attention_ref(
+                            q1, k1, v1, window=window), iters=20),
+                        library_ms=cuda_ms(
+                            torch, lambda: torch.nn.functional
+                            .scaled_dot_product_attention(
+                                qs, ks, vs, is_causal=True), iters=20),
+                        bound_ms=b_ms, bound_by=b_by)
+                    fa_new.append(row)
+                    if s_ == PREFILL_LEN and window == windows[-1]:
+                        fa[arch] = row
+            checks += [r for r in fa_new if r["arch"] == arch]
         out["detail"] = checks
         out["checks"] = len(checks)
         out["max_abs_err"] = max(c["max_abs_err"] for c in checks)
@@ -1115,6 +1306,7 @@ def main():
         for c in fa_rg:
             emit({"flash_attention_d256": {key: (round(v, 6) if isinstance(
                 v, float) else v) for key, v in c.items()}})
+        out["timed_new_layouts"] = fa_new
     flash_err = max(out["max_abs_err"], out["q_start_max_abs_err"])
     flash_bits = out["bits_equal_B1_B2"]
     flash_warm_cold = out["warm_equals_cold"]
@@ -1799,7 +1991,7 @@ def main():
     with phase("parity") as out:
         equal, paged_equal, paged_moves = {}, {}, {}
         for arch in ("qwen3-0.6b", "olmoe-1b-7b", "mamba2-130m",
-                     "recurrentgemma-2b"):
+                     "recurrentgemma-2b", *new_cfgs):
             config = EngineConfig(reduced=True, batch=2, max_len=64,
                                   clock="step")
             # the three requests need 3, 5 and 4 blocks of 8: an arena of
@@ -1850,9 +2042,41 @@ def main():
                                      f"nothing: {paged_moves}")
             equal[arch] = sum(len(s) for s in streams["cuda", "dense"])
             paged_equal[arch] = sum(len(s) for s in streams["cuda", "paged"])
+        # internvl2's frontend: forward with 4 patch embeddings from a
+        # numpy seed before 12 text tokens (row 1 right-padded), card
+        # against CPU at rtol/atol 1e-4, the model tolerance the CPU tests
+        # hold the port to the reference with (fp32 sums in other orders)
+        vcfg = registry.get_config("internvl2-26b", reduced=True)
+        vparams = transformer.init_params(vcfg, 7)
+        rng = np.random.default_rng(0)
+        vtok = rng.integers(1, vcfg.vocab_size, (2, 12)).astype(np.int32)
+        vtok[1, 7:] = 0
+        vpre = rng.standard_normal(
+            (2, vcfg.frontend_tokens, vcfg.d_model)).astype(np.float32)
+        vlen = np.asarray([vcfg.frontend_tokens + 12,
+                           vcfg.frontend_tokens + 7], np.int32)
+        vlogits = {}
+        for device in ("cuda", "cpu"):
+            vlogits[device], _ = transformer.forward(
+                vcfg, to_device(vparams, device),
+                torch.from_numpy(vtok).to(device),
+                prefix_embeds=torch.from_numpy(vpre).to(device),
+                mode="prefill",
+                caches=transformer.init_cache(vcfg, 2, 64, device=device),
+                lengths=torch.from_numpy(vlen).to(device))
+        frontend_err = float((vlogits["cuda"].cpu() - vlogits["cpu"])
+                             .abs().max())
+        if not torch.allclose(vlogits["cuda"].cpu(), vlogits["cpu"],
+                              rtol=1e-4, atol=1e-4):
+            raise AssertionError(f"internvl2 forward with prefix_embeds: "
+                                 f"card and CPU logits differ by "
+                                 f"{frontend_err}")
         out.update(dtype="float32", streams=3, tokens=equal, equal=True,
                    paged_tokens=paged_equal, paged_equal=True,
-                   paged_moves=paged_moves)
+                   paged_moves=paged_moves,
+                   frontend={"arch": "internvl2-26b", "prefix_embeds":
+                             vcfg.frontend_tokens, "text_tokens": 12,
+                             "max_abs_diff": frontend_err, "tol": 1e-4})
 
     # -- 13. the paged KV arena at full width -----------------------------
     def paged_workload(n_req, vocab_size):
@@ -2865,8 +3089,9 @@ def main():
         for arch, modes in (("qwen3-0.6b", ("plain", "spec", "horizon")),
                             ("recurrentgemma-2b", ("plain",)),
                             ("olmoe-1b-7b", ("plain",))):
-            _, want = reference_streams(arch, sharing_workload(),
-                                        PREFIX_MAX_NEW, 64, 32)
+            # (the reference engine is not kept: it holds arch's params)
+            want = reference_streams(arch, sharing_workload(),
+                                     PREFIX_MAX_NEW, 64, 32)[1]
             for mode in modes:
                 out[f"{arch}/{mode}"] = {}
                 serve_prefix_matrix(out[f"{arch}/{mode}"], arch, mode,
@@ -2953,6 +3178,216 @@ def main():
             out[arch] = {}
             serve_burst(out[arch], arch, serve_passes[arch])
 
+    # -- 18-21. the dense and vision-backbone configs at full width --------
+    # no later phase reuses phases 8-11's engines: free their ~21 GB of
+    # params first (internvl2's are ~40 GB); each new phase frees its own
+    served.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    published = {"llama3.2-3b": (28, 3072, 129_024),
+                 "gemma3-4b": (34, 2560, 262_144),
+                 "gemma3-12b": (48, 3840, 262_144),
+                 "internvl2-26b": (48, 6144, 94_208)}
+
+    def serve_new(out, arch, plens, arrivals, max_new):
+        """``serve_full`` for one of phases 18-21's configs: streams equal
+        ``reference_generate``, launches exact (K2 7 L + 1 a pass, K1 L an
+        admission, K3-K5 none), every K1 call on the wgmma route, graph ==
+        eager; then (n_layers, d_model, padded_vocab) against the
+        published config."""
+        eng, _, path_launches[arch] = serve_full(out, arch, plens, arrivals,
+                                                 max_new, new_passes[arch])
+        c = eng.cfg
+        if (c.n_layers, c.d_model, c.padded_vocab) != published[arch]:
+            raise AssertionError(f"{arch} is not at its published width: "
+                                 f"{c}")
+        if eng.params["embed"].shape != (c.padded_vocab, c.d_model) or \
+                ("lm_head" in eng.params) == c.tie_embeddings:
+            raise AssertionError(f"{arch}: head leaves "
+                                 f"{sorted(eng.params)}")
+        return eng
+
+    # phase 19's ring engine: gemma3-4b's window is 1024, so "L" caches
+    # are rings when max_len >= 1024; an engine needs prefill_len <
+    # max_len, so prefill_len is the window and max_len 1152
+    RING_PREFILL_LEN, RING_MAX_LEN, RING_NEW = 1024, 1152, 96
+
+    def serve_ring(out, arch):
+        """Two requests of 960 and 1000 tokens, 96 new each, at batch 2
+        through an engine whose "L" caches are rings of ``local_window``
+        slots ("G" caches flat, ``RING_MAX_LEN``): decode writes past
+        position 1024, so each ring wraps.  Streams against
+        ``reference_generate`` of this geometry, launches exact."""
+        eng, info = boot(arch, batch=2, max_len=RING_MAX_LEN,
+                         prefill_len=RING_PREFILL_LEN)
+        cfg = eng.cfg
+        unit = transformer.split_layers(cfg)[0]
+        lens = {unit[i]: eng.caches["groups"][f"slot{i}"]["k"].shape[2]
+                for i in range(len(unit))}
+        if lens != {"L": cfg.local_window, "G": RING_MAX_LEN}:
+            raise AssertionError(f"{arch}: cache slots by layer kind {lens}")
+        rng = np.random.default_rng(9)
+        work = [(rng.integers(1, cfg.vocab_size, size=n), RING_NEW, 0.0)
+                for n in (960, 1000)]
+        reqs, stats, launches, routes = serve_counted(eng, work)
+        check_launches(f"{arch}/ring", new_passes[arch], stats, launches,
+                       routes, {})
+        last_pos = max(r.prompt_len + len(r.generated) - 1 for r in reqs)
+        if last_pos <= cfg.local_window:
+            raise AssertionError(f"{arch}: decode ended at {last_pos}, the "
+                                 f"rings did not wrap")
+        mism = [r.rid for r in reqs if r.generated !=
+                eng.reference_generate(r.prompt, r.max_new)]
+        if mism:
+            raise AssertionError(f"{arch}: ring streams {mism} differ from "
+                                 f"reference_generate")
+        out.update(model=arch, batch=2, max_len=RING_MAX_LEN,
+                   prefill_len=RING_PREFILL_LEN, slots_by_kind=lens,
+                   prompt_lens=[r.prompt_len for r in reqs],
+                   max_new=RING_NEW, last_position=last_pos, boot=info,
+                   **{k: stats[k] for k in ("decode_steps", "admitted",
+                                            "tok_per_s", "decode_p50_ms")},
+                   launches=launches, streams_equal_reference=True, card=smi)
+        print(f"{arch} ring: {len(reqs)} requests to position {last_pos} "
+              f"over rings of {cfg.local_window}, tok/s "
+              f"{stats['tok_per_s']:.1f}", flush=True)
+
+    def serve_frontend(out, eng):
+        """internvl2's prefix-embedding path on the served params: the
+        whole-batch ``prefill`` program (``steps.make_prefill_step``) with
+        ``frontend_tokens`` (256) patch embeddings (bf16, numpy seed 0)
+        before 200 text tokens (S = 456; row 1 of batch 2 has 150), its
+        own Syscore capturing it at batch 2 and at batch 1, then 16 greedy
+        ``decode_step``s from its cache.  The logits must be finite, batch
+        1 equal row 0 of batch 2 bit for bit (prefill logits and the 16
+        tokens) and each replay its eager function; K2 and K1 launch as a
+        pass and an admission, every K1 on the wgmma route."""
+        from repro_torch import steps as steps_lib
+        from repro_torch.core.syscore import ProgramSpec, Syscore
+        cfg = eng.cfg
+        p, s_tok, decode_steps = cfg.frontend_tokens, 200, 16
+        rng = np.random.default_rng(0)
+        pre = torch.from_numpy(rng.standard_normal(
+            (2, p, cfg.d_model)).astype(np.float32)).to(dev, torch.bfloat16)
+        tok = torch.from_numpy(rng.integers(
+            1, cfg.vocab_size, (2, s_tok)).astype(np.int32))
+        tok[1, 150:] = 0
+        tok = tok.to(dev)
+        lengths = torch.tensor([p + s_tok, p + 150], dtype=torch.int32,
+                               device=dev)
+        syscore = Syscore(dev)
+        runs = {}
+        for b in (2, 1):
+            caches = transformer.init_cache(cfg, b, MAX_LEN, device=dev)
+            args = (tok[:b].clone(), lengths[:b].clone(), pre[:b].clone())
+            prog = syscore.hot_load(ProgramSpec(
+                f"prefill_b{b}", steps_lib.make_prefill_step(cfg),
+                resident=(eng.params, caches), inputs=args))
+            if prog.program.source != "cuda_graph":
+                raise AssertionError(f"prefill at batch {b} is not a "
+                                     f"captured graph")
+            before = clone_tree(caches)
+            ops.reset_launch_counts()
+            _, last = prog(eng.params, caches, *args)
+            launches, routes = ops.launch_counts(), ops.route_counts()
+            last = last.clone()
+            eager = clone_tree(before)
+            _, last_e = prog.program.fn(eng.params, eager, *args)
+            diffs = [f"cache {q}" for q in tree_diffs(torch, caches, eager)]
+            if not torch.equal(last, last_e):
+                diffs.append("last logits")
+            if diffs:
+                raise AssertionError(f"internvl2 prefill at batch {b}: the "
+                                     f"replay and its eager function differ:"
+                                     f" {diffs[:8]}")
+            del before, eager
+            want = {"matmul": 7 * cfg.n_layers + 1,
+                    "flash_attention": cfg.n_layers, "moe_ffn": 0,
+                    "ssd_scan": 0, "rglru_scan": 0}
+            if launches != want or \
+                    routes["flash_attention"]["wgmma"] != cfg.n_layers:
+                raise AssertionError(f"internvl2 prefill: launches "
+                                     f"{launches}, routes {routes}")
+            nt = transformer.greedy_token(cfg, last)[:, None]
+            toks, finite = [nt[:, 0].clone()], bool(last.isfinite().all())
+            for _ in range(decode_steps):
+                logits, _ = transformer.decode_step(cfg, eng.params, caches,
+                                                    nt)
+                finite &= bool(logits.isfinite().all())
+                nt = transformer.greedy_token(cfg, logits[:, 0])[:, None]
+                toks.append(nt[:, 0].clone())
+            if not finite:
+                raise AssertionError(f"internvl2 frontend: non-finite "
+                                     f"logits at batch {b}")
+            runs[b] = {"last": last, "tokens": torch.stack(toks, 1),
+                       "pos": caches["pos"].tolist(),
+                       "capture_s": prog.program.stats.compile_s,
+                       "graph_pool_mib":
+                           prog.program.stats.graph_bytes / 2 ** 20}
+            del caches
+        bit_equal = {
+            "prefill_logits": torch.equal(runs[1]["last"][0],
+                                          runs[2]["last"][0]),
+            "tokens": torch.equal(runs[1]["tokens"][0],
+                                  runs[2]["tokens"][0])}
+        if not all(bit_equal.values()):
+            raise AssertionError(f"internvl2 frontend: batch 1 differs from "
+                                 f"row 0 of batch 2: {bit_equal}")
+        out.update(prefix_embeds=p, text_tokens=[s_tok, 150],
+                   lengths=lengths.tolist(), decode_steps=decode_steps,
+                   tokens_row0=runs[1]["tokens"][0].tolist(),
+                   pos_after={b: r["pos"] for b, r in runs.items()},
+                   batch1_equals_row0_of_batch2=bit_equal,
+                   graph_equals_eager=True, logits_finite=True,
+                   programs={f"prefill_b{b}": {
+                       "capture_s": r["capture_s"],
+                       "graph_pool_mib": r["graph_pool_mib"]}
+                       for b, r in runs.items()}, card=smi)
+        del syscore, runs
+
+    with phase("serve_llama") as out:
+        eng = serve_new(out, "llama3.2-3b",
+                        [16, 200, 57, 120, 31, 180, 90, 140],
+                        [0, 0, 0, 0, 3, 9, 20, 40], MAX_NEW)
+        del eng
+
+    with phase("serve_gemma3_4b") as out:
+        arch = "gemma3-4b"
+        served[arch] = serve_new(out, arch,
+                                 [16, 200, 57, 120, 31, 180, 90, 140],
+                                 [0, 0, 0, 0, 3, 9, 20, 40], MAX_NEW)
+        # the family row at full width, on the same params
+        per_pass = new_passes[arch]
+        out["paged"] = {}
+        serve_paged(out["paged"], arch, 8, per_pass)
+        out["horizon"] = {}
+        serve_horizon(out["horizon"], arch, per_pass,
+                      [16, 200, 57, 120, 31, 180], [0, 0, 0, 0, 3, 9])
+        out["spec"] = {}
+        serve_spec(out["spec"], arch, per_pass, lookup_prompts(arch))
+        want = reference_streams(arch, sharing_workload(), PREFIX_MAX_NEW,
+                                 64, 32)[1]
+        out["prefix"] = {}
+        serve_prefix_matrix(out["prefix"], arch, "plain", per_pass, want)
+        out["ring"] = {}
+        serve_ring(out["ring"], arch)
+        served.clear()
+        gc.collect()
+
+    with phase("serve_gemma3_12b") as out:
+        eng = serve_new(out, "gemma3-12b", [16, 200, 57, 120, 31, 180],
+                        [0, 0, 0, 2, 3, 9], MOE_MAX_NEW)
+        del eng
+
+    with phase("serve_internvl2") as out:
+        # text only, as the reference's engine serves it; then the
+        # frontend path through the prefill program
+        eng = serve_new(out, "internvl2-26b", [16, 200, 57, 120, 31, 180],
+                        [0, 0, 0, 2, 3, 9], MOE_MAX_NEW)
+        out["frontend"] = {}
+        serve_frontend(out["frontend"], eng)
+        del eng
+
     def total(name):
         return sum(path[name] for path in path_launches.values())
 
@@ -2978,6 +3413,13 @@ def main():
     k2_rg = k2_aggregate("bfloat16", BATCH, rg_pass, 1, (rg_d, rg_vocab))
     k2_rg_prefill = k2_aggregate("bfloat16", PREFILL_LEN, rg_pass, 1,
                                  (rg_d, rg_vocab))
+    k2_new = {}
+    for arch, c in new_cfgs.items():
+        for m, key in ((BATCH, "per_decode_step"),
+                       (PREFILL_LEN, "prefill_per_admission")):
+            k2_new[f"{arch}_{key}"] = k2_aggregate(
+                "bfloat16", m, new_layers[arch], c.n_layers,
+                (c.d_model, c.padded_vocab))
     kernels = [
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -2996,6 +3438,7 @@ def main():
          "recurrentgemma_float32": fa["recurrentgemma_float32"],
          "warm": fa["warm"], "warm_bench": fa["warm_bench"],
          "warm_rows_equal_cold": flash_warm_cold,
+         "new_layouts": {arch: fa[arch] for arch in new_cfgs},
          "bits_equal_B1_B2": flash_bits, "build": k1_build},
         {"name": "matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/matmul.cu",
@@ -3016,6 +3459,7 @@ def main():
          "mamba2_prefill_per_admission": k2_ssm_prefill,
          "recurrentgemma_per_decode_step": k2_rg,
          "recurrentgemma_prefill_per_admission": k2_rg_prefill,
+         **k2_new,
          "bits": matmul_bits, "build": matmul_build},
         {"name": "moe_ffn", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/moe_ffn.cu",

@@ -16,6 +16,10 @@ the leading axis; caches ``pos`` and ``groups/slot0/{k,v}``, or
 no leading axis, the remainder layers ``tail/tail0`` and ``tail/tail1``,
 an attention layer under ``groups/slot2``; its caches are ``{conv, h}``
 under the recurrent layers' paths and ``{k, v}`` under ``groups/slot2``.
+gemma3's attention layers (pattern five "L", then "G") sit the same way
+under ``groups/slot0``-``slot5`` and ``tail/tail{i}``, and internvl2
+(family "vlm") has the dense layout with an untied ``lm_head``: no other
+leaf kind.
 The expected keys, shapes and dtypes are ``transformer.abstract_params``
 and ``abstract_cache``: a leaf that pins its dtype (the SSM's fp32
 ``a_log``, ``d_skip``, ``dt_bias`` and ``state``, the RG-LRU's fp32

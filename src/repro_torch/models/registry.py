@@ -8,7 +8,8 @@ from repro_torch.models.config import ModelConfig
 # archs whose config and model path the port carries; the reference serves
 # ten (ROADMAP Queue 1 item 8 brings the rest)
 PORTED_ARCHS = ("qwen3-0.6b", "olmoe-1b-7b", "qwen3-moe-30b-a3b",
-                "mamba2-130m", "recurrentgemma-2b")
+                "mamba2-130m", "recurrentgemma-2b", "llama3.2-3b",
+                "gemma3-4b", "gemma3-12b", "internvl2-26b")
 
 
 def _module_name(arch_id: str) -> str:

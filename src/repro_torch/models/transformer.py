@@ -47,14 +47,11 @@ LAYER_KINDS = ATTN_KINDS + ("M", "R")
 def check_supported(cfg):
     """Raise for what the port does not carry yet, naming the ROADMAP item
     that brings it."""
-    if cfg.is_encdec:
+    if cfg.is_encdec or cfg.frontend not in ("none", "vision"):
+        what = ("encoder-decoder models" if cfg.is_encdec
+                else f"the {cfg.frontend!r} frontend")
         raise NotImplementedError(
-            "encoder-decoder models are not ported yet (ROADMAP Queue 1 "
-            "item 8.6)")
-    if cfg.frontend != "none":
-        raise NotImplementedError(
-            "frontend prefix embeddings are not ported yet (ROADMAP Queue 1 "
-            "item 8.5)")
+            f"{what} are not ported yet (ROADMAP Queue 1 item 8.6)")
     if cfg.decode_cache_heads not in (0, cfg.n_kv_heads):
         raise NotImplementedError(
             "decode_cache_heads folding belongs to tensor-parallel serving "
@@ -447,11 +444,17 @@ def _embed_scale(d_model: int, dtype: torch.dtype) -> float:
     return torch.tensor(d_model ** 0.5, dtype=dtype).item()
 
 
-def embed(cfg, params, tokens):
-    """Token embeddings, times sqrt(d_model) for gemma configs: the scale
-    is rounded to the model dtype first, as the reference does (50.5 in
-    bf16 at d_model 2560, not 50.596)."""
+def embed_inputs(cfg, params, tokens, prefix_embeds=None):
+    """Token embeddings, after ``prefix_embeds`` (B, P, d) where given (a
+    frontend's precomputed patch embeddings, cast to the model dtype),
+    times sqrt(d_model) for gemma configs: the prefix is concatenated
+    before the scale, so it is scaled too, in the reference's order
+    (``repro/models/transformer.py:embed_inputs``).  The scale is rounded
+    to the model dtype first, as the reference does (50.5 in bf16 at
+    d_model 2560, not 50.596)."""
     x = apply_embedding(params["embed"], tokens)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     if cfg.scale_embeddings:
         x = x * _embed_scale(cfg.d_model, x.dtype)
     return x
@@ -464,13 +467,15 @@ def logits_from_hidden(cfg, params, x):
     return apply_lm_head(params["lm_head"], x)
 
 
-def forward(cfg, params, tokens, *, mode: str = "prefill", caches=None,
-            lengths=None):
-    """tokens: (B, S).  Prefill mode fills ``caches`` in place and sets its
-    ``pos`` to ``lengths`` (B,), each right-padded row's valid length
-    (default: S), i.e. each row's next decode position.  The programs pass
-    ``lengths`` as a tensor on the tokens' device: anything else is copied
-    there, which a CUDA graph capture refuses.
+def forward(cfg, params, tokens, *, prefix_embeds=None,
+            mode: str = "prefill", caches=None, lengths=None):
+    """tokens: (B, S_tok); prefix_embeds: (B, P, d) frontend embeddings
+    placed before the tokens, so the model runs S = P + S_tok positions.
+    Prefill mode fills ``caches`` in place and sets its ``pos`` to
+    ``lengths`` (B,), each right-padded row's valid length counting the
+    prefix (default: S), i.e. each row's next decode position.  The
+    programs pass ``lengths`` as a tensor on the tokens' device: anything
+    else is copied there, which a CUDA graph capture refuses.
 
     Returns (logits (B, S, V_padded), caches)."""
     check_supported(cfg)
@@ -478,8 +483,8 @@ def forward(cfg, params, tokens, *, mode: str = "prefill", caches=None,
         raise NotImplementedError(
             "forward runs in prefill mode with a cache; the training forward "
             "is not ported yet (ROADMAP Queue 1 item 14)")
-    x = embed(cfg, params, tokens)
-    b, s = tokens.shape
+    x = embed_inputs(cfg, params, tokens, prefix_embeds)
+    b, s = x.shape[0], x.shape[1]
     if lengths is None:
         pos = torch.full((b,), s, dtype=torch.int32, device=tokens.device)
     else:
@@ -517,7 +522,7 @@ def prefill_offset(cfg, params, caches, tokens, slot, offset, length):
     # arenas are (..., P + 1, bs, Hkv, hd), the last block the sink
     paged = attn_mod.paged_index(row, positions, arena.shape[-3],
                                  arena.shape[-4] - 1)
-    x = embed(cfg, params, tokens)
+    x = embed_inputs(cfg, params, tokens)
     x, caches = _run_stack(cfg, params, x, mode="suffix", caches=caches,
                            pos=positions, paged=paged)
     logits = logits_from_hidden(cfg, params, x)
@@ -563,7 +568,7 @@ def decode_step(cfg, params, caches, token, pos=None, *, live=None):
         pos = caches["pos"]
     pos = torch.as_tensor(pos, dtype=torch.int32, device=token.device)
     pos = pos.expand(b) if pos.dim() == 0 else pos
-    x = embed(cfg, params, token)
+    x = embed_inputs(cfg, params, token)
     arena = next((layer["k"] for top in ("groups", "tail")
                   for layer in caches[top].values() if "k" in layer), None)
     paged = None

@@ -37,17 +37,21 @@ def warm_prefix_capable(cfg) -> bool:
 
 
 def make_prefill_step(cfg):
-    """prefill(params, caches, tokens (B, S), lengths (B,)) -> (caches,
-    last (B, V)).
+    """prefill(params, caches, tokens (B, S_tok), lengths (B,)[,
+    prefix_embeds (B, P, d)]) -> (caches, last (B, V)).
 
     Burst admission: one whole-batch prefill into the live dense tree,
     every row rewritten; row b is right-padded to S, its ``pos`` set to
     ``lengths[b]`` and its ``last`` taken at position ``lengths[b] - 1``
     (``repro/steps.py:make_prefill_step``).  ``lengths`` is an int32
-    device tensor, read by index, never on the host."""
-    def prefill(params, caches, tokens, lengths):
+    device tensor, read by index, never on the host.  A frontend's
+    ``prefix_embeds`` (the reference's ``batch["prefix_embeds"]``) run
+    before the tokens: S = P + S_tok, and ``lengths`` counts the prefix.
+    The engine's burst path passes none."""
+    def prefill(params, caches, tokens, lengths, prefix_embeds=None):
         lengths = lengths.to(device=tokens.device, dtype=torch.int32)
         logits, caches = transformer.forward(cfg, params, tokens,
+                                             prefix_embeds=prefix_embeds,
                                              mode="prefill", caches=caches,
                                              lengths=lengths)
         idx = (lengths - 1).long()[:, None, None].expand(

@@ -244,7 +244,7 @@ def test_embedding_scale_is_bit_equal_to_reference_in_bf16():
     tokens = rng.integers(0, 64, (2, 5)).astype(np.int32)
     want = jtf.embed_inputs(jcfg, {"embed": table}, jnp.asarray(tokens),
                             None, RULES)
-    got = ttf.embed(cfg, {"embed": bridge._leaf_from_numpy(
+    got = ttf.embed_inputs(cfg, {"embed": bridge._leaf_from_numpy(
         np.asarray(table), "cpu")}, torch.from_numpy(tokens))
     assert got.dtype == torch.bfloat16
     assert bridge.to_numpy(got).tobytes() == \

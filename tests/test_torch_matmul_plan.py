@@ -18,7 +18,8 @@ from repro_torch.models import registry, transformer
 from repro_torch.models.layers import Leaf
 
 FULL = ("qwen3-0.6b", "olmoe-1b-7b", "qwen3-moe-30b-a3b", "mamba2-130m",
-        "recurrentgemma-2b")
+        "recurrentgemma-2b", "llama3.2-3b", "gemma3-4b", "gemma3-12b",
+        "internvl2-26b")
 # the leaves layers.linear and the MoE router hand K2 as (K, N) weights
 K2_LEAVES = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "w_in",
              "w_out", "w_x", "router", "lm_head"}

@@ -46,7 +46,7 @@ def test_configs_match_reference():
         assert repr(t) == repr(j)
         assert t.padded_vocab == j.padded_vocab
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        tregistry.get_config("gemma3-4b")
+        tregistry.get_config("seamless-m4t-medium")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -248,5 +248,7 @@ def test_unported_paths_raise():
     tok = torch.zeros((1, 1), dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
         ttf.forward(cfg, params, tok, mode="train")
-    with pytest.raises(NotImplementedError, match="item 8.5"):
-        ttf.check_supported(cfg.replace(frontend="vision"))
+    ttf.check_supported(cfg.replace(frontend="vision", frontend_tokens=4))
+    for change in ({"frontend": "audio"}, {"n_enc_layers": 2}):
+        with pytest.raises(NotImplementedError, match="item 8.6"):
+            ttf.check_supported(cfg.replace(**change))

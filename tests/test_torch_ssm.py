@@ -223,11 +223,13 @@ def test_ssm_configs_match_reference():
 
 
 def test_other_layer_kinds_still_raise():
-    """"L" and "R" are ported with recurrentgemma-2b; an unknown kind and
-    the paths still to port raise, naming their ROADMAP item."""
+    """"L" and "R" are ported with recurrentgemma-2b and the vision
+    frontend with internvl2-26b; an unknown kind and the paths still to
+    port raise, naming their ROADMAP item."""
     cfg = tregistry.get_config(ARCH, reduced=True)
+    ttf.check_supported(cfg.replace(frontend="vision", frontend_tokens=4))
     for change, match in (({"layer_pattern": ("X", "M")}, "not one the port"),
-                          ({"frontend": "vision"}, "item 8.5"),
+                          ({"frontend": "audio"}, "item 8.6"),
                           ({"n_enc_layers": 2}, "item 8.6"),
                           ({"decode_cache_heads": 4}, "item 13")):
         with pytest.raises(NotImplementedError, match=match):
