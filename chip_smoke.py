@@ -23,9 +23,13 @@ and the script exits non-zero:
             holds the card while the calls queue), the wrapper's host us
             per call, and the plan (S, tiles) of each product; the same in
             bf16 at every (K, N) of llama3.2-3b, gemma3-4b, gemma3-12b and
-            internvl2-26b, heads included, at a decode batch and an
-            admission (a head timed as it comes, cold: larger than the L2
-            by itself); then at every served (K, N), heads included, rows
+            internvl2-26b, and at seamless-m4t-medium's new ones (d_ff
+            4096 both ways and its untied head of 258,048), heads
+            included, at a decode batch and an admission (a head timed as
+            it comes, cold: larger than the L2 by itself), and
+            seamless's products at its prefill's M too (B x S_enc = 2,000,
+            B x S_dec = 52), each with the x tile route() took; then at every
+            served (K, N), heads included, rows
             of a bf16 product at M in {1, 2, 4, 8} must equal the rows
             computed alone (M = 37 and 256 reported);
 4. flash    K1 against ``flash_attention_ref`` over GQA, MHA, causal,
@@ -47,7 +51,14 @@ and the script exits non-zero:
             at G 3 and G 6, D 256 at G 2 with the "L" window of 1024 and
             without), S 256 and 512 (and 1024 for gemma3-4b), each on the
             wgmma route, batch 1's heads bit-equal to batch 2's, timed
-            beside causal SDPA;
+            beside causal SDPA; then phase 22's layouts (16 heads over 16)
+            in bf16 and f32 at D 64, the SIMT route: bidirectional at S
+            500, cross-attention of 13 queries over 500 keys, causal self
+            at 13, and causal=False with 600 queries over 512 keys; the
+            causal=False cases at D 128 too (bf16: wgmma); each naming its
+            route, bf16 heads at batch 1 bit-equal to batch 2; the D 64
+            layouts timed at batch 4 beside SDPA (``is_causal`` for the
+            causal self-attention alone);
 5. moe_ffn  K3 against ``moe_ffn_ref`` at the olmoe shapes (C = 1, 4, 37,
             40), small ragged shapes, and with per-expert row counts that
             leave experts empty, bf16 and f32, each naming its route (the
@@ -106,9 +117,12 @@ and the script exits non-zero:
             drawn once: the greedy streams must be equal, through the dense
             engine and through the paged engine (an arena of 6 blocks of 8
             under 3 requests, timeslice 3), whose card streams must also
-            equal the dense engine's; and internvl2's ``forward`` with 4
+            equal the dense engine's; internvl2's ``forward`` with 4
             prefix embeddings from a numpy seed, card against CPU at
-            rtol/atol 1e-4;
+            rtol/atol 1e-4; and reduced seamless-m4t-medium's two programs
+            (12 frames, 6 prompt tokens, batch 2): the prefill's last
+            logits card against CPU at rtol/atol 1e-4, and 8 greedy tokens
+            a row equal;
 13. serve_paged  the paged KV arena at full width in bf16: qwen3-0.6b
             (16 requests) and recurrentgemma-2b (8 requests) through a
             ``PagingConfig(kv_block=8, arena_blocks=128, timeslice=8)``
@@ -217,7 +231,27 @@ and the script exits non-zero:
             tokens (S = 456), and 16 greedy ``decode_step``s from its
             cache: finite logits, batch 1 equal to row 0 of batch 2 bit for
             bit (prefill logits and tokens), each replay equal to its eager
-            function.
+            function;
+22. serve_seamless  seamless-m4t-medium, the encoder-decoder, at full
+            width (12 encoder and 12 decoder layers, d 1024, 16 heads of
+            64, d_ff 4096, untied head over vocab 258,048) in bf16, weights
+            drawn on the card from seed 0, through the encdec branches of
+            ``steps.make_prefill_step`` and ``make_serve_step`` captured
+            as CUDA graphs (``steps.encdec_program_specs``): batch 4, frames
+            (4, 500, 1024) and 13-token prompts from numpy seed 0, 48
+            greedy tokens a row.  Launches exact (K1 36 a prefill, every
+            one on the SIMT route, none a decode step; K2 217 a prefill and
+            109 a step; K3-K5 none); one prefill and 4 decode steps through
+            the graphs equal the eager functions bit for bit (logits,
+            tokens, every cache leaf, the cross K/V included); each request
+            alone at batch 1 gives its row's prefill logits and 48 tokens
+            bit for bit; logits finite; ``decode_attention``'s rows at
+            batch 4 equal the rows alone at every ported head layout and
+            cache lengths on and off a multiple of 64 (the batched scores
+            einsum's rows reported beside them).  Reported: decode p50 and
+            tok/s, prefill ms, device time by kernel family and idle share
+            of a decode step and of a prefill, K2's time a step and a
+            prefill beside its bound and ``torch.matmul``, memory.
 
 Then a ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.  The full record is also written to
@@ -765,6 +799,26 @@ def main():
                       "flash_attention": (0, c.n_layers), "moe_ffn": (0, 0),
                       "ssd_scan": (0, 0), "rglru_scan": (0, 0)}
                   for a, c in new_cfgs.items()}
+    # seamless-m4t-medium (phase 22): an encoder layer runs a dense layer's
+    # 7 products; a decoder layer's prefill adds the cross wq, wk, wv and
+    # wo (11), its decode step the cross wq and wo alone (9: the cross K/V
+    # are cached); one untied head (d, padded vocab).  K1 runs 3 calls a
+    # layer pair at a prefill (encoder, decoder self, cross), none a step
+    sm = registry.get_config("seamless-m4t-medium")
+    # phase 22's workload: 500 frames and 13 prompt tokens are ragged
+    # against K1's 16- and 32-row SIMT tiles; 48 new tokens fill the 64
+    # self-cache slots to 60
+    SM_ENC, SM_PROMPT, SM_NEW, SM_DEC_LEN = 500, 13, 48, 64
+    sm_hd = sm.resolved_head_dim
+    sm_q = (sm.d_model, sm.n_heads * sm_hd)
+    sm_o = (sm.n_heads * sm_hd, sm.d_model)
+    new_layers["seamless-m4t-medium"] = dense_layer(sm)
+    sm_step_layer = dense_layer(sm) + [(sm_q, 1), (sm_o, 1)]
+    sm_passes = {
+        "matmul": (9 * sm.n_layers + 1,
+                   7 * sm.n_enc_layers + 11 * sm.n_layers + 1),
+        "flash_attention": (0, sm.n_enc_layers + 2 * sm.n_layers),
+        "moe_ffn": (0, 0), "ssd_scan": (0, 0), "rglru_scan": (0, 0)}
     # (K, N, head kind) per M: qwen3's at four batch sizes, olmoe's,
     # mamba2's and recurrentgemma's at the two their paths run (decode
     # batch, one admission)
@@ -881,26 +935,39 @@ def main():
             bits.append(row)
             del w, x, alone
         del table, tables
-        # phases 18-21's configs at full width, bf16: every served (K, N)
+        # phases 18-22's configs at full width, bf16: every served (K, N)
         # against the plain version at a decode batch and an admission,
         # timed there (kernel, plain, torch.matmul as the yardstick; the
         # layers' weights rotated past the L2, a head, itself larger than
         # the L2, timed as it comes: cold), and the rows of a product at M
         # in {1, 2, 4, 8} bit-equal to the rows computed alone (37 and 256
-        # reported)
+        # reported).  seamless's prefill runs its products at two more M:
+        # the encoder's and the cross K/V's at B x S_enc (2,000, where
+        # route() takes 128-row x tiles with a ragged last one) and the
+        # decoder's and the head at B x S_dec (52)
         tol = MATMUL_TOL["bfloat16"]
         new_checks = []
-        for arch, c in new_cfgs.items():
+        for arch, c in {**new_cfgs, "seamless-m4t-medium": sm}.items():
             head_kn = (c.d_model, c.padded_vocab)
-            for k, n in sorted({kn for kn, _ in new_layers[arch]}) + \
-                    [head_kn]:
+            kns = sorted({kn for kn, _ in new_layers[arch]})
+            ms = {kn: [BATCH, PREFILL_LEN] for kn in kns + [head_kn]}
+            if arch == "seamless-m4t-medium":
+                for kn in kns:
+                    # its (1024, 1024) at BATCH and PREFILL_LEN is
+                    # qwen3's, checked, timed and bit-checked above
+                    if ("bfloat16", BATCH, *kn) in mm:
+                        ms[kn] = []
+                    ms[kn] += [BATCH * SM_PROMPT, BATCH * SM_ENC]
+                ms[head_kn].append(BATCH * SM_PROMPT)
+            for k, n in kns + [head_kn]:
                 head = None if (k, n) != head_kn else \
                     "tied" if c.tie_embeddings else "untied"
                 w = (crandn((n, k), torch.bfloat16, 0.02).t()
                      if head == "tied" else
                      crandn((k, n), torch.bfloat16,
                             1.0 if head is None else 0.02))
-                xs = crandn((PREFILL_LEN, k), torch.bfloat16,
+                xs = crandn((max(ms[(k, n)] + [PREFILL_LEN]), k),
+                            torch.bfloat16,
                             1.0 / math.sqrt(k) if head is None else 1.0)
                 nbytes_w = k * n * 2
                 copies = [w] + [w.clone() for _ in range(
@@ -912,7 +979,7 @@ def main():
                     it["i"] += 1
                     return copies[it["i"] % len(copies)]
 
-                for m in (BATCH, PREFILL_LEN):
+                for m in ms[(k, n)]:
                     x = xs[:m]
                     viol, err = max_violation(matmul(x, w),
                                               matmul_ref(x, w), tol)
@@ -935,9 +1002,14 @@ def main():
                            "library_host_us": host_us(
                                torch, lambda: torch.matmul(x, w)),
                            "S": plan(k, n, torch.bfloat16).segments}
+                    row["x_rows"], row["split"] = route(
+                        plan(k, n, torch.bfloat16), m, n)
                     row["bound_share"] = b_ms / row["ms"]
                     new_checks.append(row)
                     mm[("bfloat16", m, k, n)] = row
+                if BATCH not in ms[(k, n)]:
+                    del w, xs, x, copies
+                    continue
                 alone = torch.cat([matmul(xs[i:i + 1], w)
                                    for i in range(PREFILL_LEN)])
                 row = {"arch": arch, "K": k, "N": n, "head": head,
@@ -1283,6 +1355,83 @@ def main():
                     if s_ == PREFILL_LEN and window == windows[-1]:
                         fa[arch] = row
             checks += [r for r in fa_new if r["arch"] == arch]
+        # seamless-m4t-medium's layouts (phase 22), MHA 16 heads over 16:
+        # at its D 64 in bf16 and f32 (the SIMT route) the encoder's
+        # bidirectional self-attention (S 500), the decoder's cross-
+        # attention (13 queries over 500 keys) and its causal self-
+        # attention (13), then causal=False with more queries than keys
+        # (600 over 512); the same causal=False cases at D 128 (bf16: the
+        # wgmma route).  Each against the plain version at B 2, its route
+        # named, a bf16 case's batch-1 heads bit-equal to the batch-2
+        # call's; then the D 64 layouts in bf16 timed at phase 22's batch
+        # beside SDPA (is_causal for the causal self-attention alone) and
+        # the bound
+        sm_h, sm_kv = sm.n_heads, sm.n_kv_heads
+        sm_layouts = [(sm_hd, False, 500, 500), (sm_hd, False, 13, 500),
+                      (sm_hd, True, 13, 13), (sm_hd, False, 600, 512),
+                      (128, False, 500, 500), (128, False, 13, 500),
+                      (128, False, 600, 512)]
+        fa_sm = []
+        for dname, dt in dtypes.items():
+            tol = FLASH_TOL[dname]
+            for d, causal, sq, sk in sm_layouts:
+                q = randn((2 * sm_h, sq, d), dt)
+                k = randn((2 * sm_kv, sk, d), dt)
+                v = randn((2 * sm_kv, sk, d), dt)
+                before = dict(flash_attention.launches_by_route)
+                got = flash_attention(q, k, v, causal=causal)
+                took = [r for r, n in flash_attention.launches_by_route
+                        .items() if n != before[r]]
+                want = flash_attention_ref(q, k, v, causal=causal)
+                torch.cuda.synchronize()
+                viol, err = max_violation(got, want, tol)
+                row = {"arch": "seamless-m4t-medium", "dtype": dname,
+                       "H": sm_h, "Hk": sm_kv, "D": d, "causal": causal,
+                       "window": 0, "Sq": sq, "Sk": sk, "route": took,
+                       "max_abs_err": err, "tol": tol}
+                if dt == torch.bfloat16:
+                    one = flash_attention(q[:sm_h].contiguous(),
+                                          k[:sm_kv].contiguous(),
+                                          v[:sm_kv].contiguous(),
+                                          causal=causal)
+                    row["bits_equal_B1_B2"] = torch.equal(one, got[:sm_h])
+                if viol > 0 or took != [fa_route(dt, d)] or \
+                        not row.get("bits_equal_B1_B2", True):
+                    raise AssertionError(f"flash_attention at a seamless "
+                                         f"layout: {row}")
+                fa_sm.append(row)
+        for key, (d, causal, sq, sk) in zip(
+                ("seamless_encoder", "seamless_cross", "seamless_self"),
+                sm_layouts[:3]):
+            q = randn((BATCH * sm_h, sq, d), torch.bfloat16)
+            k = randn((BATCH * sm_kv, sk, d), torch.bfloat16)
+            v = randn((BATCH * sm_kv, sk, d), torch.bfloat16)
+            qs = q.reshape(BATCH, sm_h, sq, d)
+            ks = k.reshape(BATCH, sm_kv, sk, d)
+            vs = v.reshape(BATCH, sm_kv, sk, d)
+            pairs = sq * (sq + 1) // 2 if causal else sq * sk
+            b_ms, b_by = bound_ms(BATCH * (2 * sm_h * sq + 2 * sm_kv * sk)
+                                  * d * 2, BATCH * 4 * d * pairs * sm_h,
+                                  "bfloat16")
+            fa[key] = {
+                "arch": "seamless-m4t-medium", "dtype": "bfloat16",
+                "B": BATCH, "H": sm_h, "Hk": sm_kv, "D": d,
+                "causal": causal, "Sq": sq, "Sk": sk,
+                "route": fa_route(torch.bfloat16, d),
+                "ms": cuda_ms(torch, lambda: flash_attention(
+                    q, k, v, causal=causal), iters=20),
+                "plain_ms": cuda_ms(torch, lambda: flash_attention_ref(
+                    q, k, v, causal=causal), iters=20),
+                "library_ms": cuda_ms(
+                    torch, lambda: torch.nn.functional
+                    .scaled_dot_product_attention(qs, ks, vs,
+                                                  is_causal=causal),
+                    iters=20),
+                "bound_ms": b_ms, "bound_by": b_by}
+            emit({f"flash_attention_{key}": {
+                k_: (round(v_, 6) if isinstance(v_, float) else v_)
+                for k_, v_ in fa[key].items()}})
+        checks += fa_sm
         out["detail"] = checks
         out["checks"] = len(checks)
         out["max_abs_err"] = max(c["max_abs_err"] for c in checks)
@@ -1596,9 +1745,11 @@ def main():
     k5_plain_bits, k5_bits = out["bit_equal"], out["bits_equal_B1"]
 
     # -- 8-11. the served paths at full width --------------------------------
+    from repro_torch import steps as steps_lib
+    from repro_torch.core.syscore import Syscore
     from repro_torch.engine_config import EngineConfig, PagingConfig
     from repro_torch.launch.serve import ServingEngine
-    from repro_torch.models import transformer
+    from repro_torch.models import attention as attn_mod, encdec, transformer
 
     def serve_full(out, arch, plens, arrivals, max_new, per_pass):
         """Serve staggered requests through one full-width bf16 engine;
@@ -2071,12 +2222,61 @@ def main():
             raise AssertionError(f"internvl2 forward with prefix_embeds: "
                                  f"card and CPU logits differ by "
                                  f"{frontend_err}")
+        # seamless-m4t-medium: its two programs (captured graphs on the
+        # card) on 12 frames from a numpy seed and 6 prompt tokens a row,
+        # batch 2: the prefill's last logits card against CPU at rtol/atol
+        # 1e-4, then 8 greedy tokens a row (the prefill's and 7 decode
+        # steps'), equal
+        scfg = registry.get_config("seamless-m4t-medium", reduced=True)
+        sparams = encdec.init_params(scfg, 7, device="cpu")
+        rng = np.random.default_rng(0)
+        sframes = torch.from_numpy((rng.standard_normal(
+            (2, 12, scfg.d_model)) * 0.02).astype(np.float32))
+        stok = torch.from_numpy(rng.integers(
+            1, scfg.vocab_size, (2, 6)).astype(np.int32))
+        slast, sstream = {}, {}
+        for device in ("cuda", "cpu"):
+            sp = to_device(sparams, device)
+            scaches = encdec.init_cache(scfg, 2, 16, 12, device=device)
+            sysc = Syscore(device)
+            sprogs = {k_: sysc.hot_load(spec) for k_, spec in
+                      steps_lib.encdec_program_specs(scfg, sp, scaches,
+                                                     6).items()}
+            if device == "cuda" and any(
+                    p["source"] != "cuda_graph"
+                    for p in sysc.report()["programs"].values()):
+                raise AssertionError(f"seamless programs are not captured "
+                                     f"graphs: {sysc.report()['programs']}")
+            for t in leaves(scaches):       # the warm-ups wrote them
+                t.zero_()
+            _, last = sprogs["prefill"](sp, scaches, sframes.to(device),
+                                        stok.to(device))
+            slast[device] = last.cpu()
+            tok = transformer.greedy_token(scfg, last)[:, None]
+            toks = [tok.cpu()]
+            for i in range(7):
+                _, tok, _ = sprogs["decode"](sp, scaches, tok, 6 + i)
+                toks.append(tok.cpu())
+            sstream[device] = torch.cat(toks, 1).tolist()
+            del sysc, sprogs, scaches
+        seamless_err = float((slast["cuda"] - slast["cpu"]).abs().max())
+        if not torch.allclose(slast["cuda"], slast["cpu"], rtol=1e-4,
+                              atol=1e-4):
+            raise AssertionError(f"seamless prefill: card and CPU last "
+                                 f"logits differ by {seamless_err}")
+        if sstream["cuda"] != sstream["cpu"]:
+            raise AssertionError(f"seamless: card and CPU greedy streams "
+                                 f"differ: {sstream}")
         out.update(dtype="float32", streams=3, tokens=equal, equal=True,
                    paged_tokens=paged_equal, paged_equal=True,
                    paged_moves=paged_moves,
                    frontend={"arch": "internvl2-26b", "prefix_embeds":
                              vcfg.frontend_tokens, "text_tokens": 12,
-                             "max_abs_diff": frontend_err, "tol": 1e-4})
+                             "max_abs_diff": frontend_err, "tol": 1e-4},
+                   seamless={"frames": 12, "prompt": 6, "batch": 2,
+                             "last_logits_max_abs_diff": seamless_err,
+                             "tol": 1e-4, "tokens": sstream["cuda"],
+                             "streams_equal": True})
 
     # -- 13. the paged KV arena at full width -----------------------------
     def paged_workload(n_req, vocab_size):
@@ -3388,6 +3588,283 @@ def main():
         serve_frontend(out["frontend"], eng)
         del eng
 
+    # -- 22. seamless-m4t-medium, the encoder-decoder ----------------------
+    def serve_seamless(out):
+        """seamless-m4t-medium at full width in bf16, weights drawn on the
+        card from seed 0, through the reference's entry points for the
+        family (``steps.make_prefill_step``'s encdec branch and
+        ``make_serve_step``'s ``serve_step_encdec``) hot-loaded as CUDA
+        graphs (``steps.encdec_program_specs``): batch 4, frames (4, 500,
+        1024) and prompts of 13 tokens from numpy seed 0, 48 greedy tokens
+        a row (the prefill's and 47 decode steps').  Checks: both programs
+        captured; launches exact (K1 36 a prefill, all SIMT, none a step;
+        K2 217 a prefill, 109 a step; K3-K5 none); one prefill and 4
+        decode steps through the graphs equal the eager functions bit for
+        bit (logits, tokens, every cache leaf); each request alone at
+        batch 1 gives its row's 48 tokens and prefill logits bit for bit;
+        finite logits.  Reported: decode p50 and tok/s (host clock, each
+        step ended by reading its tokens back), prefill ms, device time by
+        kernel family and idle share of a decode step and of a prefill,
+        K2's per step beside its bound and torch.matmul, memory."""
+        arch = "seamless-m4t-medium"
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = encdec.init_params(sm, 0, device=dev)
+        torch.cuda.synchronize()
+        draw_s = time.perf_counter() - t0
+        draw_peak = torch.cuda.max_memory_allocated()
+        if (sm.n_enc_layers, sm.n_layers, sm.d_model, sm.padded_vocab) != \
+                (12, 12, 1024, 258_048) or \
+                params["lm_head"].dtype != torch.bfloat16:
+            raise AssertionError(f"{arch} is not at its published width in "
+                                 f"bf16: {sm}")
+        param_bytes = sum(t.numel() * t.element_size()
+                          for t in leaves(params))
+        rng = np.random.default_rng(0)
+        frames = torch.from_numpy((rng.standard_normal(
+            (BATCH, SM_ENC, sm.d_model)) * 0.02).astype(np.float32)).to(
+                dev, torch.bfloat16)
+        prompts = torch.from_numpy(rng.integers(
+            1, sm.vocab_size, (BATCH, SM_PROMPT)).astype(np.int32)).to(dev)
+
+        def boot_programs(b):
+            caches = encdec.init_cache(sm, b, SM_DEC_LEN, SM_ENC, device=dev)
+            syscore = Syscore(dev)
+            t1 = time.perf_counter()
+            progs = {k_: syscore.hot_load(spec) for k_, spec in
+                     steps_lib.encdec_program_specs(sm, params, caches,
+                                                    SM_PROMPT).items()}
+            torch.cuda.synchronize()
+            report = syscore.report()["programs"]
+            for name, prog in report.items():
+                print(f"{arch} batch {b} {name}: source {prog['source']}, "
+                      f"lower_s {prog['lower_s']:.4f}, compile_s "
+                      f"{prog['compile_s']:.4f}", flush=True)
+                if prog["source"] != "cuda_graph" or \
+                        not prog["compile_s"] > 0:
+                    raise AssertionError(f"{arch} {name} is not a captured "
+                                         f"graph: {prog}")
+            return syscore, caches, progs, time.perf_counter() - t1
+
+        def generate(progs, caches, fr, pr):
+            """A fresh cache, the prefill, then SM_NEW - 1 decode steps;
+            returns the prefill's last logits, the (b, SM_NEW) tokens,
+            host ms of the prefill and of each step (each ended by
+            reading its tokens back) and whether every logit was
+            finite."""
+            for t in leaves(caches):
+                t.zero_()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            _, last = progs["prefill"](params, caches, fr, pr)
+            tok = transformer.greedy_token(sm, last)[:, None]
+            toks = [tok.cpu()]
+            prefill_ms = 1e3 * (time.perf_counter() - t1)
+            last = last.clone()
+            finite = bool(last.isfinite().all())
+            step_ms = []
+            for i in range(SM_NEW - 1):
+                t1 = time.perf_counter()
+                _, tok, logits = progs["decode"](params, caches, tok,
+                                                 SM_PROMPT + i)
+                toks.append(tok.cpu())
+                step_ms.append(1e3 * (time.perf_counter() - t1))
+                finite &= bool(logits.isfinite().all())
+            return last, torch.cat(toks, 1), prefill_ms, step_ms, finite
+
+        def exact(launches, routes, prefills, steps_):
+            want = {name: step * steps_ + pre * prefills
+                    for name, (step, pre) in sm_passes.items()}
+            k1 = routes["flash_attention"]
+            if launches != want or k1["simt"] != want["flash_attention"] \
+                    or k1["wgmma"]:
+                raise AssertionError(f"{arch}: launches {launches}, routes "
+                                     f"{routes}, expected {want}, every K1 "
+                                     f"call on the SIMT route")
+
+        syscore, caches, progs, load_s = boot_programs(BATCH)
+        after_boot = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        last4, toks4, prefill_ms, step_ms, finite = generate(
+            progs, caches, frames, prompts)
+        launches, routes = ops.launch_counts(), ops.route_counts()
+        serve_peak = torch.cuda.max_memory_allocated()
+        exact(launches, routes, 1, SM_NEW - 1)
+        if not finite:
+            raise AssertionError(f"{arch}: non-finite logits")
+        # each request alone at batch 1: its row's tokens and prefill
+        # logits, bit for bit
+        syscore1, caches1, progs1, _ = boot_programs(1)
+        ops.reset_launch_counts()
+        alone = [generate(progs1, caches1, frames[r:r + 1].contiguous(),
+                          prompts[r:r + 1].contiguous())
+                 for r in range(BATCH)]
+        exact(ops.launch_counts(), ops.route_counts(), BATCH,
+              BATCH * (SM_NEW - 1))
+        batch_invariant = {
+            "prefill_logits": [torch.equal(a[0][0], last4[r])
+                               for r, a in enumerate(alone)],
+            "tokens": [torch.equal(a[1][0], toks4[r])
+                       for r, a in enumerate(alone)]}
+        if not all(batch_invariant["prefill_logits"] +
+                   batch_invariant["tokens"]) or \
+                not all(a[4] for a in alone):
+            RECORD.setdefault("stream_mismatch", {})[arch] = {
+                "batch4": toks4.tolist(),
+                "alone": [a[1][0].tolist() for a in alone]}
+            raise AssertionError(f"{arch}: batch 1 differs from its row of "
+                                 f"batch 4: {batch_invariant}")
+        del syscore1, caches1, progs1, alone
+        # the graphs against the eager functions: one prefill and 4 decode
+        # steps on a clone of the same caches
+        eager = clone_tree(caches)
+        prefill, decode = progs["prefill"], progs["decode"]
+        _, last_g = prefill(params, caches, frames, prompts)
+        _, last_e = prefill.program.fn(params, eager, frames, prompts)
+        diffs = [] if torch.equal(last_g, last_e) else ["prefill: logits"]
+        diffs += [f"prefill: cache {p}"
+                  for p in tree_diffs(torch, caches, eager)]
+        tok_g = transformer.greedy_token(sm, last_g)[:, None]
+        tok_e = transformer.greedy_token(sm, last_e)[:, None]
+        for i in range(4):
+            pos = torch.tensor(SM_PROMPT + i, dtype=torch.int32, device=dev)
+            _, tok_g, lg_g = decode(params, caches, tok_g, pos)
+            _, tok_e, lg_e = decode.program.fn(params, eager, tok_e, pos)
+            if not torch.equal(lg_g, lg_e):
+                diffs.append(f"decode step {i}: logits")
+            if not torch.equal(tok_g, tok_e):
+                diffs.append(f"decode step {i}: tokens")
+        diffs += [f"decode: cache {p}"
+                  for p in tree_diffs(torch, caches, eager)]
+        if diffs:
+            raise AssertionError(f"{arch}: graph replay and eager run "
+                                 f"differ: {diffs[:8]}")
+        del eager
+        # decode_attention's rows against the same rows alone, bit for bit
+        # (a gate), at every ported attention layout and at cache lengths
+        # on and off a multiple of 64 (500: the cross cache's), random
+        # queries, caches and per-row lengths; beside them (reported) the
+        # rows of the batched scores einsum, the form decode_attention
+        # keeps only for lengths that are multiples of 64
+        layouts = sorted({(c.n_heads, c.n_kv_heads, c.resolved_head_dim)
+                          for c in map(registry.get_config,
+                                       registry.PORTED_ARCHS)
+                          if set(c.pattern_for_layers()) & {"G", "L"}})
+        decode_rows = []
+        for h, hk, d in layouts:
+            for c_len in (64, 320, SM_ENC, 512, 1000, 1152):
+                qx, kx, vx = (torch.randn(shape, generator=cgen,
+                                          device=dev).to(torch.bfloat16)
+                              for shape in ((BATCH, 1, h, d),
+                                            (BATCH, c_len, hk, d),
+                                            (BATCH, c_len, hk, d)))
+                lens = torch.randint(c_len // 2, c_len + 1, (BATCH,),
+                                     generator=cgen, device=dev,
+                                     dtype=torch.int32)
+                got = attn_mod.decode_attention(qx, kx, vx, lens)
+                qg = qx.reshape(BATCH, hk, h // hk, d)
+                s4 = torch.einsum("bhgd,bkhd->bhgk", qg, kx)
+                decode_rows.append({
+                    "H": h, "Hkv": hk, "D": d, "C": c_len,
+                    "batched": c_len % attn_mod.BATCHED_CACHE_MULTIPLE == 0,
+                    "rows_differing": sum(not torch.equal(
+                        attn_mod.decode_attention(
+                            qx[r:r + 1], kx[r:r + 1], vx[r:r + 1],
+                            lens[r:r + 1])[0], got[r])
+                        for r in range(BATCH)),
+                    "scores_einsum_rows_differing": sum(not torch.equal(
+                        torch.einsum("bhgd,bkhd->bhgk", qg[r:r + 1],
+                                     kx[r:r + 1])[0], s4[r])
+                        for r in range(BATCH))})
+        del qx, kx, vx, qg, s4, got
+        for r in decode_rows:
+            emit({"decode_attention_rows": r})
+        if any(r["rows_differing"] for r in decode_rows):
+            raise AssertionError(
+                f"decode_attention: a row of batch {BATCH} differs from the "
+                f"row alone: "
+                f"{[r for r in decode_rows if r['rows_differing']]}")
+        # where the device time goes: a decode step (at position 40) and a
+        # prefill, timed, then profiled
+        step_tok = torch.zeros((BATCH, 1), dtype=torch.int32, device=dev)
+        calls = {"decode": (lambda: decode(params, caches, step_tok, 40), 10),
+                 "prefill": (lambda: prefill(params, caches, frames,
+                                             prompts), 3)}
+        timed = {k_: time_calls(torch, *c) for k_, c in calls.items()}
+        profile = {k_: profile_calls(torch, *c, timed[k_])
+                   for k_, c in calls.items()}
+        k2_sm = k2_aggregate("bfloat16", BATCH, sm_step_layer, sm.n_layers,
+                             (sm.d_model, sm.padded_vocab))
+        # a prefill's 217 products at phase 3's times: the encoder's and
+        # the cross K/V's at M = B x S_enc, the decoder's and the head at
+        # M = B x S_dec
+        m_enc, m_dec = BATCH * SM_ENC, BATCH * SM_PROMPT
+        prefill_products = (
+            [(m_enc, kn, c_ * sm.n_enc_layers) for kn, c_ in dense_layer(sm)]
+            + [(m_enc, sm_q, 2 * sm.n_layers)]
+            + [(m_dec, kn, c_ * sm.n_layers) for kn, c_ in sm_step_layer]
+            + [(m_dec, (sm.d_model, sm.padded_vocab), 1)])
+        if sum(t for _, _, t in prefill_products) != sm_passes["matmul"][1]:
+            raise AssertionError(f"{arch}: a prefill's products "
+                                 f"{prefill_products} are not its K2 count")
+        k2_prefill = {key: sum(t * mm[("bfloat16", m_, *kn)][key]
+                               for m_, kn, t in prefill_products)
+                      for key in ("ms", "plain_ms", "library_ms")}
+        k2_prefill["bound_ms"], k2_prefill["bound_by"] = bound_ms(
+            sum(t * (m_ * k_ + k_ * n_ + m_ * n_) * 2
+                for m_, (k_, n_), t in prefill_products),
+            sum(t * 2 * m_ * n_ * k_ for m_, (k_, n_), t in prefill_products),
+            "bfloat16")
+        p50 = sorted(step_ms)[len(step_ms) // 2]
+        wall_s = (prefill_ms + sum(step_ms)) / 1e3
+        out.update(
+            model=arch, dtype="bfloat16", enc_layers=sm.n_enc_layers,
+            dec_layers=sm.n_layers, d_model=sm.d_model,
+            padded_vocab=sm.padded_vocab, batch=BATCH, frames=SM_ENC,
+            prompt=SM_PROMPT, max_new=SM_NEW, dec_len=SM_DEC_LEN,
+            draw_s=round(draw_s, 3), boot_programs_s=round(load_s, 3),
+            programs=syscore.report()["programs"],
+            launches=launches, launches_by_route=routes,
+            launches_per_pass=sm_passes,
+            graph_equals_eager={"prefills": 1, "decode_steps": 4,
+                                "bit_equal": True},
+            batch1_equals_row_of_batch4=True, logits_finite=True,
+            decode_attention_rows_equal_alone={
+                "cases": len(decode_rows), "rows": BATCH * len(decode_rows),
+                "scores_einsum_rows_differing_off_64": sum(
+                    r["scores_einsum_rows_differing"]
+                    for r in decode_rows if not r["batched"]),
+                "scores_einsum_rows_differing_on_64": sum(
+                    r["scores_einsum_rows_differing"]
+                    for r in decode_rows if r["batched"])},
+            tokens_row0=toks4[0].tolist(),
+            decode_p50_ms=p50, tok_per_s=BATCH * SM_NEW / wall_s,
+            decode_tok_per_s=1e3 * BATCH / p50, prefill_ms=prefill_ms,
+            wall_s=wall_s, decode=profile["decode"],
+            prefill=profile["prefill"], k2_per_decode_step=k2_sm,
+            k2_per_prefill=k2_prefill,
+            params_gib=round(param_bytes / 2 ** 30, 3),
+            draw_peak_gib=round((draw_peak - base) / 2 ** 30, 3),
+            mem_at_start_gib=round(base / 2 ** 30, 3),
+            boot_besides_params_gib=round(
+                (after_boot - base - param_bytes) / 2 ** 30, 3),
+            serve_peak_above_boot_gib=round(
+                (serve_peak - after_boot) / 2 ** 30, 3), card=smi)
+        print(f"{arch}: decode p50 {p50:.3f} ms, tok/s "
+              f"{BATCH * SM_NEW / wall_s:.1f}, prefill {prefill_ms:.3f} ms, "
+              f"K2 a step {k2_sm['ms']:.3f} ms (bound {k2_sm['bound_ms']:.3f}"
+              f", torch.matmul {k2_sm['library_ms']:.3f})", flush=True)
+        path_launches[arch] = launches
+        path_routes[arch] = routes
+        return k2_sm
+
+    with phase("serve_seamless") as out:
+        k2_seamless = serve_seamless(out)
+
     def total(name):
         return sum(path[name] for path in path_launches.values())
 
@@ -3439,6 +3916,8 @@ def main():
          "warm": fa["warm"], "warm_bench": fa["warm_bench"],
          "warm_rows_equal_cold": flash_warm_cold,
          "new_layouts": {arch: fa[arch] for arch in new_cfgs},
+         "seamless": {key: fa[f"seamless_{key}"]
+                      for key in ("encoder", "cross", "self")},
          "bits_equal_B1_B2": flash_bits, "build": k1_build},
         {"name": "matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/matmul.cu",
@@ -3460,6 +3939,7 @@ def main():
          "recurrentgemma_per_decode_step": k2_rg,
          "recurrentgemma_prefill_per_admission": k2_rg_prefill,
          **k2_new,
+         "seamless-m4t-medium_per_decode_step": k2_seamless,
          "bits": matmul_bits, "build": matmul_build},
         {"name": "moe_ffn", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/moe_ffn.cu",

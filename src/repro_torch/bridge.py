@@ -19,9 +19,14 @@ under the recurrent layers' paths and ``{k, v}`` under ``groups/slot2``.
 gemma3's attention layers (pattern five "L", then "G") sit the same way
 under ``groups/slot0``-``slot5`` and ``tail/tail{i}``, and internvl2
 (family "vlm") has the dense layout with an untied ``lm_head``: no other
-leaf kind.
+leaf kind.  seamless-m4t-medium (family "encdec") has its own tree:
+parameters ``embed``, ``enc/{attn/{ln,wq,wk,wv,wo},ffn_ln,mlp/...}``,
+``dec/{self/...,cross/{ln,wq,wk,wv,wo},ffn_ln,mlp/...}``, ``enc_norm``,
+``final_norm`` and ``lm_head``; caches ``self/{k,v}``, ``cross_k`` and
+``cross_v`` and no ``pos``.
 The expected keys, shapes and dtypes are ``transformer.abstract_params``
-and ``abstract_cache``: a leaf that pins its dtype (the SSM's fp32
+and ``abstract_cache`` (``encdec.*`` for an encoder-decoder config): a
+leaf that pins its dtype (the SSM's fp32
 ``a_log``, ``d_skip``, ``dt_bias`` and ``state``, the RG-LRU's fp32
 ``lam``, ``w_a``, ``b_a``, ``w_i``, ``b_i`` and ``h``, the int32 ``pos``)
 must arrive in it, and every other leaf in the tree's one model dtype,
@@ -38,7 +43,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 
 
 def _leaf_from_numpy(a, device) -> torch.Tensor:
@@ -96,15 +101,23 @@ def _check_shapes(tree, shapes, path="", model_dtypes=None):
 
 def params_from_numpy(tree, cfg, device) -> dict:
     """The reference's parameter tree (numpy leaves) -> the port's."""
-    _check_shapes(tree, transformer.abstract_params(cfg))
+    model = encdec if cfg.is_encdec else transformer
+    _check_shapes(tree, model.abstract_params(cfg))
     return _tree_from_numpy(tree, device)
 
 
 def cache_from_numpy(tree, cfg, batch: int, cache_len: int, device, *,
-                     ring: bool = True) -> dict:
+                     ring: bool = True, enc_len: int = 0) -> dict:
     """The reference's dense cache tree (numpy leaves) -> the port's;
     ``ring=False`` for the flat windowed buffers of a speculative
-    engine."""
+    engine.  An encoder-decoder cache takes ``enc_len``, its cross K/V's
+    positions (``cache_len`` is the decoder's)."""
+    if cfg.is_encdec:
+        if enc_len < 1:
+            raise ValueError("an encoder-decoder cache takes enc_len >= 1")
+        _check_shapes(tree, encdec.abstract_cache(cfg, batch, cache_len,
+                                                  enc_len))
+        return _tree_from_numpy(tree, device)
     _check_shapes(tree, transformer.abstract_cache(cfg, batch, cache_len,
                                                    ring=ring))
     out = _tree_from_numpy(tree, device)
@@ -113,6 +126,8 @@ def cache_from_numpy(tree, cfg, batch: int, cache_len: int, device, *,
 
 
 def cache_to_numpy(caches) -> dict:
+    """The port's dense cache tree, decoder-only or encoder-decoder ->
+    the reference's (numpy leaves)."""
     return to_numpy(caches)
 
 

@@ -24,7 +24,10 @@
 // As in the Pallas kernel, the running max and sum are fp32 and p is
 // rounded to v's dtype before the p.v product.  Ragged Sq and Sk are masked
 // here (the Pallas kernel asserts divisibility): keys past Sk get
-// probability 0, rows past Sq are computed but never stored.  Two routes,
+// probability 0, rows past Sq are computed but never stored.  Unmasked
+// (causal = 0, no window: an encoder's self-attention, a decoder's
+// cross-attention), every row sees every key and the query offset reaches
+// no mask, so Sq may be less or more than Sk.  Two routes,
 // chosen by the wrapper before launch (kernels/flash_attention.py:route):
 //
 // bf16 at head dim 128 or 256 (every served call): wgmma fed by TMA.
@@ -569,9 +572,13 @@ extern "C" int repro_flash_attention_wgmma(const void* q, const void* k,
                                            const int* q_start,
                                            void* stream) {
   hopper::refusal() = "";
+  // more queries than keys only where every row sees every key (no mask,
+  // no start): a causal row before the first key would get no tile at all
+  const bool open = !causal && window <= 0 && q_start == nullptr;
   if (BH <= 0 || BHk <= 0 || BH % BHk != 0 || BH > 65535 || Sq <= 0 ||
-      Sk <= 0 || Sq > Sk)
-    return hopper::refuse("shapes: BH % BHk, BH <= 65535, 0 < Sq <= Sk");
+      Sk <= 0 || (Sq > Sk && !open))
+    return hopper::refuse("shapes: BH % BHk, BH <= 65535, 0 < Sq, 0 < Sk, "
+                          "and Sq <= Sk unless unmasked");
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 128:

@@ -167,6 +167,12 @@ class ServingEngine:
         self.arch = arch
         self.reduced = config.reduced
         self.cfg = registry.get_config(arch, reduced=config.reduced)
+        if self.cfg.is_encdec:
+            # as the reference's engine (repro/launch/serve.py) asserts
+            raise ValueError(
+                f"{arch} is an encoder-decoder model and this serving "
+                f"engine is decoder-only; its prefill and decode programs "
+                f"are repro_torch.steps.encdec_program_specs")
         transformer.check_supported(self.cfg)
         self.batch = config.batch
         self.max_len = config.max_len

@@ -194,28 +194,52 @@ def rollback_paged_kv(arena: torch.Tensor, orig: torch.Tensor,
     return arena
 
 
+# cache lengths that are multiples of this run the batch's rows in one call;
+# others one row at a time (see decode_attention)
+BATCHED_CACHE_MULTIPLE = 64
+
+
+def _attend_one_query(q, k_cache, v_cache, valid):
+    b, _, h, d = q.shape
+    hk = k_cache.shape[2]
+    qg = q.reshape(b, hk, h // hk, d)
+    scores = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache).float() * d ** -0.5
+    scores = torch.where(valid[:, None, None, :], scores,
+                         torch.full_like(scores, NEG_INF))
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgk,bkhd->bhgd", p.to(v_cache.dtype), v_cache)
+    return out.reshape(b, 1, h, d)
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len, *, window: int = 0,
                      ring: bool = False) -> torch.Tensor:
     """One-token attention against a cache.
 
     q: (B, 1, H, D); caches: (B, C, Hkv, D); cache_len: () or (B,) valid
-    positions per row.  Grouped heads read their KV head through the
-    einsum's group axis, with no repeat.  Rounding follows the reference:
-    scores are taken in q's dtype and then fp32, p is cast to v's dtype
-    before the p.v product.
+    positions per row (a number, or a tensor on q's device: inside a CUDA
+    graph it must be a tensor, since a copy from the host is what a capture
+    refuses).  Grouped heads read their KV head through the einsum's group
+    axis, with no repeat.  Rounding follows the reference: scores are taken
+    in q's dtype and then fp32, p is cast to v's dtype before the p.v
+    product.
+
+    A row's bits do not depend on the batch.  cuBLAS picks the batched
+    products' kernel by the batch count, and at a cache length off a
+    multiple of :data:`BATCHED_CACHE_MULTIPLE` (seamless's 500 cross keys)
+    a row of a batch-4 call differed on the H100 from the same row alone;
+    such a cache is read one row at a time, each row the call a batch of
+    one makes.  ``chip_smoke.py``'s phase 22 holds both forms' rows
+    against the rows alone on the card.
     """
-    b, _, h, d = q.shape
-    c, hk = k_cache.shape[1], k_cache.shape[2]
-    qg = q.reshape(b, hk, h // hk, d)
-    scores = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache).float() * d ** -0.5
+    b, c = q.shape[0], k_cache.shape[1]
     valid = _valid_cache_slots(cache_len, b, c, window=window, ring=ring,
                                device=q.device)
-    scores = torch.where(valid[:, None, None, :], scores,
-                         torch.full_like(scores, NEG_INF))
-    p = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhgk,bkhd->bhgd", p.to(v_cache.dtype), v_cache)
-    return out.reshape(b, 1, h, d)
+    if b == 1 or c % BATCHED_CACHE_MULTIPLE == 0:
+        return _attend_one_query(q, k_cache, v_cache, valid)
+    return torch.cat([_attend_one_query(q[i:i + 1], k_cache[i:i + 1],
+                                        v_cache[i:i + 1], valid[i:i + 1])
+                      for i in range(b)])
 
 
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

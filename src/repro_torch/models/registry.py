@@ -1,15 +1,17 @@
-"""Architecture registry of the port: the archs it serves so far."""
+"""Architecture registry of the port: the archs it carries."""
 from __future__ import annotations
 
 import importlib
 
 from repro_torch.models.config import ModelConfig
 
-# archs whose config and model path the port carries; the reference serves
-# ten (ROADMAP Queue 1 item 8 brings the rest)
+# archs whose config and model path the port carries: all ten of the
+# reference's (seamless-m4t-medium through ``models.encdec``, the rest
+# through ``models.transformer``)
 PORTED_ARCHS = ("qwen3-0.6b", "olmoe-1b-7b", "qwen3-moe-30b-a3b",
                 "mamba2-130m", "recurrentgemma-2b", "llama3.2-3b",
-                "gemma3-4b", "gemma3-12b", "internvl2-26b")
+                "gemma3-4b", "gemma3-12b", "internvl2-26b",
+                "seamless-m4t-medium")
 
 
 def _module_name(arch_id: str) -> str:
@@ -18,9 +20,8 @@ def _module_name(arch_id: str) -> str:
 
 def get_config(arch_id: str, reduced: bool = False) -> ModelConfig:
     if arch_id not in PORTED_ARCHS:
-        raise NotImplementedError(
-            f"arch {arch_id!r} is not yet ported to repro_torch "
-            f"(ported: {', '.join(PORTED_ARCHS)}; see ROADMAP Queue 1)")
+        raise KeyError(f"unknown arch {arch_id!r} (the port carries: "
+                       f"{', '.join(PORTED_ARCHS)})")
     mod = importlib.import_module(
         f"repro_torch.configs.{_module_name(arch_id)}")
     return mod.REDUCED if reduced else mod.CONFIG

@@ -44,18 +44,25 @@ ATTN_KINDS = ("G", "L")
 LAYER_KINDS = ATTN_KINDS + ("M", "R")
 
 
-def check_supported(cfg):
-    """Raise for what the port does not carry yet, naming the ROADMAP item
-    that brings it."""
-    if cfg.is_encdec or cfg.frontend not in ("none", "vision"):
-        what = ("encoder-decoder models" if cfg.is_encdec
-                else f"the {cfg.frontend!r} frontend")
-        raise NotImplementedError(
-            f"{what} are not ported yet (ROADMAP Queue 1 item 8.6)")
+def check_cache_heads(cfg):
+    """Raise for a decode cache whose heads are folded (this model's and
+    the encoder-decoder's)."""
     if cfg.decode_cache_heads not in (0, cfg.n_kv_heads):
         raise NotImplementedError(
             "decode_cache_heads folding belongs to tensor-parallel serving "
             "(ROADMAP Queue 1 item 13)")
+
+
+def check_supported(cfg):
+    """Raise for what this decoder-only model does not carry, naming where
+    it is (another module, or the ROADMAP item that brings it)."""
+    if cfg.is_encdec or cfg.frontend not in ("none", "vision"):
+        what = ("an encoder-decoder model" if cfg.is_encdec
+                else f"the {cfg.frontend!r} frontend")
+        raise NotImplementedError(
+            f"{cfg.name}: {what} is not a decoder-only path; it runs "
+            f"through repro_torch.models.encdec")
+    check_cache_heads(cfg)
     unit, _, tail = split_layers(cfg)
     for kind in unit + tail:
         if kind not in LAYER_KINDS:

@@ -1,6 +1,8 @@
 """Serving step functions: the programs the Syscore hot-loads
 (port of the serving part of ``repro/steps.py``, dense and paged
-caches; every ported family shares it).
+caches; every decoder-only family shares it, and the encoder-decoder
+family takes the encdec branches of :func:`make_prefill_step` and
+:func:`make_serve_step`, bound by :func:`encdec_program_specs`).
 
 Each program works on the live cache tree in place and returns it, so the
 engine's call sites read as the reference's: ``caches, out = prog(...)``.
@@ -14,7 +16,7 @@ from typing import Dict
 import torch
 
 from repro_torch.core.syscore import ProgramSpec
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 
 
 def _index(value, device) -> torch.Tensor:
@@ -47,7 +49,20 @@ def make_prefill_step(cfg):
     device tensor, read by index, never on the host.  A frontend's
     ``prefix_embeds`` (the reference's ``batch["prefix_embeds"]``) run
     before the tokens: S = P + S_tok, and ``lengths`` counts the prefix.
-    The engine's burst path passes none."""
+    The engine's burst path passes none.
+
+    An encoder-decoder config gets the reference's encdec branch instead:
+    prefill(params, caches, frames (B, S_enc, d), tokens (B, S_dec)) ->
+    (caches, last (B, V)), every row S_dec long and ``last`` its final
+    position's logits (:func:`repro_torch.models.encdec.forward`)."""
+    if cfg.is_encdec:
+        def prefill_encdec(params, caches, frames, tokens):
+            logits, caches = encdec.forward(cfg, params, frames, tokens,
+                                            mode="prefill", caches=caches)
+            return caches, logits[:, -1]
+
+        return prefill_encdec
+
     def prefill(params, caches, tokens, lengths, prefix_embeds=None):
         lengths = lengths.to(device=tokens.device, dtype=torch.int32)
         logits, caches = transformer.forward(cfg, params, tokens,
@@ -184,12 +199,19 @@ def make_serve_step(cfg):
     """decode(params, caches, token (B,1)) -> (caches, next (B,1), logits).
 
     One greedy decode step; each row reads its position from the per-slot
-    ``pos`` in the cache tree and the tree comes back with it advanced."""
+    ``pos`` in the cache tree and the tree comes back with it advanced.
+    An encoder-decoder config keeps the reference's explicit position:
+    decode(params, caches, token (B, 1), pos ()) -> (caches, next (B, 1),
+    logits), every row at ``pos``."""
+    def serve_step_encdec(params, caches, token, pos):
+        logits, caches = encdec.decode_step(cfg, params, caches, token, pos)
+        return caches, transformer.greedy_token(cfg, logits), logits
+
     def serve_step(params, caches, token):
         logits, caches = transformer.decode_step(cfg, params, caches, token)
         return caches, transformer.greedy_token(cfg, logits), logits
 
-    return serve_step
+    return serve_step_encdec if cfg.is_encdec else serve_step
 
 
 def make_verify_step(cfg):
@@ -223,6 +245,35 @@ def make_decode_horizon_step(cfg, horizon: int, eos_id=None):
     return decode_horizon_step
 
 
+def encdec_program_specs(cfg, params, caches, dec_prompt_len: int
+                         ) -> Dict[str, ProgramSpec]:
+    """An encoder-decoder config's two programs, bound to ``params`` and
+    ``caches`` (:func:`repro_torch.models.encdec.init_cache`; they run on
+    the device those trees are on): ``prefill`` (its per-call inputs: the
+    (B, S_enc, d) frames in the model dtype, S_enc the cache's, and the
+    (B, ``dec_prompt_len``) tokens) and ``decode`` (the (B, 1) tokens and
+    the position, a 0-dim int32 that a call may pass as a number: it is
+    copied into the program's own buffer, never baked into a graph).  The
+    counterpart of the reference's jitted ``make_prefill_step`` and
+    ``make_serve_step`` for the encdec family; the serving engine is
+    decoder-only (:func:`serve_program_specs`)."""
+    encdec.check_supported(cfg)
+    cross = caches["cross_k"]
+    b, s_enc, device = cross.shape[1], cross.shape[2], cross.device
+    frames = torch.zeros((b, s_enc, cfg.d_model), dtype=cross.dtype,
+                         device=device)
+    tokens = torch.zeros((b, dec_prompt_len), dtype=torch.int32,
+                         device=device)
+    token = torch.zeros((b, 1), dtype=torch.int32, device=device)
+    pos = torch.zeros((), dtype=torch.int32, device=device)
+    return {"prefill": ProgramSpec("prefill", make_prefill_step(cfg),
+                                   resident=(params, caches),
+                                   inputs=(frames, tokens)),
+            "decode": ProgramSpec("decode", make_serve_step(cfg),
+                                  resident=(params, caches),
+                                  inputs=(token, pos))}
+
+
 def serve_program_specs(cfg, config, params, caches
                         ) -> Dict[str, ProgramSpec]:
     """The serving programs for an :class:`EngineConfig`, bound to the
@@ -251,6 +302,7 @@ def serve_program_specs(cfg, config, params, caches
     prefix hit by its suffix alone (:func:`make_paged_prefill_offset_step`;
     its inputs: the (1, max_suffix) tokens, the slot, the offset and the
     length)."""
+    transformer.check_supported(cfg)
     device = caches["pos"].device
     s = config.resolved_prefill_len
     prefill = (make_paged_prefill_slot_step(cfg, config.max_len,

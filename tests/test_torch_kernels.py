@@ -73,7 +73,8 @@ def test_matmul_tied_head_view_and_bf16():
 @pytest.mark.parametrize("heads,kv_heads", [(4, 4), (4, 2), (8, 1)])
 @pytest.mark.parametrize("causal,window,sq,sk", [
     (True, 0, 128, 128), (False, 0, 128, 128), (True, 32, 128, 128),
-    (True, 0, 64, 128)])                      # right-aligned: Sq < Sk
+    (True, 0, 64, 128),                       # right-aligned: Sq < Sk
+    (False, 0, 64, 128), (False, 0, 128, 64)])  # cross: Sq < Sk, Sq > Sk
 def test_flash_attention_ref_matches_reference_and_interpret_kernel(
         heads, kv_heads, causal, window, sq, sk):
     rng = np.random.default_rng(heads * 10 + kv_heads)

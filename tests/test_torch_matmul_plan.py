@@ -14,12 +14,10 @@ import pytest
 import torch
 
 from repro_torch.kernels import matmul as mm
-from repro_torch.models import registry, transformer
+from repro_torch.models import encdec, registry, transformer
 from repro_torch.models.layers import Leaf
 
-FULL = ("qwen3-0.6b", "olmoe-1b-7b", "qwen3-moe-30b-a3b", "mamba2-130m",
-        "recurrentgemma-2b", "llama3.2-3b", "gemma3-4b", "gemma3-12b",
-        "internvl2-26b")
+FULL = registry.PORTED_ARCHS
 # the leaves layers.linear and the MoE router hand K2 as (K, N) weights
 K2_LEAVES = {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "w_in",
              "w_out", "w_x", "router", "lm_head"}
@@ -38,14 +36,16 @@ def _leaves(tree, path=()):
 def _k2_operands(arch):
     """(name, shape, strides, byte offset) of every weight K2 reads on the
     path of ``arch`` at full width: each 2-D leaf of a layer (the second
-    layer of a stack, so the slice's offset is checked too) and the head."""
+    layer of a stack, so the slice's offset is checked too) and the head.
+    The encoder-decoder's stacks are ``enc`` and ``dec``."""
     cfg = registry.get_config(arch, reduced=False)
     itemsize = torch.tensor([], dtype=transformer.torch_dtype(
         cfg.dtype)).element_size()
-    params = transformer.abstract_params(cfg)
+    model = encdec if cfg.is_encdec else transformer
+    params = model.abstract_params(cfg)
     out = []
     for path, leaf in _leaves(params):
-        stacked = path[0] == "groups"
+        stacked = path[0] in ("groups", "enc", "dec")
         shape = leaf.shape[1:] if stacked else leaf.shape
         if path[-1] == "embed":
             if cfg.tie_embeddings:      # read in place as (d, V)

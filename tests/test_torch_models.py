@@ -45,8 +45,16 @@ def test_configs_match_reference():
         t = tregistry.get_config(ARCH, reduced=reduced)
         assert repr(t) == repr(j)
         assert t.padded_vocab == j.padded_vocab
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tregistry.get_config("seamless-m4t-medium")
+    # the tenth arch, the encoder-decoder, loads as the reference's does
+    for reduced in (False, True):
+        assert repr(tregistry.get_config("seamless-m4t-medium",
+                                         reduced=reduced)) == \
+            repr(jregistry.get_config("seamless-m4t-medium", reduced=reduced))
+
+
+def test_unknown_arch_raises():
+    with pytest.raises(KeyError, match="unknown arch 'no-such-arch'"):
+        tregistry.get_config("no-such-arch")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -150,6 +158,27 @@ def test_valid_cache_slots_and_decode_attention_match_reference(window, ring):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+@pytest.mark.parametrize("c", [64, 70])
+def test_decode_attention_on_and_off_a_multiple_of_64(c):
+    """A cache of a multiple of 64 slots is read in one batched call, any
+    other one row at a time, each row the call of a batch of one; both
+    forms against the reference."""
+    rng = np.random.default_rng(8)
+    lens = np.asarray([1, c // 2, c - 3, c], np.int32)
+    q = rng.standard_normal((4, 1, 4, 16)).astype(np.float32)
+    k, v = (rng.standard_normal((4, c, 2, 16)).astype(np.float32)
+            for _ in range(2))
+    want = jattn.decode_attention(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), jnp.asarray(lens))
+    tq, tk, tv, tl = map(torch.from_numpy, (q, k, v, lens))
+    got = tattn.decode_attention(tq, tk, tv, tl)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    if c % tattn.BATCHED_CACHE_MULTIPLE:
+        for r in range(4):
+            assert torch.equal(got[r], tattn.decode_attention(
+                tq[r:r + 1], tk[r:r + 1], tv[r:r + 1], tl[r:r + 1])[0])
+
+
 def test_prefill_attention_matches_reference_attention():
     rng = np.random.default_rng(7)
     q = rng.standard_normal((2, 12, 4, 16)).astype(np.float32)
@@ -250,5 +279,5 @@ def test_unported_paths_raise():
         ttf.forward(cfg, params, tok, mode="train")
     ttf.check_supported(cfg.replace(frontend="vision", frontend_tokens=4))
     for change in ({"frontend": "audio"}, {"n_enc_layers": 2}):
-        with pytest.raises(NotImplementedError, match="item 8.6"):
+        with pytest.raises(NotImplementedError, match="models.encdec"):
             ttf.check_supported(cfg.replace(**change))

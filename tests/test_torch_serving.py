@@ -130,6 +130,7 @@ def test_port_imports_neither_jax_nor_the_reference_package():
         "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith("
         "('jax.', 'repro.')) or n == 'repro')\n"
         "assert not bad, bad\n"
+        "assert 'repro_torch.models.encdec' in sys.modules\n"
         "print('ok', len([n for n in sys.modules if n.startswith('repro_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(src))
     res = subprocess.run([sys.executable, "-c", code], env=env,

@@ -229,8 +229,8 @@ def test_other_layer_kinds_still_raise():
     cfg = tregistry.get_config(ARCH, reduced=True)
     ttf.check_supported(cfg.replace(frontend="vision", frontend_tokens=4))
     for change, match in (({"layer_pattern": ("X", "M")}, "not one the port"),
-                          ({"frontend": "audio"}, "item 8.6"),
-                          ({"n_enc_layers": 2}, "item 8.6"),
+                          ({"frontend": "audio"}, "models.encdec"),
+                          ({"n_enc_layers": 2}, "models.encdec"),
                           ({"decode_cache_heads": 4}, "item 13")):
         with pytest.raises(NotImplementedError, match=match):
             ttf.check_supported(cfg.replace(**change))
