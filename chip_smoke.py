@@ -251,7 +251,35 @@ and the script exits non-zero:
             einsum's rows reported beside them).  Reported: decode p50 and
             tok/s, prefill ms, device time by kernel family and idle share
             of a decode step and of a prefill, K2's time a step and a
-            prefill beside its bound and ``torch.matmul``, memory.
+            prefill beside its bound and ``torch.matmul``, memory;
+23. warm_boot  the program store (paper §3.3): for qwen3-0.6b, then
+            mamba2-130m, at full width (phase 8's geometry, seed 0), a cold
+            boot over a fresh ``ProgramStore`` in a temporary directory
+            serves phase 8's 8 requests (streams equal
+            ``reference_generate``, launches exact) and exports every
+            program; ``repro_torch.bench.boot --warm`` in a fresh process
+            boots from that directory: every program ``source == "store"``
+            with ``load_s > 0``, no call of a program function, the same
+            streams and launches; then the ``decode`` entry is torn: the
+            next boot captures it from its function (a counted miss),
+            heals the entry and stays exact.  Reported: cold and warm
+            ``boot_s``, per program ``load_s``, ``lower_s``,
+            ``compile_s``, the export's seconds and ``serialized_bytes``,
+            a warm and a cold ``decode`` replay's device time;
+24. table1  ``repro_torch.bench.load_exec``: Table 1's four rows on
+            qwen3-0.6b's ``decode`` at full width (cold_execute, hot_load,
+            serialize + install_serialized with the payload's bytes, a
+            re-execute and the cold / re-execute ratio), the serialized
+            program bit-equal to the hot-loaded one;
+25. hostcalls  in-graph host calls (paper §3.5): a captured program with
+            a ``CALL_METRIC`` call and a ``hostcall_value`` call, replayed
+            100 times under a watchdog (an event polled for 60 s, which
+            fails the phase and not the run's clock): the table receives
+            the 100 device-computed values in order, each replay's value
+            reaches the kernel after it, the store skips the program;
+            then ``repro_torch.bench.hostcall`` in a process of its own
+            (its timeout the watchdog): the no-op and value round trips
+            and UVA's 256 KB host write and write + H2D.
 
 Then a ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.  The full record is also written to
@@ -322,10 +350,33 @@ def phase(name):
         traceback.print_exc()
         RECORD["phases"].append(out)
         _write_record()
+        if isinstance(e, DeviceTimeout):
+            # the stream is stuck: leave without waiting for it at exit
+            sys.stdout.flush()
+            sys.stderr.flush()
+            os._exit(1)
         sys.exit(1)
     out.update(ok=True, seconds=round(time.perf_counter() - t0, 3))
     RECORD["phases"].append(out)
     emit({k: v for k, v in out.items() if k != "detail"})
+
+
+class DeviceTimeout(RuntimeError):
+    """The card did not finish queued work in time (a hung host node)."""
+
+
+def wait_device(torch, seconds):
+    """Wait for the work queued so far on the current stream, polling an
+    event (the host never blocks in a CUDA call), and raise
+    :class:`DeviceTimeout` after ``seconds``: the watchdog of a phase that
+    replays host nodes, which fails the phase and not the run's clock."""
+    ev = torch.cuda.Event()
+    ev.record()
+    t0 = time.perf_counter()
+    while not ev.query():
+        if time.perf_counter() - t0 > seconds:
+            raise DeviceTimeout(f"queued work did not finish in {seconds} s")
+        time.sleep(0.001)
 
 
 def _write_record():
@@ -3864,6 +3915,244 @@ def main():
 
     with phase("serve_seamless") as out:
         k2_seamless = serve_seamless(out)
+
+    # -- 23-25. the run-time of paper §3.3-3.5 --------------------------------
+    import shutil
+    import tempfile
+
+    from repro_torch.bench import boot as boot_bench
+    from repro_torch.bench import load_exec as load_exec_bench
+    from repro_torch.core.program_store import ProgramSpec, ProgramStore
+    served.clear()
+    env = dict(os.environ, PYTHONPATH=SRC)
+
+    def warm_boot(out, arch, plens, arrivals, per_pass):
+        """A cold boot over a fresh ProgramStore serves phase 8's requests
+        (streams equal ``reference_generate``, launches ``per_pass``) and
+        exports every program; ``repro_torch.bench.boot --warm`` in a
+        fresh process boots from the store: every program installed from
+        it (``source == "store"``, ``load_s > 0``), no call of a program
+        function, the same streams and launches.  Then one entry is
+        corrupted: the next boot captures that program from its function
+        (a miss), heals the entry, and its streams stay exact."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        store_dir = tempfile.mkdtemp(prefix="repro_store_")
+        kw = dict(full=True, device="cuda", batch=BATCH, max_len=MAX_LEN,
+                  prefill_len=PREFILL_LEN, seed=0, prompt_lens=plens,
+                  arrivals=arrivals, max_new=MAX_NEW)
+        try:
+            eng, cold = boot_bench.run_boot(arch, store_dir, **kw)
+            names = sorted(cold["programs"])
+            if any(cold["programs"][k]["source"] != "cuda_graph"
+                   for k in names) or cold["store"]["puts"] != len(names):
+                raise AssertionError(f"{arch}: the cold boot did not "
+                                     f"capture and store every program: "
+                                     f"{cold['programs']} {cold['store']}")
+            want = {name: step * cold["decode_steps"] + adm * cold["admitted"]
+                    for name, (step, adm) in per_pass.items()}
+            if cold["launches"] != want:
+                raise AssertionError(f"{arch} cold: launches "
+                                     f"{cold['launches']}, expected {want}")
+            prompts = boot_bench.workload(eng.cfg.vocab_size, plens)
+            refs = [eng.reference_generate(p, MAX_NEW) for p in prompts]
+            if refs != cold["tokens"]:
+                raise AssertionError(f"{arch}: cold streams differ from "
+                                     f"reference_generate")
+            cold["persisted_after_serving"] = eng.syscore.persist()
+            cold["decode_replay_device_ms"] = boot_bench.decode_replay_ms(eng)
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+            cmd = [sys.executable, "-m", "repro_torch.bench.boot", "--warm",
+                   "--full", "--device", "cuda", "--arch", arch,
+                   "--store-dir", store_dir, "--batch", str(BATCH),
+                   "--max-len", str(MAX_LEN), "--prefill-len",
+                   str(PREFILL_LEN), "--prompt-lens",
+                   ",".join(map(str, plens)), "--arrivals",
+                   ",".join(map(str, arrivals)), "--max-new", str(MAX_NEW)]
+            t0 = time.perf_counter()
+            res = subprocess.run(cmd, capture_output=True, text=True,
+                                 env=env, timeout=600, cwd=ROOT)
+            process_s = time.perf_counter() - t0
+            if res.returncode != 0:
+                raise AssertionError(f"{arch}: the warm boot failed: "
+                                     f"{res.stderr[-3000:]}")
+            warm = json.loads(res.stdout.strip().splitlines()[-1])
+            warm["process_s"] = process_s
+            bad = {k: p for k, p in warm["programs"].items()
+                   if p["source"] != "store" or not p["load_s"] > 0}
+            if bad or sorted(warm["programs"]) != names:
+                raise AssertionError(f"{arch}: the warm boot did not "
+                                     f"install every program from the "
+                                     f"store: {warm['programs']}")
+            if warm["python_calls"]["boot_and_serve"] != 0:
+                raise AssertionError(f"{arch}: the warm boot called the "
+                                     f"program functions: "
+                                     f"{warm['python_calls']}")
+            if (warm["store"]["hits"], warm["store"]["misses"]) != \
+                    (len(names), 0):
+                raise AssertionError(f"{arch}: warm store {warm['store']}")
+            if warm["tokens"] != cold["tokens"]:
+                raise AssertionError(f"{arch}: warm streams differ from "
+                                     f"the cold boot's")
+            if warm["launches"] != cold["launches"]:
+                raise AssertionError(f"{arch}: warm launches "
+                                     f"{warm['launches']}, cold "
+                                     f"{cold['launches']}")
+            # one entry torn: the next boot misses it, captures the program
+            # from its function, heals the entry and stays exact
+            store = ProgramStore(store_dir)
+            torn = next(d for d, e in store.entries().items()
+                        if e["key"] == "decode")
+            (store.directory / (torn + ".pt2")).write_bytes(b"torn write")
+            eng, fallback = boot_bench.run_boot(arch, store_dir, **kw)
+            del eng
+            progs = fallback["programs"]
+            if progs["decode"]["source"] != "cuda_graph" or any(
+                    progs[k]["source"] != "store" for k in names
+                    if k != "decode"):
+                raise AssertionError(f"{arch}: after a torn entry "
+                                     f"{progs}")
+            st = fallback["store"]
+            if (st["hits"], st["misses"], st["puts"]) != \
+                    (len(names) - 1, 1, 1):
+                raise AssertionError(f"{arch}: torn-entry store {st}")
+            if fallback["tokens"] != cold["tokens"]:
+                raise AssertionError(f"{arch}: streams after a torn entry "
+                                     f"differ")
+        finally:
+            shutil.rmtree(store_dir, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        for rec in (cold, warm, fallback):
+            rec.pop("tokens")
+        out[arch] = {"cold": cold, "warm": warm, "torn_entry": fallback,
+                     "streams_equal_reference": True}
+        path_launches[f"{arch}/store_cold"] = cold["launches"]
+        path_launches[f"{arch}/store_warm"] = warm["launches"]
+        path_routes[f"{arch}/store_cold"] = cold["launches_by_route"]
+        path_routes[f"{arch}/store_warm"] = warm["launches_by_route"]
+        print(f"{arch} boot: cold {cold['boot_s']:.2f} s, warm "
+              f"{warm['boot_s']:.2f} s (its process "
+              f"{warm['process_s']:.2f} s), torn entry "
+              f"{fallback['boot_s']:.2f} s; decode replay device ms warm "
+              f"{warm['decode_replay_device_ms']:.4f}, cold "
+              f"{cold['decode_replay_device_ms']:.4f} ({smi})", flush=True)
+        for k in names:
+            c, w = cold["programs"][k], warm["programs"][k]
+            print(f"  {k}: load_s {w['load_s']:.3f}, lower_s "
+                  f"{w['lower_s']:.3f}, compile_s {w['compile_s']:.3f} "
+                  f"(cold {c['lower_s']:.3f} / {c['compile_s']:.3f}, export "
+                  f"{c['export_s']:.2f} s), serialized_bytes "
+                  f"{w['serialized_bytes']}", flush=True)
+
+    phase8_plens = [16, 200, 57, 120, 31, 180, 90, 140]
+    phase8_arrivals = [0, 0, 0, 0, 3, 9, 20, 40]
+    with phase("warm_boot") as out:
+        warm_boot(out, "qwen3-0.6b", phase8_plens, phase8_arrivals,
+                  {"matmul": (per_step, per_step),
+                   "flash_attention": (0, n_layers), "moe_ffn": (0, 0),
+                   "ssd_scan": (0, 0), "rglru_scan": (0, 0)})
+        warm_boot(out, "mamba2-130m", phase8_plens, phase8_arrivals,
+                  {"matmul": (ssm_per_step, ssm_per_step),
+                   "flash_attention": (0, 0), "moe_ffn": (0, 0),
+                   "ssd_scan": (0, ssm.n_layers), "rglru_scan": (0, 0)})
+
+    # -- 24. Table 1 ---------------------------------------------------------
+    with phase("table1") as out:
+        gc.collect()
+        torch.cuda.empty_cache()
+        table1 = load_exec_bench.run("qwen3-0.6b", full=True, device="cuda",
+                                     batch=BATCH, max_len=MAX_LEN)
+        if not table1["serialized_equals_hot_load"]:
+            raise AssertionError("the serialized decode program differs "
+                                 "from the hot-loaded one")
+        out.update(table1=table1, card=smi)
+        for r in table1["rows"]:
+            print(f"Table 1 {r['row']}: {r['us']:.1f} us "
+                  f"({ {k: v for k, v in r.items() if k not in ('row', 'us', 'what')} }) "
+                  f"on {smi}", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # -- 25. in-graph host calls ---------------------------------------------
+    with phase("hostcalls") as out:
+        from repro_torch.core.hostcall import CALL_METRIC
+        replays, code = 100, 77
+        store_dir = tempfile.mkdtemp(prefix="repro_store_")
+        try:
+            sc = Syscore(dev, store=ProgramStore(store_dir))
+            hct = sc.hostcalls
+            seen = []
+            double = hct.register(
+                lambda v: (seen.append(float(v)), np.float32(2 * v))[1])
+
+            def program(state, x):
+                """Each replay: step += 1, y = step * sum(x) reported
+                through CALL_METRIC, v = 2 y from the host, out = v + 1
+                (a kernel after the call reads v)."""
+                state["step"].add_(1)
+                y = (x * state["step"]).sum()
+                hct.hostcall(CALL_METRIC, code, y)
+                v = hct.hostcall_value(double, torch.float32, y)
+                return state, v + 1
+
+            state = {"step": torch.zeros((), device=dev)}
+            x = torch.arange(8, dtype=torch.float32, device=dev)
+            prog = sc.hot_load(ProgramSpec("hostcalls", program,
+                                           resident=(state,), inputs=(x,)))
+            p = prog.program
+            if p.source != "cuda_graph" or len(p.host_sites) != 2:
+                raise AssertionError(f"host-call program: source "
+                                     f"{p.source}, sites {len(p.host_sites)}")
+            if sc.store.skipped != 1 or sc.store.puts != 0 or \
+                    p.serializable is not False:
+                raise AssertionError(f"the host-call program was not "
+                                     f"skipped by the store: "
+                                     f"{sc.store.report()}")
+            torch.cuda.synchronize()
+            state["step"].zero_()
+            hct.metrics.clear()
+            seen.clear()
+            outs = []
+            t0 = time.perf_counter()
+            for _ in range(replays):
+                outs.append(prog(state, x)[1].clone())
+            wait_device(torch, 60.0)
+            wall = time.perf_counter() - t0
+            xsum = float(x.sum())
+            want = [xsum * k for k in range(1, replays + 1)]
+            got = hct.metrics.get(code, [])
+            if got != want or seen != want:
+                raise AssertionError(f"host calls received {got[:4]}... "
+                                     f"({len(got)}), {seen[:4]}..., "
+                                     f"expected {want[:4]}...")
+            vals = [float(o) for o in outs]
+            if vals != [2 * w + 1 for w in want]:
+                raise AssertionError(f"the host's values did not reach the "
+                                     f"next kernel: {vals[:4]}...")
+            if hct.errors:
+                raise AssertionError(f"host functions failed: "
+                                     f"{hct.errors[:4]}")
+            out.update(replays=replays, calls_in_order=True,
+                       value_read_by_next_kernel=True,
+                       store=sc.store.report(), export_error=p.export_error,
+                       ms_per_replay=1e3 * wall / replays)
+            del prog, p, sc
+        finally:
+            shutil.rmtree(store_dir, ignore_errors=True)
+        res = subprocess.run([sys.executable, "-m", "repro_torch.bench.hostcall",
+                              "--device", "cuda"], capture_output=True,
+                             text=True, env=env, timeout=300, cwd=ROOT)
+        if res.returncode != 0:
+            raise AssertionError(f"bench.hostcall failed: "
+                                 f"{res.stderr[-3000:]}")
+        hc = json.loads(res.stdout.strip().splitlines()[-1])
+        out["bench"] = hc
+        for r in hc["rows"]:
+            print(f"host call {r['row']}: {r['us']:.2f} us on {smi}",
+                  flush=True)
 
     def total(name):
         return sum(path[name] for path in path_launches.values())

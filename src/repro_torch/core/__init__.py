@@ -1,6 +1,7 @@
 from repro_torch.core.hostcall import HostCallTable
-from repro_torch.core.syscore import (ProgramHandle, ProgramSpec, Syscore,
-                                      UnknownProgramError)
+from repro_torch.core.program_store import ProgramSpec, ProgramStore
+from repro_torch.core.syscore import (ProgramHandle, Syscore,
+                                      UnknownProgramError, cold_execute)
 
-__all__ = ["HostCallTable", "ProgramHandle", "ProgramSpec", "Syscore",
-           "UnknownProgramError"]
+__all__ = ["HostCallTable", "ProgramHandle", "ProgramSpec", "ProgramStore",
+           "Syscore", "UnknownProgramError", "cold_execute"]

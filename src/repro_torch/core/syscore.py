@@ -21,25 +21,42 @@ runs the function itself.
 
 Either way a program is bound to the storage of its resident trees: a call
 with a tree whose leaves are not those of ``hot_load`` raises
-``ValueError``.  There is no program store yet (ROADMAP Queue 1 item 9),
-so nothing is serialized.
+``ValueError``.
+
+Programs in *global memory* (the paper's fast-load tier) are the job of
+:class:`~repro_torch.core.program_store.ProgramStore`: with one attached,
+``hot_load`` first looks the spec up there and installs the stored
+ExportedProgram in place of the Python function (``source == "store"``,
+``load_s`` the ``torch.export.load``); the function is then never called,
+not by the warm-up nor by the capture, which on the card still happen (a
+CUDA graph cannot be serialized).  A miss runs the function as before and
+writes its export back; a program that cannot be exported is marked,
+counted in ``store.skipped`` and never tried again.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.core import hostcall as hostcall_lib
 from repro_torch.core.hostcall import CALL_METRIC, HostCallTable
+from repro_torch.core.program_store import (ProgramSpec, ProgramStore,
+                                            install_program, leaves,
+                                            serialize_program)
 from repro_torch.core.uva import UVARegistry
 from repro_torch.kernels import matmul, ops
+
+__all__ = ["ProgramSpec", "ProgramStore", "ProgramHandle", "Syscore",
+           "UnknownProgramError", "cold_execute"]
 
 # CALL_METRIC name codes for program-lifecycle telemetry (engine codes 1..3,
 # 6 and 7 live in repro_torch.launch.serve)
 METRIC_PROGRAM_COMPILE_MS = 4     # hot_load warmed up and captured a program
-METRIC_PROGRAM_LOAD_MS = 5        # hot_load installed a CPU program
+METRIC_PROGRAM_LOAD_MS = 5        # hot_load installed a CPU program, or a
+                                  # stored one (its torch.export.load)
 METRIC_KERNEL_BUILD_MS = 11       # boot-time build (or load) of the kernels
 
 
@@ -58,31 +75,16 @@ class UnknownProgramError(KeyError):
         return self.args[0]
 
 
-@dataclass(frozen=True)
-class ProgramSpec:
-    """A hot-loadable program: its key, the function, and the concrete
-    arguments a capture needs (the port's counterpart of the reference's
-    ``abstract_args``).
-
-    A call is ``fn(*resident, *inputs)``.  ``resident`` holds the trees
-    (nested dicts of tensors) every call passes first, in place, such as
-    the engine's parameters and caches; ``inputs`` holds one template per
-    per-call argument after them: a tensor of the shape, dtype and device
-    that argument brings, 0-dim where a call passes a Python number.  The
-    templates' values are what the warm-up runs on."""
-    key: str
-    fn: Callable
-    resident: Tuple[Any, ...] = ()
-    inputs: Tuple[torch.Tensor, ...] = ()
-
-
 @dataclass
 class ProgramStats:
     lower_s: float = 0.0           # warm-up on the program's stream
     compile_s: float = 0.0         # graph capture and instantiation
     graph_bytes: int = 0           # device memory the capture reserved for
                                    # the graph's own pool
-    load_s: float = 0.0            # hot_load in all
+    load_s: float = 0.0            # installed from a payload: its
+                                   # torch.export.load; else hot_load in all
+    export_s: float = 0.0          # torch.export and save of a store put
+    serialized_bytes: int = 0      # the payload's bytes
     executions: int = 0
     last_exec_s: float = 0.0       # host time of the last call (launches
                                    # and replays are asynchronous; callers
@@ -90,31 +92,40 @@ class ProgramStats:
                                    # device time)
 
 
-def _leaves(tree):
-    """A tree's tensor leaves, in sorted key order."""
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _leaves(tree[k])
-    else:
-        yield tree
-
-
 def _storage(tree) -> Tuple[int, ...]:
     """The data pointers of a tree's tensor leaves, in sorted key order."""
-    return tuple(t.data_ptr() for t in _leaves(tree))
+    return tuple(t.data_ptr() for t in leaves(tree))
+
+
+def _card(spec: ProgramSpec) -> Optional[torch.device]:
+    """The card a spec's tensors are on, or None (the CPU)."""
+    tensors = [*spec.inputs,
+               *(t for tree in spec.resident for t in leaves(tree))]
+    return next((t.device for t in tensors if t.device.type == "cuda"),
+                None)
 
 
 @dataclass
 class Program:
     key: str
-    fn: Callable                   # the eager function, as given
+    fn: Callable                   # the eager function: the spec's, or the
+                                   # installed payload (InstalledProgram)
     storage: Tuple[Tuple[int, ...], ...]   # of each resident tree
     n_inputs: int
-    source: str = "python"         # "python" (CPU) or "cuda_graph"
+    source: str = "python"         # "python" (CPU), "cuda_graph", "store"
+                                   # or "serialized" (both captured on the
+                                   # card)
+    spec: Optional[ProgramSpec] = None     # what an export traces
+    fingerprint: str = ""
+    payload: Optional[bytes] = None        # the payload it was installed from
+    serializable: Optional[bool] = None    # None: no export tried yet
+    export_error: str = ""                 # why the export failed
     graph: Optional[torch.cuda.CUDAGraph] = None
     inputs: Tuple[torch.Tensor, ...] = ()  # the graph's static inputs
     outputs: Any = None                    # and its static outputs
     scratch: dict = field(default_factory=dict)   # K2's, for the graph
+    host_sites: List[Any] = field(default_factory=list)  # the graph's host
+                                                         # calls
     launches: Dict[str, int] = field(default_factory=dict)
     routes: Dict[str, Dict[str, int]] = field(default_factory=dict)
     stats: ProgramStats = field(default_factory=ProgramStats)
@@ -170,21 +181,46 @@ class ProgramHandle:
         prog.stats.executions += 1
         return out
 
+    def serialize(self) -> bytes:
+        return self._syscore.serialize(self.key)
+
+    def evict(self):
+        self._syscore.evict(self.key)
+
 
 def _nonzero(counts: Dict[str, int]) -> Dict[str, int]:
     return {k: v for k, v in counts.items() if v}
 
 
+def _warm_up(fn: Callable, args, stream, scratch: dict, device):
+    """Run ``fn(*args)`` once on ``stream`` with PyTorch's sync debug mode
+    at "error", so an op that would wait for the host fails there by name,
+    and K2's split products taking their scratch from ``scratch``."""
+    stream.wait_stream(torch.cuda.current_stream(device))
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.cuda.stream(stream), matmul.scratch_table(scratch):
+            fn(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    torch.cuda.synchronize(device)
+
+
 class Syscore:
     """Persistent executor: initialize once, hot-load programs, re-execute.
 
-    ``device`` is the UVA registry's device; ``None`` means the card."""
+    ``device`` is the UVA registry's device; ``None`` means the card.
+    ``store`` attaches the global-memory tier: hot loads first install
+    from it, and programs run from their Python function are exported
+    back into it."""
 
-    def __init__(self, device=None):
+    def __init__(self, device=None, store: Optional[ProgramStore] = None):
         self.programs: Dict[str, Program] = {}
         self._t_boot = time.perf_counter()
         self.hostcalls = HostCallTable()
         self.uva = UVARegistry(device)
+        self.store = store
 
     def lookup(self, key: str) -> Program:
         try:
@@ -197,36 +233,146 @@ class Syscore:
         self.lookup(key)
         return ProgramHandle(self, key)
 
+    # -- program lifecycle --------------------------------------------------
     def hot_load(self, spec: ProgramSpec) -> ProgramHandle:
         """Install ``spec`` under its key (the registry swap is the last,
-        atomic step) and return its handle.  On the card the program is
-        warmed up and captured as a CUDA graph first; the warm-up runs
-        the function on the resident trees, so what they hold is
+        atomic step) and return its handle.
+
+        With an attached store, a stored payload for the same fingerprint
+        and environment is installed in place of ``spec.fn``; on a miss
+        the function is installed and its export written back.  On the
+        card the program is then warmed up and captured as a CUDA graph;
+        the warm-up runs on the resident trees, so what they hold is
         overwritten."""
         t0 = time.perf_counter()
-        prog = Program(key=spec.key, fn=spec.fn,
-                       storage=tuple(_storage(t) for t in spec.resident),
-                       n_inputs=len(spec.inputs))
-        tensors = [*spec.inputs,
-                   *(t for tree in spec.resident for t in _leaves(tree))]
-        card = next((t.device for t in tensors if t.device.type == "cuda"),
-                    None)
+        prog = (self._load_from_store(spec) if self.store is not None
+                else None)
+        if prog is None:
+            prog = self._program(spec, spec.fn, "python")
+        card = _card(spec)
         if card is not None:
             self._capture(spec, prog, card)
-        prog.stats.load_s = time.perf_counter() - t0
+        if prog.payload is None:
+            prog.stats.load_s = time.perf_counter() - t0
         self.programs[spec.key] = prog
         if card is not None:
             self.hostcalls.dispatch(
                 CALL_METRIC, METRIC_PROGRAM_COMPILE_MS,
                 1e3 * (prog.stats.lower_s + prog.stats.compile_s))
-        else:
+        if card is None or prog.payload is not None:
             self.hostcalls.dispatch(CALL_METRIC, METRIC_PROGRAM_LOAD_MS,
                                     1e3 * prog.stats.load_s)
+        if self.store is not None and prog.payload is None:
+            self._store_program(prog)
         return ProgramHandle(self, spec.key)
 
     @staticmethod
+    def _program(spec: ProgramSpec, fn: Callable, source: str) -> Program:
+        return Program(key=spec.key, fn=fn,
+                       storage=tuple(_storage(t) for t in spec.resident),
+                       n_inputs=len(spec.inputs), source=source, spec=spec,
+                       fingerprint=spec.fingerprint)
+
+    def _install(self, spec: ProgramSpec, payload: bytes,
+                 source: str) -> Program:
+        """A program of ``payload`` (raises where it cannot be read)."""
+        t0 = time.perf_counter()
+        prog = self._program(spec, install_program(payload, spec), source)
+        prog.stats.load_s = time.perf_counter() - t0
+        prog.payload = payload
+        prog.serializable = True
+        prog.stats.serialized_bytes = len(payload)
+        return prog
+
+    def _load_from_store(self, spec: ProgramSpec) -> Optional[Program]:
+        payload = self.store.get(spec)
+        if payload is None:
+            return None
+        try:
+            return self._install(spec, payload, "store")
+        except Exception:
+            # a payload torch.export.load cannot read (a torn or corrupt
+            # entry, a skew the environment key missed): a miss, and the
+            # function runs instead
+            self.store.hits -= 1
+            self.store.misses += 1
+            return None
+
+    @staticmethod
+    def _payload(prog: Program) -> bytes:
+        """The program's payload, exported on first use (raises where the
+        program cannot be exported)."""
+        if prog.payload is None:
+            t0 = time.perf_counter()
+            prog.payload = serialize_program(prog.spec)
+            prog.stats.export_s = time.perf_counter() - t0
+        prog.stats.serialized_bytes = len(prog.payload)
+        return prog.payload
+
+    def _store_program(self, prog: Program,
+                       store: Optional[ProgramStore] = None) -> bool:
+        """Export a program into global memory.  A program that cannot be
+        exported (an in-graph host call, an op that reads a device value
+        on the host) is marked, counted and skipped, never fatal, and
+        never tried again."""
+        store = store if store is not None else self.store
+        if prog.serializable is False:
+            return False
+        try:
+            payload = self._payload(prog)
+        except Exception as e:
+            prog.serializable = False
+            prog.export_error = f"{type(e).__name__}: {e}"
+            store.skipped += 1
+            return False
+        store.put(prog.spec, payload)
+        prog.serializable = True
+        return True
+
+    def install_serialized(self, key: str, payload: bytes,
+                           spec: ProgramSpec) -> ProgramHandle:
+        """Hot-load a serialized program (a program 'in global memory')
+        under ``key``, bound to ``spec``'s resident trees and input
+        templates; ``spec.fn`` is not called.  The load's cost scales with
+        the program, not the weights; on the card the program is then
+        warmed up and captured."""
+        prog = self._install(spec, payload, "serialized")
+        prog.key = key
+        card = _card(spec)
+        if card is not None:
+            self._capture(spec, prog, card)
+        self.hostcalls.dispatch(CALL_METRIC, METRIC_PROGRAM_LOAD_MS,
+                                1e3 * prog.stats.load_s)
+        self.programs[key] = prog
+        return ProgramHandle(self, key)
+
+    def serialize(self, key: str) -> bytes:
+        """The installed program ``key`` as a payload for global memory
+        (raises where it cannot be exported)."""
+        return self._payload(self.lookup(key))
+
+    def persist(self, store: Optional[ProgramStore] = None) -> int:
+        """Export every installed program not yet in ``store`` (default:
+        the attached store); returns how many were newly written.
+        Programs that cannot be exported are skipped."""
+        store = store if store is not None else self.store
+        if store is None:
+            return 0
+        written = 0
+        for prog in self.programs.values():
+            if store.contains(prog.spec):
+                continue
+            if self._store_program(prog, store):
+                written += 1
+        return written
+
+    def evict(self, key: str):
+        self.lookup(key)
+        del self.programs[key]
+
+    @staticmethod
     def _capture(spec: ProgramSpec, prog: Program, device: torch.device):
-        """Warm ``spec`` up on a stream of its own, then capture it.
+        """Warm ``prog.fn`` up on a stream of its own, then capture it.
 
         The warm-up runs with PyTorch's sync debug mode at "error", so an
         op that would wait for the host fails there by name.  K2's split
@@ -239,23 +385,16 @@ class Syscore:
         the arrival counters for the next.  The launches the capture
         records (a multi-step program records every step's) are kept on
         the program and taken back off the kernels' counters (a capture
-        launches nothing); each replay adds them once.  ``outputs`` is
-        whatever the function returned, tensors the graph owns: a tuple,
-        or a dict of them inside one (the horizon's events)."""
+        launches nothing); each replay adds them once.  So are the host
+        calls it records (their staging and callbacks live as long as the
+        graph).  ``outputs`` is whatever the function returned, tensors
+        the graph owns: a tuple, or a dict of them inside one (the
+        horizon's events)."""
         stream = torch.cuda.Stream(device)
         static = tuple(t.clone() for t in spec.inputs)
         args = (*spec.resident, *static)
-        stream.wait_stream(torch.cuda.current_stream(device))
         t0 = time.perf_counter()
-        mode = torch.cuda.get_sync_debug_mode()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            with torch.cuda.stream(stream), \
-                    matmul.scratch_table(prog.scratch):
-                spec.fn(*args)
-        finally:
-            torch.cuda.set_sync_debug_mode(mode)
-        torch.cuda.synchronize(device)
+        _warm_up(prog.fn, args, stream, prog.scratch, device)
         t1 = time.perf_counter()
         # the capture empties the allocator's cache as it begins; emptied
         # first, what the capture reserves is the graph's pool alone
@@ -264,8 +403,9 @@ class Syscore:
         launches0, routes0 = ops.launch_counts(), ops.route_counts()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, stream=stream), \
-                matmul.scratch_table(prog.scratch):
-            outputs = spec.fn(*args)
+                matmul.scratch_table(prog.scratch), \
+                hostcall_lib.capture_sites(prog.host_sites):
+            outputs = prog.fn(*args)
         t2 = time.perf_counter()
         launches = _nonzero({k: v - launches0[k]
                              for k, v in ops.launch_counts().items()})
@@ -273,29 +413,35 @@ class Syscore:
                   for k, by in ops.route_counts().items()}
         routes = {k: v for k, v in routes.items() if v}
         ops.add_launch_counts(launches, routes, times=-1)
-        prog.source, prog.graph = "cuda_graph", graph
+        if prog.source == "python":
+            prog.source = "cuda_graph"
+        prog.graph = graph
         prog.inputs, prog.outputs = static, outputs
         prog.launches, prog.routes = launches, routes
         prog.stats.lower_s, prog.stats.compile_s = t1 - t0, t2 - t1
         prog.stats.graph_bytes = torch.cuda.memory_reserved(device) \
             - reserved0
 
+    # -- introspection -------------------------------------------------------
     def report(self) -> Dict[str, Any]:
-        """Same ``programs`` and ``hostcalls`` schema as the reference;
-        nothing is serialized (no program store)."""
-        return {
+        """The reference's ``programs``, ``hostcalls`` and (with a store
+        attached) ``store`` schema."""
+        rep = {
             "uptime_s": time.perf_counter() - self._t_boot,
             "programs": {
                 k: {"lower_s": p.stats.lower_s,
                     "compile_s": p.stats.compile_s,
                     "load_s": p.stats.load_s,
                     "executions": p.stats.executions,
-                    "serialized_bytes": 0,
+                    "serialized_bytes": p.stats.serialized_bytes,
                     "source": p.source,
-                    "fingerprint": ""}
+                    "fingerprint": p.fingerprint[:12]}
                 for k, p in self.programs.items()},
             "hostcalls": self._hostcall_summary(),
         }
+        if self.store is not None:
+            rep["store"] = self.store.report()
+        return rep
 
     def _hostcall_summary(self) -> Dict[str, Any]:
         metrics = {
@@ -310,3 +456,36 @@ class Syscore:
                 "step_span_s": (stamps[-1] - stamps[0]) if len(stamps) > 1
                                else 0.0,
                 "log_lines": len(self.hostcalls.log_lines)}
+
+
+def cold_execute(fn: Callable, *args):
+    """The eSDK row of Table 1: load and run ``fn(*args)`` from nothing on
+    every call.
+
+    The reference's counterpart traces and compiles a fresh ``jax.jit``
+    wrapper each time, so nothing is cached between calls.  In the port
+    the program that the card executes is the CUDA graph that ``hot_load``
+    captures once; so here every call pays what a hot load pays and then
+    runs it once: a warm-up (the eager run, with its one-time allocations,
+    in sync debug mode "error"), a capture and instantiation into a new
+    graph, one replay and a synchronize, after which the graph is dropped.
+    The kernel library stays loaded, as the reference's XLA runtime does.
+    On the CPU it runs ``fn``.  Returns the replay's outputs."""
+    card = next((t.device for tree in args for t in leaves(tree)
+                 if isinstance(t, torch.Tensor) and t.device.type == "cuda"),
+                None)
+    if card is None:
+        return fn(*args)
+    stream = torch.cuda.Stream(card)
+    scratch, sites = {}, []
+    _warm_up(fn, args, stream, scratch, card)
+    graph = torch.cuda.CUDAGraph()
+    # the capture counts the launches that the replay below makes
+    with torch.cuda.graph(graph, stream=stream), \
+            matmul.scratch_table(scratch), \
+            hostcall_lib.capture_sites(sites):
+        outputs = fn(*args)
+    graph.replay()
+    torch.cuda.synchronize(card)
+    del graph
+    return outputs

@@ -108,6 +108,8 @@ class EngineConfig:
 
     device: where the engine runs; ``None`` means the card (``"cuda"``).
         Tests ask for ``"cpu"``.
+    store_dir: a :class:`~repro_torch.core.program_store.ProgramStore`
+        directory the engine boots from and writes back into.
     """
     reduced: bool = True
     batch: int = 4
@@ -118,6 +120,7 @@ class EngineConfig:
     max_queue: int = 64
     clock: str = "wall"                   # "wall" | "step"
     group_prefill: bool = False
+    store_dir: Optional[str] = None       # shorthand for ProgramStore(dir)
     device: Optional[str] = None
     paging: Optional[PagingConfig] = None
     prefix: Optional[PrefixConfig] = None
@@ -180,3 +183,37 @@ class EngineConfig:
 
     def replace(self, **kw) -> "EngineConfig":
         return dataclasses.replace(self, **kw)
+
+    # -- fingerprint contexts ------------------------------------------------
+    def program_context(self) -> str:
+        """The program-shape half of this config, as a deterministic string
+        folded into every serving ProgramSpec's fingerprint context.
+
+        Includes exactly what changes the programs: batch / cache
+        geometry, the paged-arena shape, and the speculative width (which
+        flips windowed layers to non-ring buffers).  Excludes host-side
+        scheduling (clock, max_queue, seed, group_prefill, timeslice,
+        proposer n-gram, store location) so engines differing only in
+        policy share store entries; the device is in the store's
+        environment key."""
+        items = [("batch", self.batch), ("max_len", self.max_len),
+                 ("prefill_len", self.resolved_prefill_len)]
+        if self.paging is not None:
+            items += [("paged", True), ("kv_block", self.paging.kv_block),
+                      ("arena_blocks", self.paging.resolved_arena_blocks(
+                          self.batch, self.max_len))]
+        if self.spec is not None:
+            items += [("spec", self.spec.k)]
+        return repr(tuple(items))
+
+    def horizon_context(self) -> str:
+        """Extra context for the ``decode_horizon`` program only: its
+        closure-captured statics (H, eos), so two horizon lengths never
+        collide."""
+        return repr((("horizon", self.horizon_length),
+                     ("eos", self.eos_id)))
+
+    def prefix_context(self) -> str:
+        """Extra context for the ``prefill_offset`` program only: its
+        closure-captured suffix capacity."""
+        return repr((("prefix_suffix", self.resolved_prefix_suffix),))

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-The sources under ``kernels/csrc/`` are compiled with ``nvcc`` for Hopper
+The sources under ``kernels/csrc/`` (the kernels, and the host-call entry
+points of ``csrc/hostcall.cu``) are compiled with ``nvcc`` for Hopper
 (``sm_90a``) into ``kernels/build/libkernels.so`` at first use, one ``nvcc``
 process per source, all started together, then linked.  The library has a
 plain C interface and is loaded with ``ctypes``: pointers and the CUDA
@@ -198,6 +199,13 @@ def _bind(cdll: ctypes.CDLL):
     cdll.repro_ssd_scan_wgmma_smem.restype = i
     cdll.repro_rglru_scan.argtypes = [p, p, p, p, p, i, i, i, p]
     cdll.repro_rglru_scan.restype = i
+    # csrc/hostcall.cu: in-graph host calls (core/hostcall.py)
+    cdll.repro_hostcall.argtypes = [p, p, p, i, p, p, p, p, p, ll]
+    cdll.repro_hostcall.restype = i
+    cdll.repro_host_alloc.argtypes = [ll]
+    cdll.repro_host_alloc.restype = p
+    cdll.repro_host_free.argtypes = [p]
+    cdll.repro_host_free.restype = i
 
 
 def check(err: int, what: str):

@@ -20,6 +20,8 @@ the wgmma + TMA kernel, everything else the CUDA-core kernel.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels import _build
@@ -117,11 +119,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check(q, k, v)
     if q_start is not None:
         _check_start(q_start, q)
-    if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   q_start=q_start)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention has no route for device {q.device}")
+    return _flash_attention_op(q, k, v, causal, window, q_start)
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         device_types="cuda")
+def _flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool, window: int,
+                        q_start: Optional[torch.Tensor]) -> torch.Tensor:
+    """The CUDA implementation: launch K1's route on the current stream."""
     bh, sq, d = q.shape
     bhk, sk, _ = k.shape
     if d not in HEAD_DIMS:
@@ -156,6 +162,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     flash_attention.launches += 1
     flash_attention.launches_by_route[kind] += 1
     return out
+
+
+@_flash_attention_op.register_kernel("cpu")
+def _(q, k, v, causal, window, q_start):
+    return flash_attention_ref(q, k, v, causal=causal, window=window,
+                               q_start=q_start).contiguous()
+
+
+@_flash_attention_op.register_fake
+def _(q, k, v, causal, window, q_start):
+    return q.new_empty(q.shape)
 
 
 flash_attention.launches = 0

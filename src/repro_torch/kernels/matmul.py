@@ -189,12 +189,18 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
     ``w`` may be a strided view: row-major (K,N), or K-contiguous such as
     ``embed.t()`` for the tied head, which the kernel reads in place.
+    The call goes through the ``repro_torch::matmul`` operator, so
+    ``torch.export`` traces a program through it (its fake version gives
+    the shape alone).
     """
     _check(x, w)
-    if x.device.type == "cpu":
-        return matmul_ref(x, w)
-    if x.device.type != "cuda":
-        raise ValueError(f"matmul has no route for device {x.device}")
+    return _matmul_op(x, w)
+
+
+@torch.library.custom_op("repro_torch::matmul", mutates_args=(),
+                         device_types="cuda")
+def _matmul_op(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The CUDA implementation: launch K2 on the current stream."""
     lib = _build.library()
     m, k = x.shape
     n = w.shape[1]
@@ -224,6 +230,16 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _build.check(err, "matmul")
     matmul.launches += 1
     return out
+
+
+@_matmul_op.register_kernel("cpu")
+def _(x, w):
+    return matmul_ref(x, w)
+
+
+@_matmul_op.register_fake
+def _(x, w):
+    return x.new_empty((x.shape[0], w.shape[1]))
 
 
 matmul.launches = 0

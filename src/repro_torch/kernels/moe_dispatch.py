@@ -123,10 +123,15 @@ def moe_ffn(buf: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
             counts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(E,C,d) routed token rows -> (E,C,d) expert SwiGLU outputs."""
     _check(buf, w1, w3, w2, counts)
-    if buf.device.type == "cpu":
-        return moe_ffn_ref(buf, w1, w3, w2, counts)
-    if buf.device.type != "cuda":
-        raise ValueError(f"moe_ffn has no route for device {buf.device}")
+    return _moe_ffn_op(buf, w1, w3, w2, counts)
+
+
+@torch.library.custom_op("repro_torch::moe_ffn", mutates_args=(),
+                         device_types="cuda")
+def _moe_ffn_op(buf: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
+                w2: torch.Tensor,
+                counts: Optional[torch.Tensor]) -> torch.Tensor:
+    """The CUDA implementation: launch K3's route on the current stream."""
     e, c, d = buf.shape
     f = w1.shape[2]
     lib = _build.library()
@@ -155,6 +160,16 @@ def moe_ffn(buf: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
     moe_ffn.launches += 1
     moe_ffn.launches_by_route[kind] += 1
     return out
+
+
+@_moe_ffn_op.register_kernel("cpu")
+def _(buf, w1, w3, w2, counts):
+    return moe_ffn_ref(buf, w1, w3, w2, counts).contiguous()
+
+
+@_moe_ffn_op.register_fake
+def _(buf, w1, w3, w2, counts):
+    return buf.new_empty(buf.shape)
 
 
 moe_ffn.launches = 0

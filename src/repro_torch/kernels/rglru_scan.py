@@ -103,10 +103,15 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(h (B,S,L), h_final (B,L)) of the recurrence from state h0."""
     _check(a, b, h0)
-    if a.device.type == "cpu":
-        return rglru_scan_ref(a, b, h0)
-    if a.device.type != "cuda":
-        raise ValueError(f"rglru_scan has no route for device {a.device}")
+    return _rglru_scan_op(a, b, h0)
+
+
+@torch.library.custom_op("repro_torch::rglru_scan", mutates_args=(),
+                         device_types="cuda")
+def _rglru_scan_op(a: torch.Tensor, b: torch.Tensor,
+                   h0: Optional[torch.Tensor]
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The CUDA implementation: launch K5 on the current stream."""
     if not all(t.is_contiguous() for t in (a, b, h0) if t is not None):
         raise ValueError("rglru_scan kernel needs contiguous a, b and h0")
     bsz, s, l = a.shape
@@ -119,6 +124,16 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
     _build.check(err, "rglru_scan")
     rglru_scan.launches += 1
     return h, hf
+
+
+@_rglru_scan_op.register_kernel("cpu")
+def _(a, b, h0):
+    return rglru_scan_ref(a, b, h0)
+
+
+@_rglru_scan_op.register_fake
+def _(a, b, h0):
+    return a.new_empty(a.shape), a.new_empty((a.shape[0], a.shape[2]))
 
 
 rglru_scan.launches = 0

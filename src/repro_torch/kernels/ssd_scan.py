@@ -200,10 +200,15 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
              chunk: int = CHUNK) -> Tuple[torch.Tensor, torch.Tensor]:
     """(y (B,S,H,P), h_final (B,H,P,N)) of the SSD scan from state h0."""
     _check(x, dt, a, b, c, h0, chunk)
-    if x.device.type == "cpu":
-        return ssd_scan_ref(x, dt, a, b, c, h0, chunk=chunk)
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd_scan has no route for device {x.device}")
+    return _ssd_scan_op(x, dt, a, b, c, h0, chunk)
+
+
+@torch.library.custom_op("repro_torch::ssd_scan", mutates_args=(),
+                         device_types="cuda")
+def _ssd_scan_op(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                 b: torch.Tensor, c: torch.Tensor, h0: Optional[torch.Tensor],
+                 chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The CUDA implementation: launch K4's route on the current stream."""
     if any(t.stride(-1) != 1 for t in (x, dt, b, c)):
         raise ValueError("ssd_scan kernel needs x, dt, b and c contiguous "
                          "along their last axis")
@@ -215,6 +220,19 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     ssd_scan.launches += 1
     ssd_scan.launches_by_route[kind] += 1
     return y, hf
+
+
+@_ssd_scan_op.register_kernel("cpu")
+def _(x, dt, a, b, c, h0, chunk):
+    y, hf = ssd_scan_ref(x, dt, a, b, c, h0, chunk=chunk)
+    return y.contiguous(), hf.contiguous()
+
+
+@_ssd_scan_op.register_fake
+def _(x, dt, a, b, c, h0, chunk):
+    bsz, _, h, p = x.shape
+    return (x.new_empty(x.shape),
+            x.new_empty((bsz, h, p, b.shape[-1]), dtype=torch.float32))
 
 
 ssd_scan.launches = 0

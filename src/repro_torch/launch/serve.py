@@ -77,6 +77,7 @@ import torch
 
 from repro_torch import steps as steps_lib
 from repro_torch.core.hostcall import CALL_BATCH, CALL_METRIC, CALL_STEP_REPORT
+from repro_torch.core.program_store import ProgramStore
 from repro_torch.core.syscore import (METRIC_KERNEL_BUILD_MS,
                                       METRIC_PROGRAM_COMPILE_MS,
                                       METRIC_PROGRAM_LOAD_MS, Syscore)
@@ -155,11 +156,17 @@ class ServingEngine:
     ``"cuda"``.  ``prefix_store``: with ``config.prefix``, a
     :class:`~repro_torch.core.paging.PrefixStore` to share (an engine
     booted on a store another engine published into serves its prefixes
-    warm); ``None`` makes one of the engine's own.
+    warm); ``None`` makes one of the engine's own.  ``store``: a
+    :class:`~repro_torch.core.program_store.ProgramStore` ("global
+    memory"; ``config.store_dir`` is shorthand for one): a warm boot
+    installs every program from its export, without calling the program
+    functions (on the card each is still warmed up and captured), and a
+    cold boot exports every program into it.
     """
 
     def __init__(self, arch: str, config: Optional[EngineConfig] = None, *,
                  params=None, device: Optional[str] = None,
+                 store: Optional[ProgramStore] = None,
                  prefix_store: Optional[PrefixStore] = None):
         config = config if config is not None else EngineConfig()
         self.device = resolve_device(device or config.device)
@@ -192,7 +199,9 @@ class ServingEngine:
                               if config.prefix is not None else 0)
         self._prefix_tier1 = (config.prefix is not None and
                               steps_lib.warm_prefix_capable(self.cfg))
-        self.syscore = Syscore(self.device)
+        if store is None and config.store_dir is not None:
+            store = ProgramStore(config.store_dir)
+        self.syscore = Syscore(self.device, store=store)
         on_card = self.device.type == "cuda"
         if on_card:
             # the kernels are built (or found current) once per process
@@ -872,7 +881,7 @@ class ServingEngine:
             ref_config = self.config.replace(
                 batch=1, prefill_len=self.prefill_len, clock="step",
                 group_prefill=False, paging=None, prefix=None, spec=None,
-                horizon=None)
+                horizon=None, store_dir=None)
             ref = self._ref_engine = ServingEngine(
                 self.arch, ref_config, params=self.params)
         req = ref.submit(prompt, max_new)
@@ -918,9 +927,13 @@ def main(argv=None):
     ap.add_argument("--horizon", type=int, default=None,
                     help="fused decode horizon: up to H decode steps per "
                          "dispatch (none or 1 = one per token)")
+    ap.add_argument("--store-dir", default=None,
+                    help="persistent program store; a second run with the "
+                         "same dir installs the programs from their "
+                         "exports, without running the program functions")
     args = ap.parse_args(argv)
     config = EngineConfig(
-        reduced=not args.full, batch=args.batch,
+        reduced=not args.full, batch=args.batch, store_dir=args.store_dir,
         max_len=512 if args.full else 128, device=args.device,
         group_prefill=args.group_prefill,
         paging=(PagingConfig(kv_block=args.kv_block,
@@ -945,6 +958,8 @@ def main(argv=None):
             args.max_new)
     print(eng.run())
     print(eng.syscore.report()["programs"])
+    if eng.syscore.store is not None:
+        print(eng.syscore.store.report())
     if eng.paged:
         print(eng.pager.report())
 

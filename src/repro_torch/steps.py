@@ -15,7 +15,7 @@ from typing import Dict
 
 import torch
 
-from repro_torch.core.syscore import ProgramSpec
+from repro_torch.core.program_store import ProgramSpec
 from repro_torch.models import encdec, transformer
 
 
@@ -266,12 +266,13 @@ def encdec_program_specs(cfg, params, caches, dec_prompt_len: int
                          device=device)
     token = torch.zeros((b, 1), dtype=torch.int32, device=device)
     pos = torch.zeros((), dtype=torch.int32, device=device)
+    context = repr(cfg)
     return {"prefill": ProgramSpec("prefill", make_prefill_step(cfg),
                                    resident=(params, caches),
-                                   inputs=(frames, tokens)),
+                                   inputs=(frames, tokens), context=context),
             "decode": ProgramSpec("decode", make_serve_step(cfg),
                                   resident=(params, caches),
-                                  inputs=(token, pos))}
+                                  inputs=(token, pos), context=context)}
 
 
 def serve_program_specs(cfg, config, params, caches
@@ -316,13 +317,16 @@ def serve_program_specs(cfg, config, params, caches
 
     tokens = torch.zeros((1, s), dtype=torch.int32, device=device)
     token = torch.zeros((config.batch, 1), dtype=torch.int32, device=device)
+    # what the closures capture besides scalars, for the fingerprints
+    context = "|".join((repr(cfg), config.program_context()))
     specs = {
         "prefill_slot": ProgramSpec(
             "prefill_slot", prefill,
             resident=(params, caches),
-            inputs=(tokens, scalar(0), scalar(s))),
+            inputs=(tokens, scalar(0), scalar(s)), context=context),
         "decode": ProgramSpec("decode", make_serve_step(cfg),
-                              resident=(params, caches), inputs=(token,)),
+                              resident=(params, caches), inputs=(token,),
+                              context=context),
     }
     if config.group_prefill:
         specs["prefill"] = ProgramSpec(
@@ -330,20 +334,21 @@ def serve_program_specs(cfg, config, params, caches
             inputs=(torch.zeros((config.batch, s), dtype=torch.int32,
                                 device=device),
                     torch.full((config.batch,), s, dtype=torch.int32,
-                               device=device)))
+                               device=device)), context=context)
     if config.prefix is not None and warm_prefix_capable(cfg):
         ms = config.resolved_prefix_suffix
         specs["prefill_offset"] = ProgramSpec(
             "prefill_offset", make_paged_prefill_offset_step(cfg, ms),
             resident=(params, caches),
             inputs=(torch.zeros((1, ms), dtype=torch.int32, device=device),
-                    scalar(0), scalar(0), scalar(ms)))
+                    scalar(0), scalar(0), scalar(ms)),
+            context=context + "|" + config.prefix_context())
     if config.spec is not None:
         drafts = torch.zeros((config.batch, config.spec.k + 1),
                              dtype=torch.int32, device=device)
         specs["verify"] = ProgramSpec("verify", make_verify_step(cfg),
                                       resident=(params, caches),
-                                      inputs=(drafts,))
+                                      inputs=(drafts,), context=context)
     if config.horizon is not None:
         budget = torch.zeros((config.batch,), dtype=torch.int32,
                              device=device)
@@ -351,5 +356,6 @@ def serve_program_specs(cfg, config, params, caches
             "decode_horizon",
             make_decode_horizon_step(cfg, config.horizon.length,
                                      config.eos_id),
-            resident=(params, caches), inputs=(token, budget))
+            resident=(params, caches), inputs=(token, budget),
+            context=context + "|" + config.horizon_context())
     return specs

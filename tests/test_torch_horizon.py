@@ -21,6 +21,7 @@ import torch
 
 from repro.engine_config import EngineConfig as JEngineConfig
 from repro.engine_config import HorizonConfig as JHorizonConfig
+from repro.engine_config import PagingConfig as JPagingConfig
 from repro.launch.serve import ServingEngine as JServingEngine
 from repro.models import registry as jregistry
 from repro.models import transformer as jtf
@@ -203,19 +204,27 @@ def _trace(eng):
                        max_new=m) for n, m in ((4, 5), (7, 11))]
 
 
-@pytest.mark.parametrize("case", [("qwen3-0.6b", False),
-                                  ("mamba2-130m", False),
-                                  ("qwen3-0.6b", True),
-                                  ("recurrentgemma-2b", True)], ids=_ids)
+# the reference matrix's cells (tests/test_horizon.py:26) this test holds:
+# the first four at H 4; the rest (ROADMAP Queue 1 item 8.9) at H 16, all
+# against the JAX horizon engine of the same H, paging and weights
+ENGINE_CASES = {("qwen3-0.6b", False): 4, ("mamba2-130m", False): 4,
+                ("qwen3-0.6b", True): 4, ("recurrentgemma-2b", True): 4,
+                ("gemma3-4b", True): 16, ("mamba2-130m", True): 16,
+                ("recurrentgemma-2b", False): 16, ("olmoe-1b-7b", False): 16,
+                ("olmoe-1b-7b", True): 16}
+
+
+@pytest.mark.parametrize("case", list(ENGINE_CASES), ids=_ids)
 def test_horizon_engine_streams_equal_step_engine_and_jax(case):
     arch, paged = case
+    horizon = ENGINE_CASES[case]
     jcfg, tcfg, jparams, tparams = _models(arch)
     kw = dict(batch=2, max_len=48, clock="step")
     paging = PagingConfig(kv_block=8, arena_blocks=12) if paged else None
     step = ServingEngine(arch, EngineConfig(device="cpu", paging=paging,
                                             **kw), params=tparams)
     fused = ServingEngine(arch, EngineConfig(
-        device="cpu", paging=paging, horizon=HorizonConfig(4), **kw),
+        device="cpu", paging=paging, horizon=HorizonConfig(horizon), **kw),
         params=tparams)
     sreqs, freqs = _trace(step), _trace(fused)
     ss, fs = step.run(), fused.run()
@@ -225,9 +234,11 @@ def test_horizon_engine_streams_equal_step_engine_and_jax(case):
     assert fs["decode_tokens"] == ss["decode_tokens"]
     if paged:
         fused.pager.check_invariants()
-        return
-    jeng = JServingEngine(arch, JEngineConfig(horizon=JHorizonConfig(4),
-                                              **kw), params=jparams)
+    jpaging = (JPagingConfig(kv_block=8, arena_blocks=12) if paged
+               else None)
+    jeng = JServingEngine(arch, JEngineConfig(
+        horizon=JHorizonConfig(horizon), paging=jpaging, **kw),
+        params=jparams)
     jreqs = _trace(jeng)
     js = jeng.run()
     assert [r.generated for r in freqs] == [r.generated for r in jreqs]

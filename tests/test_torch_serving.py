@@ -131,6 +131,9 @@ def test_port_imports_neither_jax_nor_the_reference_package():
         "('jax.', 'repro.')) or n == 'repro')\n"
         "assert not bad, bad\n"
         "assert 'repro_torch.models.encdec' in sys.modules\n"
+        "for m in ('core.program_store', 'core.hostcall', 'bench.boot',\n"
+        "          'bench.load_exec', 'bench.hostcall'):\n"
+        "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print('ok', len([n for n in sys.modules if n.startswith('repro_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(src))
     res = subprocess.run([sys.executable, "-c", code], env=env,

@@ -40,10 +40,11 @@ from repro_torch.spec import NGramProposer
 RULES = make_rules()
 TOL = dict(rtol=1e-4, atol=1e-4)
 CACHE_LEN, KV_BLOCK, ARENA, K = 64, 8, 12, 4
-# tests/test_spec.py:153 without gemma3-4b
+# tests/test_spec.py:153's cells
 CASES = [("qwen3-0.6b", False), ("mamba2-130m", False),
          ("recurrentgemma-2b", False), ("olmoe-1b-7b", False),
-         ("qwen3-0.6b", True), ("recurrentgemma-2b", True)]
+         ("qwen3-0.6b", True), ("recurrentgemma-2b", True),
+         ("gemma3-4b", False), ("gemma3-4b", True)]
 
 
 def _ids(case):
