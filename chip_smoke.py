@@ -58,12 +58,17 @@ and the script exits non-zero:
             causal=False cases at D 128 too (bf16: wgmma); each naming its
             route, bf16 heads at batch 1 bit-equal to batch 2; the D 64
             layouts timed at batch 4 beside SDPA (``is_causal`` for the
-            causal self-attention alone);
+            causal self-attention alone); qwen3-moe-30b-a3b's 32 heads
+            over 4 (G 8) at D 128 as phases 18-21's layouts (S 256 and
+            512, wgmma, batch 1 bit-equal to batch 2, timed);
 5. moe_ffn  K3 against ``moe_ffn_ref`` at the olmoe shapes (C = 1, 4, 37,
-            40), small ragged shapes, and with per-expert row counts that
-            leave experts empty, bf16 and f32, each naming its route (the
-            olmoe shapes in bf16: wgmma); a live row's bf16 output at C = 4
-            must equal the same row at C = 1 and C = 8 (C = 40 reported);
+            40), qwen3-moe-30b-a3b's (E 128, f 768; C 4, 20 and 80),
+            Table 2's (E 1, d 2048, f 768, C 32), small ragged shapes,
+            and with per-expert row counts that leave experts empty, bf16
+            and f32, each naming its route (the MoE shapes in bf16:
+            wgmma); a live row's bf16 output at C = 4 must equal the same
+            row at C = 1 and C = 8 (C = 40 reported), and the rows at C 20
+            the same rows at C 32 (one tile of 32);
 6. ssd_scan K4 against ``ssd_scan_ref`` at the mamba2 shape (B 1, S 256,
             H 24, P 64, N 128), at B 2, at ragged S (1, 37, 129, 200, the
             first two below one chunk), from a non-zero state h0 and at
@@ -279,7 +284,32 @@ and the script exits non-zero:
             reaches the kernel after it, the store skips the program;
             then ``repro_torch.bench.hostcall`` in a process of its own
             (its timeout the watchdog): the no-op and value round trips
-            and UVA's 256 KB host write and write + H2D.
+            and UVA's 256 KB host write and write + H2D;
+26. serve_qwen3_moe  qwen3-moe-30b-a3b at full width (48 layers, d 2048,
+            128 experts of f 768 top-8, GQA 32/4 of 128, untied head over
+            vocab 151,936; 30.5 B parameters, 61 GB in bf16) in a process
+            of its own (``chip_smoke.py --serve-qwen3-moe``: the card is
+            free for its weights, drawn on the card from seed 0): phase
+            8's requests and checks (streams against
+            ``reference_generate``, graph == eager, exact launches, every
+            K1 and K3 call on the wgmma route), peak memory, K3 timed per
+            decode call (C 4) and per admission call (C 20) on the path's
+            own inputs against the live experts' bytes, then
+            ``repro_torch.bench.serve``'s trace on the same weights (its
+            refilled streams against ``reference_generate``; its burst
+            prefill, K3 at C 80, replayed against the program's eager
+            function on the burst's inputs, and its first tokens against
+            that replay); no program is exported;
+27. benches  ``python -m repro_torch.bench`` (each bench in a process of
+            its own) at full width in bf16: ``serve`` (qwen3-0.6b),
+            ``placement`` (Table 2 over one qwen3-moe-30b-a3b layer's 128
+            experts: the three layouts' outputs bit-equal, layout A's
+            against ``moe_ffn_ref``), ``paging`` and ``prefix``
+            (qwen3-0.6b); then ``fused`` and ``spec`` with ``--smoke``
+            (qwen3-0.6b, to keep the script inside its time); each names
+            the card, keeps its reference's exactness and count checks,
+            reports its speed ratios without asserting them, and launches
+            K1 and K3 on the wgmma route only.
 
 Then a ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.  The full record is also written to
@@ -293,6 +323,7 @@ import gc
 import json
 import math
 import os
+import signal
 import subprocess
 import sys
 import time
@@ -301,10 +332,6 @@ import traceback
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
-# H100 SXM peaks (NVIDIA data sheet, dense): memory 3.35 TB/s; bf16 tensor
-# cores 989 TFLOP/s; fp32 outside the tensor cores 67 TFLOP/s
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # tolerances of tests/test_kernels.py (matmul :41, flash attention :72, :75)
 MATMUL_TOL = {"float32": 2e-3, "bfloat16": 2e-2}
 FLASH_TOL = {"float32": 3e-4, "bfloat16": 3e-2}
@@ -442,10 +469,10 @@ def sass_counts(library, opcode):
 
 
 def bound_ms(nbytes, flops, dtype_name):
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype_name]
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    """The card's least time for the work and what bounds it: the port's
+    ``repro_torch.bench.common.bound_ms`` (the H100's peaks live there)."""
+    from repro_torch.bench.common import bound_ms as bound
+    return bound(nbytes, flops, dtype_name)
 
 
 def max_violation(got, want, tol):
@@ -644,6 +671,384 @@ def profile_calls(torch, call, steps, timed):
                 idle_share_profiled=max(0.0, 1.0 - busy / wall_ms))
 
 
+def serve_engine(out, arch, plens, arrivals, max_new, per_pass, smi):
+    """Serve staggered requests through one full-width bf16 engine;
+    hold every stream against ``reference_generate`` and the kernel
+    launches of the run against ``per_pass``: {kernel: (per decode
+    step, per admission)}.  Returns the engine, the admission's tokens,
+    the launches and the launches by route."""
+    import numpy as np
+    import torch
+
+    from repro_torch.engine_config import EngineConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import ServingEngine
+    from repro_torch.models import transformer
+    dev = torch.device("cuda")
+    gc.collect()          # an earlier phase's engine may sit in a cycle
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = ServingEngine(arch, EngineConfig(
+        reduced=False, batch=BATCH, max_len=MAX_LEN,
+        prefill_len=PREFILL_LEN, clock="step", seed=0), device="cuda")
+    torch.cuda.synchronize()
+    boot_s = time.perf_counter() - t0
+    # the boot's peak (weights drawn in fp32, then cast), then serving's
+    # own from here on
+    boot_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    after_boot = torch.cuda.memory_allocated()
+    cfg = eng.cfg
+    assert eng.params["embed"].dtype == torch.bfloat16
+    # the Syscore captured both programs at boot
+    programs = eng.syscore.report()["programs"]
+    for name, prog in programs.items():
+        print(f"{arch} {name}: source {prog['source']}, lower_s "
+              f"{prog['lower_s']:.4f}, compile_s {prog['compile_s']:.4f}",
+              flush=True)
+        if prog["source"] != "cuda_graph" or not prog["compile_s"] > 0:
+            raise AssertionError(f"{arch} {name} is not a captured "
+                                 f"graph: {prog}")
+    tree_bytes = sum(t.numel() * t.element_size()
+                     for tree in (eng.params, eng.caches)
+                     for t in leaves(tree))
+    rng = np.random.default_rng(0)
+    reqs = [eng.submit(rng.integers(1, cfg.vocab_size, size=p),
+                       max_new=max_new, arrival_time=a)
+            for p, a in zip(plens, arrivals)]
+    ops.reset_launch_counts()
+    stats = eng.run()
+    launches = ops.launch_counts()
+    routes = ops.route_counts()
+    peak = torch.cuda.max_memory_allocated()
+    assert stats["requests"] == len(reqs), stats
+    assert stats["refill_admissions"] >= 1, stats
+    admissions = stats["admitted"]
+    want = {name: step * stats["decode_steps"] + adm * admissions
+            for name, (step, adm) in per_pass.items()}
+    if launches != want:
+        raise AssertionError(f"kernel launches {launches}, expected "
+                             f"{want}")
+    # every served K1, K3 and K4 call is bf16 on the tensor cores
+    if any(r["wgmma"] != launches[name] for name, r in routes.items()):
+        raise AssertionError(f"K1/K3/K4 calls off the wgmma route: "
+                             f"{routes}")
+    mism = []
+    for r in reqs:
+        ref = eng.reference_generate(r.prompt, r.max_new)
+        if ref != r.generated:
+            mism.append({"rid": r.rid, "engine": r.generated,
+                         "reference": ref})
+    if mism:
+        RECORD.setdefault("stream_mismatch", {})[arch] = mism
+        raise AssertionError(f"{len(mism)} of {len(reqs)} streams differ "
+                             f"from reference_generate: {mism[0]}")
+    # what comes out is finite and of the expected shape
+    pad = [0] * (PREFILL_LEN - reqs[0].prompt_len)
+    tokens = torch.from_numpy(np.asarray(
+        [reqs[0].prompt.tolist() + pad], np.int32)).to(dev)
+    logits, _ = transformer.forward(
+        cfg, eng.params, tokens, mode="prefill",
+        caches=transformer.init_cache(cfg, 1, MAX_LEN, device=dev),
+        lengths=torch.tensor([reqs[0].prompt_len]))
+    assert logits.shape == (1, PREFILL_LEN, cfg.padded_vocab), \
+        logits.shape
+    assert bool(logits.isfinite().all()), "non-finite logits"
+    first = int(torch.argmax(
+        logits[0, reqs[0].prompt_len - 1, :cfg.vocab_size].float()))
+    assert first == reqs[0].generated[0], (first, reqs[0].generated[0])
+    # one admission (prefill_slot of a 200-token prompt) on the host
+    # clock with a sync, and where the device time of decode goes
+    long = next(r for r in reqs if r.prompt_len == 200)
+    long_tokens = torch.zeros((1, PREFILL_LEN), dtype=torch.int32)
+    long_tokens[0, :200] = torch.from_numpy(long.prompt)
+    long_tokens = long_tokens.to(dev)
+    # the graphs against the eager functions, on the live caches
+    diffs = graph_vs_eager(torch, eng, dev, long_tokens)
+    if diffs:
+        raise AssertionError(f"{arch}: graph replay and eager run "
+                             f"differ: {diffs[:8]}")
+    ref_programs = eng._ref_engine.syscore.report()["programs"]
+    if any(p["source"] != "cuda_graph" for p in ref_programs.values()):
+        raise AssertionError(f"{arch}: the reference engine's programs "
+                             f"are not captured: {ref_programs}")
+    admit_ms = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        eng.programs["prefill_slot"](eng.params, eng.caches, long_tokens,
+                                     0, 200)
+        torch.cuda.synchronize()
+        admit_ms.append(1e3 * (time.perf_counter() - t1))
+    # the replays, then the programs' eager functions, timed before the
+    # phase's profiler runs; then the replays under the profiler, and
+    # the eager decode and a replay's host time again after it (a
+    # profiler session adds host time to later launches in the process)
+    calls = {"decode": (decode_call(torch, eng, dev), 5),
+             "admission": (admission_call(eng, long_tokens), 3)}
+    eager_calls = {
+        "decode": (decode_call(torch, eng, dev, eager=True), 5),
+        "admission": (admission_call(eng, long_tokens, eager=True), 3)}
+    timed = {k: time_calls(torch, *c) for k, c in calls.items()}
+    eager_ms = {k: median_wall_ms(torch, *c)
+                for k, c in eager_calls.items()}
+    profile = profile_calls(torch, *calls["decode"], timed["decode"])
+    admission_profile = profile_calls(torch, *calls["admission"],
+                                      timed["admission"])
+    eager_ms["decode_after_profiler"] = median_wall_ms(
+        torch, *eager_calls["decode"])
+    profile["host_ms_per_call_after_profiler"] = host_us(
+        torch, calls["decode"][0], iters=5) / 1e3
+    out.update(
+        model=arch, dtype="bfloat16", layers=cfg.n_layers,
+        d_model=cfg.d_model, padded_vocab=cfg.padded_vocab,
+        batch=BATCH, max_len=MAX_LEN, prefill_len=PREFILL_LEN,
+        requests=len(reqs), prompt_lens=plens, arrivals=arrivals,
+        max_new=max_new, boot_s=round(boot_s, 3),
+        tok_per_s=stats["tok_per_s"], ttft_ms=stats["ttft_ms"],
+        decode_p50_ms=stats["decode_p50_ms"], wall_s=stats["wall_s"],
+        tokens=stats["tokens"], decode_steps=stats["decode_steps"],
+        admitted=admissions, programs=eng.syscore.report()["programs"],
+        graph_equals_eager={"decode_steps": 4, "admissions": 1,
+                            "bit_equal": True},
+        refill_admissions=stats["refill_admissions"],
+        occupancy=stats["occupancy"], launches=launches,
+        launches_by_route=routes, launches_per_pass=per_pass,
+        admission_ms=sorted(admit_ms[1:])[1], profile=profile,
+        admission_profile=admission_profile,
+        eager_wall_ms=eager_ms,
+        peak_mem_gib=round(max(peak, boot_peak) / 2 ** 30, 3),
+        boot_peak_gib=round(boot_peak / 2 ** 30, 3),
+        serve_peak_gib=round(peak / 2 ** 30, 3),
+        serve_peak_above_boot_gib=round((peak - after_boot) / 2 ** 30, 3),
+        mem_at_start_gib=round(base / 2 ** 30, 3),
+        mem_after_boot_gib=round(after_boot / 2 ** 30, 3),
+        params_and_caches_gib=round(tree_bytes / 2 ** 30, 3),
+        boot_besides_trees_gib=round(
+            (after_boot - base - tree_bytes) / 2 ** 30, 3),
+        streams_equal_reference=True, card=smi)
+    return eng, long_tokens, launches, routes
+
+
+def k3_timed(eng, long_tokens):
+    """K3 on the inputs an MoE engine's path gives it: record every call
+    of one decode step and of one admission (``prefill_slot`` of
+    ``long_tokens``, 200 valid), then time each set cycling through its
+    layers, so every call streams its own layer's experts from memory as
+    the path does; beside the plain version, three ``torch.bmm`` as a
+    yardstick, and the bound over the live experts' bytes."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.moe_dispatch import moe_ffn, moe_ffn_ref
+    from repro_torch.kernels.moe_dispatch import route as moe_route
+    from repro_torch.kernels.moe_dispatch import tile_rows
+    dev = torch.device("cuda")
+    k3 = {}
+    real = ops.moe_ffn
+    seen = []
+
+    def record(*args):
+        seen.append(args)
+        return real(*args)
+
+    # (the programs' eager functions: a replay calls no Python)
+    ops.moe_ffn = record
+    try:
+        eng.programs["decode"].program.fn(
+            eng.params, eng.caches,
+            torch.zeros((BATCH, 1), dtype=torch.int32, device=dev))
+        n_dec = len(seen)
+        eng.programs["prefill_slot"].program.fn(
+            eng.params, eng.caches, long_tokens, 0, 200)
+    finally:
+        ops.moe_ffn = real
+    torch.cuda.synchronize()
+    for name, calls in (("decode", seen[:n_dec]),
+                        ("admission", seen[n_dec:])):
+        assert len(calls) == eng.cfg.n_layers, len(calls)
+        it = {"i": 0}
+
+        def nxt():
+            it["i"] += 1
+            return calls[it["i"] % len(calls)]
+
+        def bmm3(buf, w1, w3, w2, counts):
+            h = torch.nn.functional.silu(torch.bmm(buf, w1)) \
+                * torch.bmm(buf, w3)
+            return torch.bmm(h, w2)
+
+        ms = cuda_ms(torch, lambda: moe_ffn(*nxt()), iters=32)
+        plain = cuda_ms(torch, lambda: moe_ffn_ref(*nxt()), iters=32)
+        yard = cuda_ms(torch, lambda: bmm3(*nxt()), iters=32)
+        nbytes = flops = 0
+        live_experts = rows = 0
+        for buf, w1, _, _, counts in calls:
+            e, c, d = buf.shape
+            f = w1.shape[2]
+            n_live = int((counts > 0).sum())
+            n_rows = int(counts.sum())
+            live_experts += n_live
+            rows += n_rows
+            nbytes += 2 * e * c * d * 2 + n_live * 3 * d * f * 2 + e * 4
+            flops += 6 * n_rows * d * f
+        b_ms, b_by = bound_ms(nbytes / len(calls), flops / len(calls),
+                              "bfloat16")
+        k3[name] = {"dtype": "bfloat16", "E": e, "C": c, "d": d, "f": f,
+                    "route": moe_route(buf.dtype, d, f),
+                    "tile_rows": tile_rows(c),
+                    "live_experts_per_call": live_experts / len(calls),
+                    "rows_per_call": rows / len(calls),
+                    "ms": ms, "plain_ms": plain,
+                    "yardstick_bmm_ms": yard, "bound_ms": b_ms,
+                    "bound_by": b_by, "bound_share": b_ms / ms,
+                    "yardstick_factor": ms / yard}
+    return k3
+
+
+# phase 26: qwen3-moe-30b-a3b at its published width and depth, in a
+# process of its own (the 61 GB of weights need the whole card); phase 8's
+# requests
+QWEN3_MOE = "qwen3-moe-30b-a3b"
+PHASE8_PLENS = [16, 200, 57, 120, 31, 180, 90, 140]
+PHASE8_ARRIVALS = [0, 0, 0, 0, 3, 9, 20, 40]
+
+
+def serve_qwen3_moe():
+    """Phase 26's body (``chip_smoke.py --serve-qwen3-moe``, started by
+    phase 26 in a fresh process): qwen3-moe-30b-a3b drawn on the card from
+    seed 0, served by :func:`serve_engine` (streams against
+    ``reference_generate``, graph == eager, exact launches, every K1 and K3
+    call on the wgmma route), K3 timed on the path's inputs
+    (:func:`k3_timed`), then ``repro_torch.bench.serve``'s trace on the
+    same weights (its refills against ``reference_generate``, its burst
+    prefill's replay against the program's eager function).  No program
+    is exported: neither engine has a store.
+    Prints its lines, then its record as the last line."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, SRC)
+    from repro_torch.bench import serve as serve_bench
+    from repro_torch.kernels import _build
+    from repro_torch.models import registry
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    _build.library()
+    cfg = registry.get_config(QWEN3_MOE)
+    assert (cfg.n_layers, cfg.d_model, cfg.n_experts, cfg.experts_per_token,
+            cfg.d_ff, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+            cfg.vocab_size, cfg.tie_embeddings) == \
+        (48, 2048, 128, 8, 768, 32, 4, 128, 151_936, False), cfg
+    n = cfg.n_layers
+    # K2: wq, wk, wv, wo and the router a layer, and the head; K1 a layer
+    # an admission; K3 a layer a step and an admission
+    per_pass = {"matmul": (5 * n + 1, 5 * n + 1),
+                "flash_attention": (0, n), "moe_ffn": (n, n),
+                "ssd_scan": (0, 0), "rglru_scan": (0, 0)}
+    out = {}
+    eng, long_tokens, launches, routes = serve_engine(
+        out, QWEN3_MOE, PHASE8_PLENS, PHASE8_ARRIVALS, MAX_NEW, per_pass, smi)
+    if eng.syscore.store is not None or \
+            eng._ref_engine.syscore.store is not None:
+        raise AssertionError("phase 26 must export no program")
+    out.update(
+        params=sum(t.numel() for t in leaves(eng.params)),
+        params_gb=sum(t.numel() * t.element_size()
+                      for t in leaves(eng.params)) / 1e9,
+        launches_by_route=routes)
+    print(f"{QWEN3_MOE}: {out['params']:,} parameters "
+          f"({out['params_gb']:.2f} GB), decode p50 "
+          f"{out['decode_p50_ms']:.3f} ms, {out['tok_per_s']:.1f} tok/s, "
+          f"admission {out['admission_ms']:.3f} ms, peak "
+          f"{out['peak_mem_gib']:.2f} GiB (boot {out['boot_peak_gib']:.2f}, "
+          f"serving {out['serve_peak_gib']:.2f}) ({smi})", flush=True)
+    out["k3_timed"] = k3_timed(eng, long_tokens)
+    for key, k in out["k3_timed"].items():
+        print(f"{QWEN3_MOE} K3 per {key} call (E {k['E']}, C {k['C']}, tile "
+              f"{k['tile_rows']}, {k['live_experts_per_call']:.1f} live "
+              f"experts): {k['ms']:.4f} ms, bound {k['bound_ms']:.4f} ms "
+              f"({k['bound_by']}), plain {k['plain_ms']:.4f} ms, three bmm "
+              f"{k['yardstick_bmm_ms']:.4f} ms ({smi})", flush=True)
+    # the reference's serve trace on the same weights (no second draw);
+    # first its requests through this engine's batch-1 reference
+    work = serve_bench.trace(cfg.vocab_size)
+    refs = [eng.reference_generate(p, m) for p, m in work]
+    params = eng.params
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    bench = serve_bench.run(QWEN3_MOE, full=True, device="cuda",
+                            params=params, keep_engine=True)
+    bench["seconds"] = time.perf_counter() - t0
+    beng = bench.pop("_engine")
+    if bench["requests"] != 32 or \
+            set(bench["sources"].values()) != {"cuda_graph"} or any(
+                r["wgmma"] != bench["launches"][k] or r["simt"]
+                for k, r in bench["launches_by_route"].items()):
+        raise AssertionError(f"{QWEN3_MOE} serve bench: {bench}")
+    # every request is due at once into an idle engine, so one burst
+    # prefill admits the first ``batch`` of them and prefill_slot each
+    # later one: those are held against the batch-1 reference bit for
+    # bit.  A burst routes its B x prefill_len rows (padded ones too)
+    # under one capacity (C 80 here), as the reference's burst does, so a
+    # burst row may lose an expert slot that it keeps alone: the burst's
+    # streams are held to the JAX engine's on the CPU
+    # (tests/test_torch_bench_serve.py), and here its ``prefill`` replay
+    # to the program's eager function on the burst's own inputs, and its
+    # first tokens to that replay's logits
+    nb = bench["batch"]
+    if (bench["programs"]["prefill"], bench["programs"]["prefill_slot"],
+            bench["prefill_len"]) != (1, len(work) - nb, PREFILL_LEN):
+        raise AssertionError(f"{QWEN3_MOE} serve bench admissions: "
+                             f"{bench['programs']}")
+    mism = [i for i in range(nb, len(work))
+            if bench["streams"][i] != refs[i]]
+    if mism:
+        raise AssertionError(f"{QWEN3_MOE} serve bench: refilled streams "
+                             f"{mism} differ from reference_generate")
+    tokens = torch.zeros((nb, beng.prefill_len), dtype=torch.int32)
+    for i, (p, _) in enumerate(work[:nb]):
+        tokens[i, :len(p)] = torch.from_numpy(p)
+    tokens = tokens.cuda()
+    lengths = torch.tensor([len(p) for p, _ in work[:nb]],
+                           dtype=torch.int32, device="cuda")
+    prefill = beng.programs["prefill"]
+    eager = clone_tree(beng.caches)
+    _, last_g = prefill(beng.params, beng.caches, tokens, lengths)
+    _, last_e = prefill.program.fn(beng.params, eager, tokens, lengths)
+    diffs = (["last logits"] if not torch.equal(last_g, last_e) else []) \
+        + tree_diffs(torch, beng.caches, eager)
+    if diffs:
+        raise AssertionError(f"{QWEN3_MOE} burst prefill: graph and eager "
+                             f"differ: {diffs[:8]}")
+    # (the engine's own pick: numpy's argmax, the first of any ties)
+    firsts = np.argmax(last_g[:, :cfg.vocab_size].float().cpu().numpy(),
+                       -1).tolist()
+    if firsts != [s[0] for s in bench["streams"][:nb]]:
+        raise AssertionError(f"{QWEN3_MOE} burst: first tokens "
+                             f"{[s[0] for s in bench['streams'][:nb]]}, its "
+                             f"replay's logits give {firsts}")
+    bench.update(refills_equal_reference=True,
+                 burst_graph_equals_eager=True,
+                 burst_streams_equal_reference=[
+                     bench["streams"][i] == refs[i] for i in range(nb)])
+    del beng, eager, prefill, last_g, last_e
+    print(f"{QWEN3_MOE} bench.serve: {bench['tok_per_s']:.1f} tok/s, decode "
+          f"p50 {bench['decode_p50_ms']:.3f} ms, TTFT "
+          f"{bench['ttft_ms']:.1f} ms, occupancy {bench['occupancy']:.3f}, "
+          f"programs {bench['programs']} ({smi})", flush=True)
+    out.update(serve_bench=bench, seconds=time.perf_counter() - t_start)
+    emit(out)
+    return 0
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -667,7 +1072,6 @@ def main():
     from repro_torch.kernels.matmul import matmul, matmul_ref, plan, route
     from repro_torch.kernels.moe_dispatch import moe_ffn, moe_ffn_ref
     from repro_torch.kernels.moe_dispatch import route as moe_route
-    from repro_torch.kernels.moe_dispatch import tile_rows
     from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_ref
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
 
@@ -1352,8 +1756,10 @@ def main():
         # the plain version at B 2, batch 1's heads bit-equal to the batch
         # 2 call's, then timed at B 1 beside causal SDPA (the window does
         # not bite at S <= 1024) and the bound
+        # and qwen3-moe-30b-a3b's 32 heads over 4 (G 8) at D 128 (phase 26)
         fa_new = []
-        for arch, c in new_cfgs.items():
+        for arch, c in {**new_cfgs,
+                        QWEN3_MOE: registry.get_config(QWEN3_MOE)}.items():
             h, kv, d = c.n_heads, c.n_kv_heads, c.resolved_head_dim
             windows = sorted({c.local_window if k_ == "L" else 0
                               for k_ in c.pattern_for_layers()})
@@ -1515,7 +1921,15 @@ def main():
     moe_e, moe_f = moe.n_experts, moe.d_ff
     with phase("moe_ffn") as out:
         checks = []
+        # olmoe's shapes, qwen3-moe-30b-a3b's (phase 26: E 128, f 768, C 4
+        # a decode call, 20 an admission call, 80 a burst prefill call:
+        # two 64-row tiles, the second ragged), Table 2's (phase 27: one
+        # expert, c 32) and small ragged ones
+        qm = registry.get_config(QWEN3_MOE)
+        qm_shape = (qm.n_experts, qm.d_model, qm.d_ff)
+        table2_shape = (1, qm.d_model, qm.d_ff)
         groups = [((moe_e, moe_d, moe_f), (1, BATCH, 37, 40)),
+                  (qm_shape, (BATCH, 20, 80)), (table2_shape, (32,)),
                   ((3, 96, 80), (5,)), ((2, 33, 17), (20,)),
                   ((5, 40, 24), (3,))]
         for dname, dt in dtypes.items():
@@ -1552,11 +1966,13 @@ def main():
                                "f": f, "counts": counts is not None,
                                "route": took, "max_abs_err": err,
                                "tol": tol}
-                        # the olmoe shapes in bf16 on the tensor cores;
-                        # fp32 and the odd shapes on the CUDA cores
+                        # the MoE archs' shapes in bf16 on the tensor
+                        # cores; fp32 and the odd shapes on the CUDA cores
                         if took != [moe_route(dt, d, f)] or took != [
                                 "wgmma" if dt == torch.bfloat16 and (e, d, f)
-                                == (moe_e, moe_d, moe_f) else "simt"]:
+                                in ((moe_e, moe_d, moe_f), qm_shape,
+                                    table2_shape)
+                                else "simt"]:
                             raise AssertionError(f"moe_ffn took {took}: "
                                                  f"{row}")
                         checks.append(row)
@@ -1564,17 +1980,21 @@ def main():
                                                           moe_f):
                     # bits: the first rows of each expert at C = 4 equal
                     # the same rows computed at C = 1 and C = 8 (one n8
-                    # instruction); C = 40 (n48) reported
+                    # instruction); C = 40 (n48) reported; the rows at C 20
+                    # (qwen3-moe-30b-a3b's admission) equal the same rows
+                    # at C 32 (both one n32 tile)
                     x = crandn((e, 40, d), dt)
                     at = {c: moe_ffn(x[:, :c].contiguous(), w1, w3, w2)
-                          for c in (1, 4, 8, 40)}
+                          for c in (1, 4, 8, 20, 32, 40)}
                     bits = {f"C{c}": torch.equal(at[c][:, :min(c, 4)],
                                                  at[4][:, :min(c, 4)])
                             for c in (1, 8, 40)}
+                    bits["C20_C32"] = torch.equal(at[20], at[32][:, :20])
                     out["bits_equal_to_C4"] = bits
-                    if not (bits["C1"] and bits["C8"]):
+                    if not (bits["C1"] and bits["C8"] and bits["C20_C32"]):
                         raise AssertionError(f"moe_ffn rows at C = 1 or 8 "
-                                             f"differ from C = 4: {bits}")
+                                             f"differ from C = 4, or at C 20 "
+                                             f"from C 32: {bits}")
                     del x, at
                 del w1, w3, w2
         out["detail"] = checks
@@ -1803,154 +2223,9 @@ def main():
     from repro_torch.models import attention as attn_mod, encdec, transformer
 
     def serve_full(out, arch, plens, arrivals, max_new, per_pass):
-        """Serve staggered requests through one full-width bf16 engine;
-        hold every stream against ``reference_generate`` and the kernel
-        launches of the run against ``per_pass``: {kernel: (per decode
-        step, per admission)}.  Returns the engine and the launches."""
-        gc.collect()          # an earlier phase's engine may sit in a cycle
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        eng = ServingEngine(arch, EngineConfig(
-            reduced=False, batch=BATCH, max_len=MAX_LEN,
-            prefill_len=PREFILL_LEN, clock="step", seed=0), device="cuda")
-        torch.cuda.synchronize()
-        boot_s = time.perf_counter() - t0
-        # the boot's peak (weights drawn in fp32, then cast), then serving's
-        # own from here on
-        boot_peak = torch.cuda.max_memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        after_boot = torch.cuda.memory_allocated()
-        cfg = eng.cfg
-        assert eng.params["embed"].dtype == torch.bfloat16
-        # the Syscore captured both programs at boot
-        programs = eng.syscore.report()["programs"]
-        for name, prog in programs.items():
-            print(f"{arch} {name}: source {prog['source']}, lower_s "
-                  f"{prog['lower_s']:.4f}, compile_s {prog['compile_s']:.4f}",
-                  flush=True)
-            if prog["source"] != "cuda_graph" or not prog["compile_s"] > 0:
-                raise AssertionError(f"{arch} {name} is not a captured "
-                                     f"graph: {prog}")
-        tree_bytes = sum(t.numel() * t.element_size()
-                         for tree in (eng.params, eng.caches)
-                         for t in leaves(tree))
-        rng = np.random.default_rng(0)
-        reqs = [eng.submit(rng.integers(1, cfg.vocab_size, size=p),
-                           max_new=max_new, arrival_time=a)
-                for p, a in zip(plens, arrivals)]
-        ops.reset_launch_counts()
-        stats = eng.run()
-        launches = ops.launch_counts()
-        routes = ops.route_counts()
-        peak = torch.cuda.max_memory_allocated()
-        assert stats["requests"] == len(reqs), stats
-        assert stats["refill_admissions"] >= 1, stats
-        admissions = stats["admitted"]
-        want = {name: step * stats["decode_steps"] + adm * admissions
-                for name, (step, adm) in per_pass.items()}
-        if launches != want:
-            raise AssertionError(f"kernel launches {launches}, expected "
-                                 f"{want}")
-        # every served K1, K3 and K4 call is bf16 on the tensor cores
-        if any(r["wgmma"] != launches[name] for name, r in routes.items()):
-            raise AssertionError(f"K1/K3/K4 calls off the wgmma route: "
-                                 f"{routes}")
-        mism = []
-        for r in reqs:
-            ref = eng.reference_generate(r.prompt, r.max_new)
-            if ref != r.generated:
-                mism.append({"rid": r.rid, "engine": r.generated,
-                             "reference": ref})
-        if mism:
-            RECORD.setdefault("stream_mismatch", {})[arch] = mism
-            raise AssertionError(f"{len(mism)} of {len(reqs)} streams differ "
-                                 f"from reference_generate: {mism[0]}")
-        # what comes out is finite and of the expected shape
-        pad = [0] * (PREFILL_LEN - reqs[0].prompt_len)
-        tokens = torch.from_numpy(np.asarray(
-            [reqs[0].prompt.tolist() + pad], np.int32)).to(dev)
-        logits, _ = transformer.forward(
-            cfg, eng.params, tokens, mode="prefill",
-            caches=transformer.init_cache(cfg, 1, MAX_LEN, device=dev),
-            lengths=torch.tensor([reqs[0].prompt_len]))
-        assert logits.shape == (1, PREFILL_LEN, cfg.padded_vocab), \
-            logits.shape
-        assert bool(logits.isfinite().all()), "non-finite logits"
-        first = int(torch.argmax(
-            logits[0, reqs[0].prompt_len - 1, :cfg.vocab_size].float()))
-        assert first == reqs[0].generated[0], (first, reqs[0].generated[0])
-        # one admission (prefill_slot of a 200-token prompt) on the host
-        # clock with a sync, and where the device time of decode goes
-        long = next(r for r in reqs if r.prompt_len == 200)
-        long_tokens = torch.zeros((1, PREFILL_LEN), dtype=torch.int32)
-        long_tokens[0, :200] = torch.from_numpy(long.prompt)
-        long_tokens = long_tokens.to(dev)
-        # the graphs against the eager functions, on the live caches
-        diffs = graph_vs_eager(torch, eng, dev, long_tokens)
-        if diffs:
-            raise AssertionError(f"{arch}: graph replay and eager run "
-                                 f"differ: {diffs[:8]}")
-        ref_programs = eng._ref_engine.syscore.report()["programs"]
-        if any(p["source"] != "cuda_graph" for p in ref_programs.values()):
-            raise AssertionError(f"{arch}: the reference engine's programs "
-                                 f"are not captured: {ref_programs}")
-        admit_ms = []
-        for _ in range(4):
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            eng.programs["prefill_slot"](eng.params, eng.caches, long_tokens,
-                                         0, 200)
-            torch.cuda.synchronize()
-            admit_ms.append(1e3 * (time.perf_counter() - t1))
-        # the replays, then the programs' eager functions, timed before the
-        # phase's profiler runs; then the replays under the profiler, and
-        # the eager decode and a replay's host time again after it (a
-        # profiler session adds host time to later launches in the process)
-        calls = {"decode": (decode_call(torch, eng, dev), 5),
-                 "admission": (admission_call(eng, long_tokens), 3)}
-        eager_calls = {
-            "decode": (decode_call(torch, eng, dev, eager=True), 5),
-            "admission": (admission_call(eng, long_tokens, eager=True), 3)}
-        timed = {k: time_calls(torch, *c) for k, c in calls.items()}
-        eager_ms = {k: median_wall_ms(torch, *c)
-                    for k, c in eager_calls.items()}
-        profile = profile_calls(torch, *calls["decode"], timed["decode"])
-        admission_profile = profile_calls(torch, *calls["admission"],
-                                          timed["admission"])
-        eager_ms["decode_after_profiler"] = median_wall_ms(
-            torch, *eager_calls["decode"])
-        profile["host_ms_per_call_after_profiler"] = host_us(
-            torch, calls["decode"][0], iters=5) / 1e3
-        out.update(
-            model=arch, dtype="bfloat16", layers=cfg.n_layers,
-            d_model=cfg.d_model, padded_vocab=cfg.padded_vocab,
-            batch=BATCH, max_len=MAX_LEN, prefill_len=PREFILL_LEN,
-            requests=len(reqs), prompt_lens=plens, arrivals=arrivals,
-            max_new=max_new, boot_s=round(boot_s, 3),
-            tok_per_s=stats["tok_per_s"], ttft_ms=stats["ttft_ms"],
-            decode_p50_ms=stats["decode_p50_ms"], wall_s=stats["wall_s"],
-            tokens=stats["tokens"], decode_steps=stats["decode_steps"],
-            admitted=admissions, programs=eng.syscore.report()["programs"],
-            graph_equals_eager={"decode_steps": 4, "admissions": 1,
-                                "bit_equal": True},
-            refill_admissions=stats["refill_admissions"],
-            occupancy=stats["occupancy"], launches=launches,
-            launches_by_route=routes, launches_per_pass=per_pass,
-            admission_ms=sorted(admit_ms[1:])[1], profile=profile,
-            admission_profile=admission_profile,
-            eager_wall_ms=eager_ms,
-            peak_mem_gib=round(max(peak, boot_peak) / 2 ** 30, 3),
-            boot_peak_gib=round(boot_peak / 2 ** 30, 3),
-            serve_peak_gib=round(peak / 2 ** 30, 3),
-            serve_peak_above_boot_gib=round((peak - after_boot) / 2 ** 30, 3),
-            mem_at_start_gib=round(base / 2 ** 30, 3),
-            mem_after_boot_gib=round(after_boot / 2 ** 30, 3),
-            params_and_caches_gib=round(tree_bytes / 2 ** 30, 3),
-            boot_besides_trees_gib=round(
-                (after_boot - base - tree_bytes) / 2 ** 30, 3),
-            streams_equal_reference=True, card=smi)
-        path_routes[arch] = routes
+        """:func:`serve_engine`, its routes kept under ``arch``."""
+        eng, long_tokens, launches, path_routes[arch] = serve_engine(
+            out, arch, plens, arrivals, max_new, per_pass, smi)
         return eng, long_tokens, launches
 
     # phases 8-11's engines stay: phases 13-15 serve on their params (no
@@ -1981,71 +2256,10 @@ def main():
                 cfg.experts_per_token, cfg.padded_vocab) == \
             (16, 2048, 64, 8, 51_200), cfg
         assert "lm_head" in eng.params and not cfg.tie_embeddings
-        # K3 on the inputs the path gives it: record every call of one
-        # decode step (C = 4) and one admission (C = 40), then time each
-        # set cycling through its 16 layers, so every call streams its
-        # own layer's experts from memory as the path does
-        real = ops.moe_ffn
-        seen = []
-
-        def record(*args):
-            seen.append(args)
-            return real(*args)
-
-        # (the programs' eager functions: a replay calls no Python)
-        ops.moe_ffn = record
-        try:
-            eng.programs["decode"].program.fn(
-                eng.params, eng.caches,
-                torch.zeros((BATCH, 1), dtype=torch.int32, device=dev))
-            n_dec = len(seen)
-            eng.programs["prefill_slot"].program.fn(
-                eng.params, eng.caches, long_tokens, 0, 200)
-        finally:
-            ops.moe_ffn = real
-        torch.cuda.synchronize()
-        for name, calls in (("decode", seen[:n_dec]),
-                            ("admission", seen[n_dec:])):
-            assert len(calls) == moe.n_layers, len(calls)
-            it = {"i": 0}
-
-            def nxt():
-                it["i"] += 1
-                return calls[it["i"] % len(calls)]
-
-            def bmm3(buf, w1, w3, w2, counts):
-                h = torch.nn.functional.silu(torch.bmm(buf, w1)) \
-                    * torch.bmm(buf, w3)
-                return torch.bmm(h, w2)
-
-            ms = cuda_ms(torch, lambda: moe_ffn(*nxt()), iters=32)
-            plain = cuda_ms(torch, lambda: moe_ffn_ref(*nxt()), iters=32)
-            yard = cuda_ms(torch, lambda: bmm3(*nxt()), iters=32)
-            nbytes = flops = 0
-            live_experts = rows = 0
-            for buf, w1, _, _, counts in calls:
-                e, c, d = buf.shape
-                f = w1.shape[2]
-                n_live = int((counts > 0).sum())
-                n_rows = int(counts.sum())
-                live_experts += n_live
-                rows += n_rows
-                nbytes += 2 * e * c * d * 2 + n_live * 3 * d * f * 2 + e * 4
-                flops += 6 * n_rows * d * f
-            b_ms, b_by = bound_ms(nbytes / len(calls), flops / len(calls),
-                                  "bfloat16")
-            k3[name] = {"dtype": "bfloat16", "E": e, "C": c, "d": d, "f": f,
-                        "route": moe_route(buf.dtype, d, f),
-                        "tile_rows": tile_rows(c),
-                        "live_experts_per_call": live_experts / len(calls),
-                        "rows_per_call": rows / len(calls),
-                        "ms": ms, "plain_ms": plain,
-                        "yardstick_bmm_ms": yard, "bound_ms": b_ms,
-                        "bound_by": b_by, "bound_share": b_ms / ms,
-                        "yardstick_factor": ms / yard}
+        # K3 on the inputs the path gives it (C = 4 a decode call, 40 an
+        # admission call)
+        k3.update(k3_timed(eng, long_tokens))
         out["k3_timed"] = k3
-        # the loop names hold views of the expert stacks (GBs) past the phase
-        del seen, calls, buf, w1, _
         served["olmoe-1b-7b"] = eng
 
     with phase("serve_mamba2") as out:
@@ -4154,6 +4368,102 @@ def main():
             print(f"host call {r['row']}: {r['us']:.2f} us on {smi}",
                   flush=True)
 
+    # -- 26. qwen3-moe-30b-a3b at full width, in a process of its own ------
+    with phase("serve_qwen3_moe") as out:
+        gc.collect()
+        torch.cuda.empty_cache()
+        out.update(
+            parent_allocated_gib=torch.cuda.memory_allocated() / 2 ** 30,
+            parent_reserved_gib=torch.cuda.memory_reserved() / 2 ** 30)
+        res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--serve-qwen3-moe"], capture_output=True,
+                             text=True, env=env, timeout=900, cwd=ROOT)
+        lines = res.stdout.strip().splitlines()
+        for line in lines[:-1]:
+            print(line, flush=True)
+        if res.returncode != 0 or not lines:
+            raise AssertionError(f"phase 26's process failed "
+                                 f"({res.returncode}): {res.stderr[-4000:]}")
+        moe30 = json.loads(lines[-1])
+        out.update(moe30)
+        path_launches[QWEN3_MOE] = moe30["launches"]
+        path_routes[QWEN3_MOE] = moe30["launches_by_route"]
+        path_launches[f"{QWEN3_MOE}/bench_serve"] = \
+            moe30["serve_bench"]["launches"]
+        path_routes[f"{QWEN3_MOE}/bench_serve"] = \
+            moe30["serve_bench"]["launches_by_route"]
+
+    # -- 27. the port's benches --------------------------------------------
+    # through the port's runner, each bench in a process of its own; fused
+    # and spec with the reference's smoke workloads (3 repeats, 16
+    # candidates): the script's time
+    with phase("benches") as out:
+        for names, flags in (
+                (["serve", "placement", "paging", "prefix"], []),
+                (["fused", "spec"], ["--smoke"])):
+            cmd = [sys.executable, "-m", "repro_torch.bench", "--only",
+                   ",".join(names), "--device", "cuda", *flags]
+            # the runner starts a process per bench: a session of their
+            # own, so that a timeout stops them all
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True,
+                                    env=env, cwd=ROOT,
+                                    start_new_session=True)
+            try:
+                stdout, stderr = proc.communicate(timeout=600)
+            except subprocess.TimeoutExpired:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.communicate()
+                raise
+            if proc.returncode != 0:
+                raise AssertionError(f"benches {names} failed: "
+                                     f"{stdout[-2000:]} {stderr[-4000:]}")
+            # one line a bench, in order, then the waiting ones
+            recs = [json.loads(line)
+                    for line in stdout.strip().splitlines()[:len(names)]]
+            for name, rec in zip(names, recs):
+                if rec["device"]["platform"] != "gpu":
+                    raise AssertionError(f"bench.{name} did not run on the "
+                                         f"card: {rec['device']}")
+                if any(r["wgmma"] != rec["launches"][k] or r["simt"]
+                       for k, r in rec["launches_by_route"].items()):
+                    raise AssertionError(f"bench.{name}: K1/K3/K4 calls off "
+                                         f"the wgmma route: "
+                                         f"{rec['launches_by_route']}")
+                path_launches[f"bench/{name}"] = rec["launches"]
+                path_routes[f"bench/{name}"] = rec["launches_by_route"]
+                rec.pop("streams", None)
+                rec["args"] = flags
+                out[name] = rec
+                print(f"bench.{name} {' '.join(flags)}: "
+                      f"{rec['seconds']:.1f} s, launches {rec['launches']} "
+                      f"({smi})", flush=True)
+        table2 = out["placement"]
+        if not all(table2["outputs_bit_equal"].values()):
+            raise AssertionError(f"Table 2's layouts differ: {table2}")
+        print(f"Table 2 layout A against moe_ffn_ref: max abs err "
+              f"{table2['max_abs_err_vs_plain']:.6f} (tol "
+              f"{table2['tol']})", flush=True)
+        for r in table2["rows"]:
+            print(f"Table 2 {r}", flush=True)
+        k3c = table2["k3_call"]
+        print(f"Table 2 K3 call (E 1, C {k3c['C']}, d {k3c['d']}, f "
+              f"{k3c['f']}, {k3c['route']}): {k3c['ms']:.5f} ms, bound "
+              f"{k3c['bound_ms']:.5f} ms ({k3c['bound_by']}) ({smi})",
+              flush=True)
+        serve = out["serve"]
+        print(f"bench.serve qwen3-0.6b: {serve['tok_per_s']:.1f} tok/s, "
+              f"decode p50 {serve['decode_p50_ms']:.3f} ms, TTFT "
+              f"{serve['ttft_ms']:.1f} ms ({smi})", flush=True)
+        print(f"ratios reported, not asserted: spec speedup "
+              f"{out['spec']['speedup']:.3f}, fused H16 "
+              f"{out['fused']['speedup_h16']:.3f} (dispatches a token "
+              f"{out['fused']['dispatches_per_token_h16']:.4f}), prefix "
+              f"warm/cold TTFT {out['prefix']['ttft']['warm_over_cold']:.3f}, "
+              f"paged/unpaged tok/s "
+              f"{out['paging']['paged_over_unpaged_tok_per_s']:.3f} ({smi})",
+              flush=True)
+
     def total(name):
         return sum(path[name] for path in path_launches.values())
 
@@ -4204,7 +4514,7 @@ def main():
          "recurrentgemma_float32": fa["recurrentgemma_float32"],
          "warm": fa["warm"], "warm_bench": fa["warm_bench"],
          "warm_rows_equal_cold": flash_warm_cold,
-         "new_layouts": {arch: fa[arch] for arch in new_cfgs},
+         "new_layouts": {arch: fa[arch] for arch in (*new_cfgs, QWEN3_MOE)},
          "seamless": {key: fa[f"seamless_{key}"]
                       for key in ("encoder", "cross", "self")},
          "bits_equal_B1_B2": flash_bits, "build": k1_build},
@@ -4247,6 +4557,8 @@ def main():
                 f"own inputs ({k3['decode']['live_experts_per_call']} live "
                 "experts per call)",
          "admission": k3["admission"], "bits_equal_to_C4": k3_bits,
+         "qwen3_moe_30b_a3b": moe30["k3_timed"],
+         "table2_call": table2["k3_call"],
          "build": k3_build},
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -4292,4 +4604,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--serve-qwen3-moe"]:
+        sys.exit(serve_qwen3_moe())
     sys.exit(main())

@@ -1,11 +1,28 @@
 """What the port's benches share: the device they ran on and medians."""
 from __future__ import annotations
 
+import json
 import subprocess
 import time
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
+
+
+# H100 SXM peaks (NVIDIA data sheet, dense): memory 3.35 TB/s; bf16 tensor
+# cores 989 TFLOP/s; fp32 outside the tensor cores 67 TFLOP/s
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+
+
+def bound_ms(nbytes: float, flops: float, dtype_name: str):
+    """The least time the card could take: the larger of ``nbytes`` over
+    its memory rate and ``flops`` over its peak for the dtype; with what
+    bounds it ("bytes" or "operations")."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype_name]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
 
 
 def device_record(device: torch.device) -> Dict[str, object]:
@@ -20,6 +37,16 @@ def device_record(device: torch.device) -> Dict[str, object]:
     return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count(), "nvidia_smi": smi,
             "torch": torch.__version__, "cuda": torch.version.cuda}
+
+
+def write_out(record: Dict[str, object], out: Optional[str]):
+    """Print ``record`` as one JSON line; write it to ``out`` too, where
+    one is given (a bench writes no other file)."""
+    line = json.dumps(record)
+    print(line, flush=True)
+    if out:
+        with open(out, "w") as f:
+            f.write(line + "\n")
 
 
 def sync(device: torch.device):

@@ -79,6 +79,10 @@ class HostCallTable:
         self._table[number] = fn
         return number
 
+    def user_call(self, fn: Callable) -> int:
+        """Decorator-style registration for user host functions (>=1024)."""
+        return self.register(fn)
+
     def _register_builtins(self):
         self._table[1] = lambda fd, data: os.write(
             int(fd), bytes(np.asarray(data, np.uint8)))

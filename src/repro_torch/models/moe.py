@@ -75,7 +75,11 @@ def _moe_local(cfg, x, router, w_gate, w_up, w_down, *,
     hits.scatter_(1, top_i, 1.0)
     aux = n_exp * torch.sum(me * hits.mean(0))
 
-    # dispatch: token t's place in expert e's buffer, in token order
+    # dispatch: token t's place in expert e's buffer, in token order.  An
+    # admission's padded prompt rows are routed too, but they come after
+    # its real rows in token order, so a padded row can take only a slot
+    # no real row claimed: which real rows are kept depends on the real
+    # rows and C alone (qwen3-moe-30b-a3b: C 20 at prefill_len 256)
     hit = hits > 0                                            # (T, E)
     pos = torch.cumsum(hit.to(torch.int32), dim=0) - 1
     keep = hit & (pos < capacity)
