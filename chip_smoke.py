@@ -158,8 +158,9 @@ and the script exits non-zero:
             replay, with a row frozen mid-way and one throughout, must
             equal 16 eager ``decode_step(live=...)`` calls bit for bit,
             events and caches.  Reported: tok/s and ms a token beside the
-            step engine, the replay's span, wall and profiled device time,
-            and each program's capture time and graph pool;
+            step engine, the replay's span and wall time (no profiler
+            session: cut for the script's time), and each program's
+            capture time and graph pool;
 15. serve_spec  speculative decoding (``SpecConfig(k=3, ngram=2)``) on
             the same params: qwen3-0.6b, mamba2-130m, recurrentgemma-2b,
             olmoe-1b-7b, and qwen3-0.6b through a paged arena, serve one
@@ -173,8 +174,9 @@ and the script exits non-zero:
             must leave each row's cache bit-equal to its accepted tokens
             decoded one at a time, and the verify replay equal its eager
             function.  Reported: accept rate, tok/s beside the
-            non-speculative engine, verify's device time against 4 decode
-            steps', capture time and graph pool.  Last, qwen3-0.6b's
+            non-speculative engine, verify's device time (CUDA events; no
+            profiler session) against 4 decode steps', capture time and
+            graph pool.  Last, qwen3-0.6b's
             engine with both (``spec`` and ``horizon``), whose steps
             without a draft fall back to fused horizons: streams and
             launches as above;
@@ -300,16 +302,34 @@ and the script exits non-zero:
             prefill, K3 at C 80, replayed against the program's eager
             function on the burst's inputs, and its first tokens against
             that replay); no program is exported;
-27. benches  ``python -m repro_torch.bench`` (each bench in a process of
-            its own) at full width in bf16: ``serve`` (qwen3-0.6b),
-            ``placement`` (Table 2 over one qwen3-moe-30b-a3b layer's 128
-            experts: the three layouts' outputs bit-equal, layout A's
-            against ``moe_ffn_ref``), ``paging`` and ``prefix``
-            (qwen3-0.6b); then ``fused`` and ``spec`` with ``--smoke``
-            (qwen3-0.6b, to keep the script inside its time); each names
+27. benches  ``python -m repro_torch.bench --smoke`` (each bench in a
+            process of its own) at full width in bf16, with the
+            reference's smoke workloads to keep the script inside its
+            time: ``serve`` (qwen3-0.6b), ``placement`` (Table 2 over one
+            qwen3-moe-30b-a3b layer's 128 experts, which has no smoke
+            size: the three layouts' outputs bit-equal, layout A's against
+            ``moe_ffn_ref``), ``paging``, ``prefix``, ``fused`` and
+            ``spec`` (qwen3-0.6b); each names
             the card, keeps its reference's exactness and count checks,
             reports its speed ratios without asserting them, and launches
-            K1 and K3 on the wgmma route only.
+            K1 and K3 on the wgmma route only;
+28. serve_cluster  qwen3-0.6b's serving fleet (``repro_torch.cluster``)
+            at full width in a process of its own (``chip_smoke.py
+            --serve-cluster``, so that its replicas' graph pools go with
+            it), over one fresh ``ProgramStore`` that one cold boot
+            exported (phase 23's qwen3 boot, copied before any other boot
+            read it; run alone, a cold boot in the process): A, two replicas, phase 8's requests and
+            ``bench.cluster``'s, replica 1 killed mid-decode and rebooted
+            warm; C, on A's fleet, replica 0 slowed by 50 ms a tick and
+            replaced warm on the straggler monitor's escalation; B, one
+            replica grown to two under a burst with the new replica's
+            store loads on a background thread while replica 0 serves,
+            queued requests rebalanced, then shrunk on idle.  Every stream
+            against the batch-1 engine, no request lost, every later boot
+            warm (every program from the store, no program function
+            called, one store hit a program, no put, nothing exported),
+            K1 and K2 launches equal to the programs' replays and warm-ups
+            (B's background load included); one JSON line a sub-run.
 
 Then a ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.  The full record is also written to
@@ -1045,6 +1065,426 @@ def serve_qwen3_moe():
           f"{bench['ttft_ms']:.1f} ms, occupancy {bench['occupancy']:.3f}, "
           f"programs {bench['programs']} ({smi})", flush=True)
     out.update(serve_bench=bench, seconds=time.perf_counter() - t_start)
+    emit(out)
+    return 0
+
+
+# phase 28: qwen3-0.6b's fleet (``chip_smoke.py --serve-cluster``)
+CLUSTER_ARCH = "qwen3-0.6b"
+# sub-run A: replica 1 killed at its engine step 12 (mid-decode of phase
+# 8's requests); sub-run C: replica 0's ticks from its C_SLOW_AFTER-th of
+# C on sleep C_SLEEP_S, ~6x a decode tick.  A's fleet flags a tick over 3x
+# its replica's median and escalates on 5 in a row: a tick that admits
+# requests runs their prefills too (one admission about doubles a decode
+# tick), so only the slowed replica escalates
+A_KILL_STEP, C_SLEEP_S, C_SLOW_AFTER = 12, 0.05, 6
+# sub-run B: the burst that grows the fleet, the top-ups that keep
+# replica 0's queue at B_QUEUE while the grow's loads run in the
+# background (paced at B_LOAD_PACE_S a pass, which hands the loads the
+# interpreter), and the trickle that leaves replica 1 idle until it
+# shrinks
+B_BURST, B_QUEUE, B_TOPUP_CAP, B_LOAD_PACE_S, B_MAX_NEW = 12, 2, 80, 0.2, 24
+
+
+def fleet_window(boots, store):
+    """What a sub-run is measured against: per engine booted so far, its
+    programs' executions and decode-latency samples, and the store's
+    counters.  Engines booted later count from zero."""
+    from repro_torch.launch.serve import METRIC_DECODE_MS
+    return {"engines": {id(b["engine"]): (
+        {k: h.stats.executions for k, h in b["engine"].programs.items()},
+        len(b["engine"].syscore.hostcalls.metrics.get(METRIC_DECODE_MS, [])))
+        for b in boots},
+        "n_boots": len(boots),
+        "store": (store.hits, store.misses, store.puts)}
+
+
+def fleet_expected(boots, window):
+    """The kernel launches a sub-run must have counted: each program's
+    captured launches times its replays since ``window``, plus one eager
+    run (the warm-up before the capture) of every program of an engine
+    booted inside it.  Also checks that every qwen3 program launches
+    what its shapes give: K2 once a product and K1 once a layer an
+    admission."""
+    want = {}
+    for b in boots:
+        eng = b["engine"]
+        exec0 = window["engines"].get(id(eng), (None, 0))[0]
+        for key, h in eng.programs.items():
+            prog = h.program
+            n = h.stats.executions - (exec0[key] if exec0 else 0)
+            n += exec0 is None
+            for name, v in prog.launches.items():
+                want[name] = want.get(name, 0) + v * n
+    return want
+
+
+def fleet_decode_ms(boots, window):
+    from repro_torch.launch.serve import METRIC_DECODE_MS
+    out = []
+    for b in boots:
+        ms = b["engine"].syscore.hostcalls.metrics.get(METRIC_DECODE_MS, [])
+        out.extend(ms[window["engines"].get(id(b["engine"]), (None, 0))[1]:])
+    return sorted(out)
+
+
+def fleet_boot_checks(boots, start):
+    """Point 2's warm rule (``repro_torch.bench.cluster.boot_checks``) for
+    the boots from ``start`` on, with each boot's load, warm-up and
+    capture seconds; raises on a boot that was not warm."""
+    from repro_torch.bench.cluster import boot_checks
+    rows = [boot_checks(b) for b in boots[start:]]
+    cold = [r for r in rows if not r["warm"]]
+    if cold:
+        raise AssertionError(f"a boot was not warm: {cold[0]}")
+    return rows
+
+
+def fleet_record(torch, sup, boots, window, launches, routes, wall_s,
+                 tokens, n_progs, smi, **extra):
+    """One sub-run's checks and record: the kernel launches against the
+    programs' (exact, every K1 call on the wgmma route), the store's hits
+    (one a program a warm boot), no put and no miss."""
+    want = fleet_expected(boots, window)
+    got = {k: v for k, v in launches.items() if v}
+    if got != {k: v for k, v in want.items() if v}:
+        raise AssertionError(f"launches {launches}, the programs' replays "
+                             f"and warm-ups give {want}")
+    if routes["flash_attention"]["wgmma"] != launches["flash_attention"]:
+        raise AssertionError(f"K1 calls off the wgmma route: {routes}")
+    warm_boots = len(boots) - window["n_boots"]
+    h0, m0, p0 = window["store"]
+    store = (sup.store.hits - h0, sup.store.misses - m0,
+             sup.store.puts - p0)
+    if store != (n_progs * warm_boots, 0, 0):
+        raise AssertionError(f"store hits/misses/puts {store} over "
+                             f"{warm_boots} warm boots")
+    dec = fleet_decode_ms(boots, window)
+    rec = dict(extra, launches=launches, launches_by_route=routes,
+               expected_launches=want,
+               boots=fleet_boot_checks(boots, window["n_boots"]),
+               store_hits_misses_puts=store, wall_s=wall_s, tokens=tokens,
+               tok_per_s=tokens / wall_s,
+               decode_p50_ms=dec[len(dec) // 2] if dec else None,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               card=smi)
+    return rec
+
+
+def serve_cluster(store_dir=None):
+    """Phase 28's body (``chip_smoke.py --serve-cluster [STORE_DIR]``,
+    started by phase 28 in a fresh process, so that its replicas' graph
+    pools go with it): qwen3-0.6b at full width in bf16 (batch 4, max_len
+    512, prefill_len 256, weights from seed 0 drawn on the card), fleets
+    of :class:`repro_torch.cluster.Supervisor` over one fresh
+    ``ProgramStore`` that one cold boot exported: phase 23's qwen3 boot
+    (``STORE_DIR``, a copy made before any other boot read it), or, run
+    alone, a cold boot here.  Every fleet boot installs from it.
+
+    A. two replicas, replica 1 killed mid-decode by a ``FaultInjector`` and
+       rebooted warm; phase 8's 8 requests and ``bench.cluster``'s 12;
+    C. A's fleet again, replica 0's ``fault_hook`` sleeping 50 ms a tick
+       from its 6th tick of C on: the monitor escalates and the scale pass
+       replaces it with a warm replica 2, which takes its unfinished
+       requests;
+    B. one replica, ``ScaleConfig(max_replicas=2, async_spawn=True,
+       straggler_detection=False)``: a burst grows the fleet, the grow's
+       store loads run on a background thread while replica 0 serves
+       top-ups, the attach rebalances queued requests onto replica 1, then
+       a trickle leaves it idle until it shrinks.
+
+    Gates, each sub-run: every stream equals the batch-1
+    ``reference_generate`` on the same weights; no request lost; the kill,
+    the replacement, the grow and the shrink as scheduled; every fleet
+    boot warm (every program from the store, no program function called,
+    one store hit a program and no put, nothing exported); K1 and K2 launches equal the programs' captured launches
+    times their replays plus one warm-up run of every program booted in
+    the sub-run (B's background load included), every K1 call on the
+    wgmma route.  Prints a JSON line per sub-run, then the record as the
+    last line."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    sys.path.insert(0, SRC)
+    from repro_torch.bench import cluster as cluster_bench
+    from repro_torch.bench.boot import EntryPointCounter
+    from repro_torch.core.program_store import ProgramStore
+    from repro_torch.engine_config import (ClusterConfig, EngineConfig,
+                                           ScaleConfig)
+    from repro_torch.kernels import _build, ops
+    from repro_torch.launch.serve import ServingEngine
+    from repro_torch.models import registry
+    from repro_torch.runtime.fault import FaultInjector
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    _build.library()
+    cfg = registry.get_config(CLUSTER_ARCH)
+    assert (cfg.n_layers, cfg.d_model, cfg.padded_vocab) == \
+        (28, 1024, 153_600), cfg
+    ecfg = EngineConfig(reduced=False, batch=BATCH, max_len=MAX_LEN,
+                        prefill_len=PREFILL_LEN, clock="step", seed=0,
+                        device="cuda")
+    # K2 once a product (7 a layer) and the tied head; K1 a layer an
+    # admission
+    per_pass = {"decode": {"matmul": 7 * cfg.n_layers + 1},
+                "prefill_slot": {"matmul": 7 * cfg.n_layers + 1,
+                                 "flash_attention": cfg.n_layers}}
+    rng = np.random.default_rng(0)
+    phase8 = [(rng.integers(1, cfg.vocab_size, size=p), MAX_NEW, a)
+              for p, a in zip(PHASE8_PLENS, PHASE8_ARRIVALS)]
+    bench12 = [(p, m, 0) for p, m in
+               cluster_bench.workload(12, np.random.default_rng(0))]
+    own_store = store_dir is None
+    out, works = {"card": smi, "store_from": "phase 23's cold boot"}, {}
+    if own_store:
+        store_dir = tempfile.mkdtemp(prefix="repro_cluster_store_")
+        t0 = time.perf_counter()
+        cold = ServingEngine(CLUSTER_ARCH, ecfg,
+                             store=ProgramStore(store_dir))
+        torch.cuda.synchronize()
+        out.update(store_from="a cold boot here", cold_boot={
+            "boot_s": time.perf_counter() - t0,
+            "export_s": sum(h.stats.export_s
+                            for h in cold.programs.values())})
+        del cold
+        gc.collect()
+        torch.cuda.empty_cache()
+    slow = {"from": None}
+
+    def degrade(step):
+        # sub-run C: replica 0 turns straggler from its C_SLOW_AFTER-th
+        # tick of C on
+        if slow["from"] is not None and step >= slow["from"]:
+            time.sleep(C_SLEEP_S)
+
+    def served(sup, work, rids):
+        lost = [r for r in rids if r not in sup.streams]
+        if lost:
+            raise AssertionError(f"requests lost: {lost}")
+        works.setdefault("requests", []).extend(
+            (p, m, sup.streams[r]) for (p, m, _), r in zip(work, rids))
+
+    def emit_sub(name, rec):
+        out[name] = rec
+        brief = {k: v for k, v in rec.items()
+                 if k not in ("boots", "expected_launches",
+                              "launches_by_route", "events")}
+        print(json.dumps({"sub_run": name, **brief}), flush=True)
+
+    try:
+        # -- A: two replicas, one killed and rebooted warm ------------------
+        inj = FaultInjector(fail_at_steps=[A_KILL_STEP])
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        sup = cluster_bench.CountingSupervisor(
+            CLUSTER_ARCH, ClusterConfig(
+                engine=ecfg, replicas=2, health_interval=1,
+                straggler_threshold=3.0, straggler_patience=5,
+                scale=ScaleConfig(min_replicas=1, max_replicas=2,
+                                  high_watermark=5.0, low_watermark=0.0,
+                                  sustain_window=3, cooldown=0)),
+            store=ProgramStore(store_dir),
+            fault_hooks={0: degrade, 1: inj.check})
+        torch.cuda.synchronize()
+        boot_s = time.perf_counter() - t0
+        params = sup.params
+        n_progs = len(sup.replicas[0].engine.programs)
+        for b in sup.boots:
+            for key, h in b["engine"].programs.items():
+                if h.program.launches != per_pass[key]:
+                    raise AssertionError(f"{key} captured "
+                                         f"{h.program.launches}, its "
+                                         f"shapes give {per_pass[key]}")
+        if (sup.store.hits, sup.store.misses, sup.store.puts) != \
+                (2 * n_progs, 0, 0):
+            raise AssertionError(f"A's boot: store {sup.store.report()}")
+        boots_a = fleet_boot_checks(sup.boots, 0)
+        work = phase8 + bench12
+        window = fleet_window(sup.boots, sup.store)
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        with EntryPointCounter() as calls:
+            rids = [sup.submit(p, max_new=m, arrival_time=a)
+                    for p, m, a in work]
+            stats = sup.run()
+        torch.cuda.synchronize()
+        if inj.fired != [A_KILL_STEP] or stats["kills"] != 1 or \
+                len(stats["recoveries"]) != 1 or not stats["completed_all"] \
+                or [e["action"] for e in sup.scale_events]:
+            raise AssertionError(f"A: {inj.fired} {stats}")
+        if calls.calls:
+            raise AssertionError(f"A called program functions {calls.calls}"
+                                 f" times")
+        served(sup, work, rids)
+        rec = stats["recoveries"][0]
+        emit_sub("A", fleet_record(
+            torch, sup, sup.boots, window, ops.launch_counts(),
+            ops.route_counts(), stats["wall_s"], stats["tokens"], n_progs,
+            smi, boot_s=boot_s, fleet_boots=boots_a,
+            requests=stats["requests"], kills=stats["kills"],
+            replayed=rec["replayed"], reboot_s=rec["reboot_s"],
+            downtime_s=rec["downtime_s"], recovery_load_s=rec["load_s"],
+            recovery_capture_s=rec["compile_s"],
+            ttft_p99_ms=stats["ttft_p99_ms"]))
+
+        # -- C: replica 0 turns straggler and is replaced warm -------------
+        window = fleet_window(sup.boots, sup.store)
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        rng_c = np.random.default_rng(3)
+        work = [(rng_c.integers(1, cfg.vocab_size, size=p), m, 0)
+                for p, m in ((64, 48), (40, 8), (90, 8), (20, 8), (120, 8),
+                             (33, 8))]
+        slow["from"] = sup.replicas[0].engine.steps + C_SLOW_AFTER
+        with EntryPointCounter() as calls:
+            rids = [sup.submit(p, max_new=m, arrival_time=a)
+                    for p, m, a in work]
+            stats = sup.run()
+        torch.cuda.synchronize()
+        events = [e for e in sup.scale_events if e["action"] == "replace"]
+        victim = sup.replicas[0]
+        if (len(events) != 1 or events[0]["victim"] != 0
+                or victim.state != "retired"
+                or victim.retire_reason != "straggler-replaced"
+                or not stats["completed_all"] or stats["kills"] != 1
+                or victim.journal.unfinished()
+                or sup.replicas[2].state != "running"):
+            raise AssertionError(f"C: {sup.scale_events} {stats}")
+        if calls.calls:
+            raise AssertionError(f"C called program functions {calls.calls}"
+                                 f" times")
+        served(sup, work, rids)
+        e = events[0]
+        emit_sub("C", fleet_record(
+            torch, sup, sup.boots, window, ops.launch_counts(),
+            ops.route_counts(), stats["wall_s"], stats["tokens"], n_progs,
+            smi, requests=stats["requests"], rerouted=stats["rerouted"],
+            escalations=victim.monitor.escalations,
+            straggler=victim.monitor.summary(),
+            boot_s=e["boot_s"], load_s=e["load_s"], capture_s=e["compile_s"],
+            attach_s=e["attach_s"], reason=e["reason"],
+            ttft_p99_ms=stats["ttft_p99_ms"], events=sup.scale_events))
+        sup.close()
+        del sup, victim
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- B: one replica grows under a burst, loads in the background ---
+        scale = ScaleConfig(min_replicas=1, max_replicas=2,
+                            high_watermark=0.75, low_watermark=0.15,
+                            sustain_window=3, cooldown=8, async_spawn=True,
+                            straggler_detection=False)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        sup = cluster_bench.CountingSupervisor(
+            CLUSTER_ARCH, ClusterConfig(engine=ecfg, replicas=1,
+                                        scale=scale),
+            params=params, store=ProgramStore(store_dir))
+        torch.cuda.synchronize()
+        boot_s = time.perf_counter() - t0
+        fleet_boot_checks(sup.boots, 0)
+        window = fleet_window(sup.boots, sup.store)
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        rng_b = np.random.default_rng(5)
+
+        def request():
+            return (rng_b.integers(1, cfg.vocab_size,
+                                   size=int(rng_b.integers(16, 201))),
+                    B_MAX_NEW, 0)
+
+        work, rids = [], []
+
+        def submit(n):
+            for _ in range(n):
+                work.append(request())
+                rids.append(sup.submit(work[-1][0], max_new=B_MAX_NEW))
+                if rids[-1] is None:
+                    raise AssertionError("B: admission refused")
+
+        ttft0, passes_loading, topups = len(sup._ttft_ms), 0, 0
+        t0 = time.perf_counter()
+        with EntryPointCounter() as calls:
+            submit(B_BURST)
+            # the burst raises the load past the high watermark; while
+            # the grow's loads run on their thread, replica 0 serves and
+            # keeps a queue for the attach to rebalance
+            while len(sup.replicas) < 2:
+                if sup.spawning:
+                    passes_loading += 1
+                    time.sleep(B_LOAD_PACE_S)
+                    depth = sup.replicas[0].engine.snapshot()["queue_depth"]
+                    if depth < B_QUEUE and topups < B_TOPUP_CAP:
+                        submit(1)
+                        topups += 1
+                if not sup.run(max_ticks=1)["ticks"] and not sup.spawning:
+                    raise AssertionError(f"B: no grow: {sup.scale_events}")
+            sup.run()
+            # a trickle: one request at a time leaves replica 1 idle
+            for _ in range(12):
+                if sup.replicas[1].state == "retired":
+                    break
+                submit(1)
+                sup.run()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        actions = [e["action"] for e in sup.scale_events]
+        grow = next(e for e in sup.scale_events if e["action"] == "grow")
+        if (actions != ["grow", "shrink"] or sup.rebalanced < 1
+                or sup.replicas[1].state != "retired"
+                or passes_loading < 1
+                or any(r.journal.unfinished() for r in sup.replicas)):
+            raise AssertionError(f"B: events {sup.scale_events}, rebalanced "
+                                 f"{sup.rebalanced}, passes while loading "
+                                 f"{passes_loading}")
+        if calls.calls:
+            raise AssertionError(f"B called program functions {calls.calls}"
+                                 f" times")
+        served(sup, work, rids)
+        ttft = sorted(sup._ttft_ms[ttft0:])
+        tokens = sum(len(sup.streams[r]) for r in rids)
+        emit_sub("B", fleet_record(
+            torch, sup, sup.boots, window, ops.launch_counts(),
+            ops.route_counts(), wall_s, tokens, n_progs, smi,
+            boot_s=boot_s, requests=len(rids), topups=topups,
+            passes_while_loading=passes_loading,
+            rebalanced=sup.rebalanced, grow_boot_s=grow["boot_s"],
+            grow_load_wall_s=grow["load_wall_s"],
+            grow_attach_s=grow["attach_s"], grow_load_s=grow["load_s"],
+            grow_capture_s=grow["compile_s"],
+            ttft_p99_ms=ttft[min(len(ttft) - 1, int(0.99 * len(ttft)))],
+            events=sup.scale_events))
+        sup.close()
+        del sup
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        if own_store:
+            shutil.rmtree(store_dir, ignore_errors=True)
+
+    # every stream against the batch-1 engine on the same weights
+    ref = ServingEngine(CLUSTER_ARCH, ecfg.replace(batch=1), params=params)
+    mism = []
+    for p, m, got in works["requests"]:
+        req = ref.submit(p, max_new=m)
+        ref.run()
+        ref.drain_completed()
+        if req.generated != got:
+            mism.append({"prompt_len": len(p), "fleet": got,
+                         "reference": req.generated})
+    if mism:
+        raise AssertionError(f"{len(mism)} of {len(works['requests'])} "
+                             f"streams differ from the batch-1 engine: "
+                             f"{mism[0]}")
+    out.update(streams_equal_reference=len(works["requests"]),
+               seconds=time.perf_counter() - t_start)
     emit(out)
     return 0
 
@@ -2902,8 +3342,8 @@ def main():
 
     def timed_replays(eng, name, args, steps):
         """``name``'s replays on the live caches, timed (:func:`time_calls`);
-        the caches are restored after.  Returns the call (for the
-        profiler), the times and the caches as they were."""
+        the caches are restored after.  Returns the times and the caches
+        as they were."""
         backup = clone_tree(eng.caches)
         prog = eng.programs[name]
 
@@ -2912,7 +3352,7 @@ def main():
 
         timed = time_calls(torch, call, steps)
         copy_tree(eng.caches, backup)
-        return call, timed, backup
+        return timed, backup
 
     def serve_horizon(out, arch, per_pass, plens, arrivals):
         """The horizon engine (H = 16) on phase 8-11's params beside that
@@ -2963,10 +3403,8 @@ def main():
         last = fill_slots(eng, 3)
         eager = horizon_vs_eager(eng, last)
         full = torch.full((BATCH,), HORIZON, dtype=torch.int32, device=dev)
-        call, timed, backup = timed_replays(eng, "decode_horizon",
-                                            (last, full), 3)
-        _, step_timed, _ = timed_replays(eng, "decode", (last,), 5)
-        timed = profile_calls(torch, call, 1, timed)
+        timed, backup = timed_replays(eng, "decode_horizon", (last, full), 3)
+        step_timed, _ = timed_replays(eng, "decode", (last,), 5)
         copy_tree(eng.caches, backup)
         prog = info["programs"]["decode_horizon"]
         out.update(
@@ -2980,7 +3418,7 @@ def main():
               f"{sat['step_tok_per_s']:.1f}), ms/token "
               f"{sat['ms_per_token']:.3f} ({sat['step_ms_per_token']:.3f}), "
               f"replay span {timed['events_device_ms_per_step']:.3f} ms, "
-              f"device {timed.get('device_ms_per_step')} ms, capture "
+              f"capture "
               f"{prog['compile_s']:.3f} s, graph pool "
               f"{prog['graph_pool_mib']:.1f} MiB", flush=True)
 
@@ -3194,9 +3632,8 @@ def main():
         last = fill_slots(eng, 7)
         rollback = verify_rollback(eng, last)
         drafts = torch.cat([last, last.repeat(1, SPEC_K)], 1)
-        vcall, vtimed, backup = timed_replays(eng, "verify", (drafts,), 5)
-        _, dtimed, _ = timed_replays(eng, "decode", (last,), 5)
-        vtimed = profile_calls(torch, vcall, 2, vtimed)
+        vtimed, backup = timed_replays(eng, "verify", (drafts,), 5)
+        dtimed, _ = timed_replays(eng, "decode", (last,), 5)
         copy_tree(eng.caches, backup)
         unmap_slots(eng)
         ratio = vtimed["events_device_ms_per_step"] / \
@@ -4140,7 +4577,7 @@ def main():
     served.clear()
     env = dict(os.environ, PYTHONPATH=SRC)
 
-    def warm_boot(out, arch, plens, arrivals, per_pass):
+    def warm_boot(out, arch, plens, arrivals, per_pass, keep_store=None):
         """A cold boot over a fresh ProgramStore serves phase 8's requests
         (streams equal ``reference_generate``, launches ``per_pass``) and
         exports every program; ``repro_torch.bench.boot --warm`` in a
@@ -4148,7 +4585,9 @@ def main():
         it (``source == "store"``, ``load_s > 0``), no call of a program
         function, the same streams and launches.  Then one entry is
         corrupted: the next boot captures that program from its function
-        (a miss), heals the entry, and its streams stay exact."""
+        (a miss), heals the entry, and its streams stay exact.  With
+        ``keep_store``, the store as the cold boot left it is copied
+        there first (phase 28's fleet boots from it)."""
         gc.collect()
         torch.cuda.empty_cache()
         store_dir = tempfile.mkdtemp(prefix="repro_store_")
@@ -4174,6 +4613,8 @@ def main():
                 raise AssertionError(f"{arch}: cold streams differ from "
                                      f"reference_generate")
             cold["persisted_after_serving"] = eng.syscore.persist()
+            if keep_store is not None:
+                shutil.copytree(store_dir, keep_store, dirs_exist_ok=True)
             cold["decode_replay_device_ms"] = boot_bench.decode_replay_ms(eng)
             del eng
             gc.collect()
@@ -4263,11 +4704,15 @@ def main():
 
     phase8_plens = [16, 200, 57, 120, 31, 180, 90, 140]
     phase8_arrivals = [0, 0, 0, 0, 3, 9, 20, 40]
+    # phase 28's fresh store: what qwen3's cold boot here exported (the
+    # same programs: phase 8's geometry), before any other boot used it
+    cluster_store = tempfile.mkdtemp(prefix="repro_cluster_store_")
     with phase("warm_boot") as out:
         warm_boot(out, "qwen3-0.6b", phase8_plens, phase8_arrivals,
                   {"matmul": (per_step, per_step),
                    "flash_attention": (0, n_layers), "moe_ffn": (0, 0),
-                   "ssd_scan": (0, 0), "rglru_scan": (0, 0)})
+                   "ssd_scan": (0, 0), "rglru_scan": (0, 0)},
+                  keep_store=cluster_store)
         warm_boot(out, "mamba2-130m", phase8_plens, phase8_arrivals,
                   {"matmul": (ssm_per_step, ssm_per_step),
                    "flash_attention": (0, 0), "moe_ffn": (0, 0),
@@ -4394,13 +4839,13 @@ def main():
             moe30["serve_bench"]["launches_by_route"]
 
     # -- 27. the port's benches --------------------------------------------
-    # through the port's runner, each bench in a process of its own; fused
-    # and spec with the reference's smoke workloads (3 repeats, 16
-    # candidates): the script's time
+    # through the port's runner, each bench in a process of its own, with
+    # the reference's smoke workloads (placement has none): the script's
+    # time
     with phase("benches") as out:
         for names, flags in (
-                (["serve", "placement", "paging", "prefix"], []),
-                (["fused", "spec"], ["--smoke"])):
+                (["serve", "placement", "paging", "prefix", "fused",
+                  "spec"], ["--smoke"]),):
             cmd = [sys.executable, "-m", "repro_torch.bench", "--only",
                    ",".join(names), "--device", "cuda", *flags]
             # the runner starts a process per bench: a session of their
@@ -4462,6 +4907,43 @@ def main():
               f"warm/cold TTFT {out['prefix']['ttft']['warm_over_cold']:.3f}, "
               f"paged/unpaged tok/s "
               f"{out['paging']['paged_over_unpaged_tok_per_s']:.3f} ({smi})",
+              flush=True)
+
+    # -- 28. qwen3-0.6b's serving fleet, in a process of its own -----------
+    with phase("serve_cluster") as out:
+        gc.collect()
+        torch.cuda.empty_cache()
+        try:
+            res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                  "--serve-cluster", cluster_store],
+                                 capture_output=True, text=True, env=env,
+                                 timeout=900, cwd=ROOT)
+        finally:
+            shutil.rmtree(cluster_store, ignore_errors=True)
+        lines = res.stdout.strip().splitlines()
+        for line in lines[:-1]:
+            print(line, flush=True)
+        if res.returncode != 0 or not lines:
+            raise AssertionError(f"phase 28's process failed "
+                                 f"({res.returncode}): {res.stderr[-4000:]}")
+        fleet = json.loads(lines[-1])
+        out.update(fleet)
+        for name in ("A", "C", "B"):
+            path_launches[f"qwen3-0.6b/cluster_{name}"] = \
+                fleet[name]["launches"]
+            path_routes[f"qwen3-0.6b/cluster_{name}"] = \
+                fleet[name]["launches_by_route"]
+        a, b, c = fleet["A"], fleet["B"], fleet["C"]
+        print(f"cluster: A reboot {a['reboot_s']:.2f} s (load "
+              f"{a['recovery_load_s']:.2f}, capture "
+              f"{a['recovery_capture_s']:.2f}), downtime "
+              f"{a['downtime_s']:.2f} s, {a['tok_per_s']:.1f} tok/s; C "
+              f"replace {c['boot_s']:.2f} s; B grow load "
+              f"{b['grow_load_wall_s']:.2f} s in the background over "
+              f"{b['passes_while_loading']} passes, attach "
+              f"{b['grow_attach_s']:.2f} s, rebalanced {b['rebalanced']}; "
+              f"{fleet['streams_equal_reference']} streams equal the "
+              f"batch-1 engine; {fleet['seconds']:.1f} s ({smi})",
               flush=True)
 
     def total(name):
@@ -4606,4 +5088,6 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:] == ["--serve-qwen3-moe"]:
         sys.exit(serve_qwen3_moe())
+    if sys.argv[1:2] == ["--serve-cluster"] and len(sys.argv) <= 3:
+        sys.exit(serve_cluster(*sys.argv[2:]))
     sys.exit(main())

@@ -27,11 +27,9 @@ import time
 from typing import List
 
 BENCHES = ("boot", "load_exec", "hostcall", "serve", "placement", "paging",
-           "spec", "fused", "prefix")
+           "spec", "fused", "prefix", "cluster", "elastic")
 # the reference's benches (benchmarks/run.py) the port cannot run yet
-WAITING = {"cluster": "ROADMAP Queue 1 item 11 (the serving cluster)",
-           "elastic": "ROADMAP Queue 1 item 11 (the elastic fleet)",
-           "autotune": "ROADMAP Queue 1 item 12 (the autotuner)",
+WAITING = {"autotune": "ROADMAP Queue 1 item 12 (the autotuner)",
            "roofline": "ROADMAP Queue 1 item 12 (the cost model)",
            "pipeline_cross_pod": "ROADMAP Queue 1 item 12 (dry-run records)",
            "tp": "ROADMAP Queue 1 item 13 (tensor parallelism)",

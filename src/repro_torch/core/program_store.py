@@ -49,6 +49,7 @@ import io
 import itertools
 import json
 import os
+import threading
 import time
 import types
 import typing
@@ -385,6 +386,9 @@ class ProgramStore:
         self.misses = 0
         self.puts = 0
         self.skipped = 0          # programs that could not be exported
+        # the counters are updated from a fleet's background boot thread
+        # too (repro_torch.core.syscore.preload)
+        self._lock = threading.Lock()
 
     # -- keying -------------------------------------------------------------
     def digest(self, spec: ProgramSpec) -> str:
@@ -399,14 +403,29 @@ class ProgramStore:
     # -- read path ----------------------------------------------------------
     def get(self, spec: ProgramSpec) -> Optional[bytes]:
         """The payload on a hit; None on a miss."""
-        p = self.directory / (self.digest(spec) + ".pt2")
+        return self.read(self.digest(spec))
+
+    def read(self, digest: str) -> Optional[bytes]:
+        """The payload stored under ``digest`` (:meth:`digest`) on a hit;
+        None on a miss.  Reads the file and counts, nothing else: safe on
+        a thread beside a serving one."""
+        p = self.directory / (digest + ".pt2")
         try:
             payload = p.read_bytes()
         except FileNotFoundError:
-            self.misses += 1
+            with self._lock:
+                self.misses += 1
             return None
-        self.hits += 1
+        with self._lock:
+            self.hits += 1
         return payload
+
+    def unreadable(self):
+        """Count the last hit as a miss: its payload could not be
+        loaded."""
+        with self._lock:
+            self.hits -= 1
+            self.misses += 1
 
     def contains(self, spec: ProgramSpec) -> bool:
         return (self.directory / (self.digest(spec) + ".pt2")).exists()
@@ -437,7 +456,8 @@ class ProgramStore:
                 "time": time.time()}
         self._atomic_write(digest + ".json",
                            json.dumps(meta, indent=1).encode())
-        self.puts += 1
+        with self._lock:
+            self.puts += 1
         return final
 
     # -- management ---------------------------------------------------------

@@ -32,6 +32,17 @@ not by the warm-up nor by the capture, which on the card still happen (a
 CUDA graph cannot be serialized).  A miss runs the function as before and
 writes its export back; a program that cannot be exported is marked,
 counted in ``store.skipped`` and never tried again.
+
+A serving fleet boots a replica while others serve
+(:mod:`repro_torch.cluster`).  The store read and ``torch.export.load`` of
+that boot are CPU work with no device side: :func:`preload` does them, on
+a background thread if the caller likes, and ``Syscore(preloaded=...)``
+installs the result.  Everything else a hot load does touches state that
+the whole process shares: the sync debug mode of the warm-up, K2's stack
+of scratch tables, the stack of host-call site lists, the kernels' launch
+counters that a capture takes its launches back off, the allocator's
+cache that it empties before reading its pool's size.  So it runs on the
+thread that serves, between replays, never beside them.
 """
 from __future__ import annotations
 
@@ -43,14 +54,14 @@ import torch
 
 from repro_torch.core import hostcall as hostcall_lib
 from repro_torch.core.hostcall import CALL_METRIC, HostCallTable
-from repro_torch.core.program_store import (ProgramSpec, ProgramStore,
-                                            install_program, leaves,
-                                            serialize_program)
+from repro_torch.core.program_store import (InstalledProgram, ProgramSpec,
+                                            ProgramStore, install_program,
+                                            leaves, serialize_program)
 from repro_torch.core.uva import UVARegistry
 from repro_torch.kernels import matmul, ops
 
 __all__ = ["ProgramSpec", "ProgramStore", "ProgramHandle", "Syscore",
-           "UnknownProgramError", "cold_execute"]
+           "UnknownProgramError", "cold_execute", "Preloaded", "preload"]
 
 # CALL_METRIC name codes for program-lifecycle telemetry (engine codes 1..3,
 # 6 and 7 live in repro_torch.launch.serve)
@@ -188,6 +199,42 @@ class ProgramHandle:
         self._syscore.evict(self.key)
 
 
+@dataclass
+class Preloaded:
+    """A stored program read and loaded, not yet installed: its payload,
+    the loaded callable and the seconds the load took."""
+    payload: bytes
+    fn: InstalledProgram
+    load_s: float
+
+
+def _load(payload: bytes, spec: ProgramSpec) -> Preloaded:
+    t0 = time.perf_counter()
+    fn = install_program(payload, spec)
+    return Preloaded(payload, fn, time.perf_counter() - t0)
+
+
+def preload(store: ProgramStore, specs: List[Tuple[ProgramSpec, str]]
+            ) -> Dict[str, Preloaded]:
+    """Read and load the stored payloads of ``specs``, given as (spec,
+    ``store.digest(spec)``) pairs that the caller computed, by
+    fingerprint.  File reads and ``torch.export.load`` only: no device
+    work and none of the process-wide state a hot load touches, so it may
+    run on a thread beside a serving one.  A miss, or a payload that
+    cannot be loaded (counted as a miss), is left out: ``hot_load`` then
+    takes its usual path for that spec."""
+    out = {}
+    for spec, digest in specs:
+        payload = store.read(digest)
+        if payload is None:
+            continue
+        try:
+            out[spec.fingerprint] = _load(payload, spec)
+        except Exception:
+            store.unreadable()
+    return out
+
+
 def _nonzero(counts: Dict[str, int]) -> Dict[str, int]:
     return {k: v for k, v in counts.items() if v}
 
@@ -213,14 +260,18 @@ class Syscore:
     ``device`` is the UVA registry's device; ``None`` means the card.
     ``store`` attaches the global-memory tier: hot loads first install
     from it, and programs run from their Python function are exported
-    back into it."""
+    back into it.  ``preloaded``: programs of that store already loaded
+    (:func:`preload`), by fingerprint; a hot load of a matching spec
+    installs one in place of a store read."""
 
-    def __init__(self, device=None, store: Optional[ProgramStore] = None):
+    def __init__(self, device=None, store: Optional[ProgramStore] = None,
+                 preloaded: Optional[Dict[str, Preloaded]] = None):
         self.programs: Dict[str, Program] = {}
         self._t_boot = time.perf_counter()
         self.hostcalls = HostCallTable()
         self.uva = UVARegistry(device)
         self.store = store
+        self.preloaded = dict(preloaded or {})
 
     def lookup(self, key: str) -> Program:
         try:
@@ -273,30 +324,32 @@ class Syscore:
                        n_inputs=len(spec.inputs), source=source, spec=spec,
                        fingerprint=spec.fingerprint)
 
-    def _install(self, spec: ProgramSpec, payload: bytes,
+    def _install(self, spec: ProgramSpec, loaded: Preloaded,
                  source: str) -> Program:
-        """A program of ``payload`` (raises where it cannot be read)."""
-        t0 = time.perf_counter()
-        prog = self._program(spec, install_program(payload, spec), source)
-        prog.stats.load_s = time.perf_counter() - t0
-        prog.payload = payload
+        """A program of a loaded payload, bound to ``spec``."""
+        loaded.fn.templates = spec.inputs
+        prog = self._program(spec, loaded.fn, source)
+        prog.stats.load_s = loaded.load_s
+        prog.payload = loaded.payload
         prog.serializable = True
-        prog.stats.serialized_bytes = len(payload)
+        prog.stats.serialized_bytes = len(loaded.payload)
         return prog
 
     def _load_from_store(self, spec: ProgramSpec) -> Optional[Program]:
-        payload = self.store.get(spec)
-        if payload is None:
-            return None
-        try:
-            return self._install(spec, payload, "store")
-        except Exception:
-            # a payload torch.export.load cannot read (a torn or corrupt
-            # entry, a skew the environment key missed): a miss, and the
-            # function runs instead
-            self.store.hits -= 1
-            self.store.misses += 1
-            return None
+        loaded = self.preloaded.pop(spec.fingerprint, None)
+        if loaded is None:
+            payload = self.store.get(spec)
+            if payload is None:
+                return None
+            try:
+                loaded = _load(payload, spec)
+            except Exception:
+                # a payload torch.export.load cannot read (a torn or
+                # corrupt entry, a skew the environment key missed): a
+                # miss, and the function runs instead
+                self.store.unreadable()
+                return None
+        return self._install(spec, loaded, "store")
 
     @staticmethod
     def _payload(prog: Program) -> bytes:
@@ -336,7 +389,7 @@ class Syscore:
         templates; ``spec.fn`` is not called.  The load's cost scales with
         the program, not the weights; on the card the program is then
         warmed up and captured."""
-        prog = self._install(spec, payload, "serialized")
+        prog = self._install(spec, _load(payload, spec), "serialized")
         prog.key = key
         card = _card(spec)
         if card is not None:

@@ -5,10 +5,14 @@ whole-batch ``prefill`` program), ``paging`` (:class:`PagingConfig`, the
 paged KV arena of :mod:`repro_torch.core.paging`), ``prefix``
 (:class:`PrefixConfig`, cross-request prefix sharing over that arena),
 ``spec`` (:class:`SpecConfig`, speculative decoding) and ``horizon``
-(:class:`HorizonConfig`, fused decode horizons).
+(:class:`HorizonConfig`, fused decode horizons); and the fleet's
+:class:`ScaleConfig` and :class:`ClusterConfig` (:mod:`repro_torch.cluster`).
+Every config round-trips through a plain dict (``to_dict`` /
+``from_dict``).
 
 Sharding is not ported yet (ROADMAP Queue 1 item 13); the config has no
-field for it, so asking for one fails at construction.
+field for it, so asking for one fails at construction, and a fleet's
+replicas each run on one device.
 ``group_prefill`` with ``paging`` or ``spec`` raises as in the reference,
 which cannot combine them.
 """
@@ -16,7 +20,12 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Any, Dict, Optional
+
+# router policies a ClusterConfig may name (repro_torch.cluster.router
+# implements them; the tuple lives here so config validation needs no
+# cluster import)
+ROUTER_POLICIES = ("least_loaded", "round_robin", "prefix_affinity")
 
 
 @dataclass(frozen=True)
@@ -217,3 +226,179 @@ class EngineConfig:
         """Extra context for the ``prefill_offset`` program only: its
         closure-captured suffix capacity."""
         return repr((("prefix_suffix", self.resolved_prefix_suffix),))
+
+    # -- dict round trip -----------------------------------------------------
+    def to_dict(self) -> Dict[str, Any]:
+        """Plain nested dict (JSON-serializable); inverse of from_dict."""
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "EngineConfig":
+        d = dict(d)
+        for key, sub in (("paging", PagingConfig), ("prefix", PrefixConfig),
+                         ("spec", SpecConfig), ("horizon", HorizonConfig)):
+            v = d.get(key)
+            if isinstance(v, dict):
+                d[key] = sub(**v)
+        known = {f.name for f in dataclasses.fields(cls)}
+        unknown = set(d) - known
+        if unknown:
+            raise TypeError(f"unknown EngineConfig fields: {sorted(unknown)}")
+        return cls(**d)
+
+
+@dataclass(frozen=True)
+class ScaleConfig:
+    """Elastic fleet scaling for a serving cluster (repro_torch.cluster).
+
+    The supervisor watches normalized fleet load — per running replica,
+    ``(active slots + routed queue depth) / batch`` plus paged-arena
+    pressure, the same basis ``Router.load`` ranks on — and resizes the
+    fleet between ``min_replicas`` and ``max_replicas``:
+
+      * load >= ``high_watermark`` for ``sustain_window`` consecutive
+        supervisor passes spawns one replica, booted WARM from the shared
+        ProgramStore (and PrefixStore) mid-run, then rebalances queued
+        (never active) requests onto it through the journal ``moved``
+        path;
+      * load <= ``low_watermark`` sustained, with some replica idle that
+        whole window, quiesces the idle replica: routing stops, its
+        in-flight batch drains, then it retires and its journal/telemetry
+        fold into the fleet accumulators;
+      * a sustained straggler escalation
+        (:class:`repro_torch.runtime.fault.StragglerMonitor`) replaces the
+        slow replica outright: a fresh warm replica boots, the victim's
+        unfinished requests re-route via the journal, the victim retires.
+        Replacement is capacity-neutral and therefore allowed even at
+        ``max_replicas``.
+
+    ``cooldown`` supervisor passes must elapse between scale actions so
+    one burst cannot thrash the fleet.  ``async_spawn`` reads and loads
+    the new engine's stored programs on a background thread, so serving
+    does not stall behind that CPU work; the rest of the boot (device
+    allocation, and on the card the warm-up and capture) runs on the
+    supervisor's thread when the replica attaches.  The default loads on
+    the supervisor's thread too, so the whole schedule stays deterministic
+    on the step clock (tests).
+    """
+    min_replicas: int = 1
+    max_replicas: int = 4
+    high_watermark: float = 0.85
+    low_watermark: float = 0.15
+    sustain_window: int = 3
+    cooldown: int = 8
+    async_spawn: bool = False
+    # straggler-triggered replacement on/off.  Watermark grow/shrink and
+    # crash failover are unaffected; escalations are still observed and
+    # reported.  Benchmarks whose replicas share one process turn this off
+    # by name: a concurrent boot inflates every replica's tick wall (the
+    # interpreter lock), which is not a straggler.
+    straggler_detection: bool = True
+
+    def __post_init__(self):
+        assert 1 <= self.min_replicas <= self.max_replicas, \
+            (self.min_replicas, self.max_replicas)
+        assert 0.0 <= self.low_watermark < self.high_watermark, \
+            (self.low_watermark, self.high_watermark)
+        assert self.sustain_window >= 1, self.sustain_window
+        assert self.cooldown >= 0, self.cooldown
+
+    def replace(self, **kw) -> "ScaleConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ClusterConfig:
+    """A multi-replica serving cluster, as one frozen value object
+    (repro_torch.cluster): N identical :class:`EngineConfig` replicas
+    behind one router, supervised with health checks and warm failover.
+
+    engine: the per-replica engine config.  Its ``store_dir`` must be
+        unset — the cluster owns ONE shared program store
+        (``ClusterConfig.store_dir``) so every replica, and every
+        failover reboot, warm-loads from the same global-memory tier.
+    replicas: replica count (>= 1).
+    router: request-assignment policy (``ROUTER_POLICIES``):
+        ``least_loaded`` scores queue depth + slot occupancy + arena
+        pressure; ``round_robin`` cycles; ``prefix_affinity`` pins a
+        prompt's prefix hash to a preferred replica (falling back to
+        least-loaded when that replica cannot admit).
+    affinity_len: prompt-prefix tokens hashed by ``prefix_affinity``.
+    health_interval: supervisor ticks between health checks per replica
+        (each check feeds new step-latency telemetry into that replica's
+        StragglerMonitor).
+    straggler_threshold / straggler_patience: the per-replica
+        StragglerMonitor policy — a supervised tick slower than
+        ``threshold x`` the replica's rolling median is a straggler
+        observation, ``patience`` consecutive observations escalate (and,
+        with ``scale`` set, trigger proactive replacement).
+    max_restarts / backoff_s / backoff_factor: the serving-side restart
+        policy (repro_torch.runtime.fault.RestartPolicy): a crashed
+        replica is rebooted at most ``max_restarts`` times, the n-th
+        reboot delayed ``backoff_s * backoff_factor**(n-1)`` seconds; past
+        the limit its unfinished requests re-route to surviving replicas.
+    store_dir: the SHARED ProgramStore directory (warm failover); ``None``
+        = no store, every reboot runs the program functions again.
+    journal_dir: directory for the durable per-replica request journals;
+        ``None`` keeps them in supervisor memory (kill-safe, not
+        process-crash-safe).
+    scale: elastic fleet scaling policy (:class:`ScaleConfig`); ``None``
+        keeps the fleet fixed at ``replicas``.  When set, ``replicas`` is
+        the *initial* fleet size and must sit inside
+        ``[min_replicas, max_replicas]``.
+    """
+    engine: EngineConfig = EngineConfig()
+    replicas: int = 2
+    router: str = "least_loaded"
+    affinity_len: int = 8
+    health_interval: int = 8
+    straggler_threshold: float = 1.5
+    straggler_patience: int = 3
+    max_restarts: int = 3
+    backoff_s: float = 0.0
+    backoff_factor: float = 2.0
+    store_dir: Optional[str] = None
+    journal_dir: Optional[str] = None
+    scale: Optional[ScaleConfig] = None
+
+    def __post_init__(self):
+        assert self.replicas >= 1, self.replicas
+        if self.scale is not None:
+            assert (self.scale.min_replicas <= self.replicas
+                    <= self.scale.max_replicas), \
+                "initial replica count must sit inside the elastic " \
+                f"range: {self.scale.min_replicas} <= {self.replicas} " \
+                f"<= {self.scale.max_replicas}"
+        assert self.router in ROUTER_POLICIES, \
+            (self.router, ROUTER_POLICIES)
+        assert self.affinity_len >= 1, self.affinity_len
+        assert self.health_interval >= 1, self.health_interval
+        assert self.straggler_threshold > 1.0, self.straggler_threshold
+        assert self.straggler_patience >= 1, self.straggler_patience
+        assert self.max_restarts >= 0, self.max_restarts
+        assert self.backoff_s >= 0 and self.backoff_factor >= 1, \
+            (self.backoff_s, self.backoff_factor)
+        assert self.engine.store_dir is None, \
+            "the cluster owns the shared program store: set " \
+            "ClusterConfig.store_dir, not EngineConfig.store_dir"
+
+    def replace(self, **kw) -> "ClusterConfig":
+        return dataclasses.replace(self, **kw)
+
+    # -- dict round trip -----------------------------------------------------
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "ClusterConfig":
+        d = dict(d)
+        if isinstance(d.get("engine"), dict):
+            d["engine"] = EngineConfig.from_dict(d["engine"])
+        if isinstance(d.get("scale"), dict):
+            d["scale"] = ScaleConfig(**d["scale"])
+        known = {f.name for f in dataclasses.fields(cls)}
+        unknown = set(d) - known
+        if unknown:
+            raise TypeError(
+                f"unknown ClusterConfig fields: {sorted(unknown)}")
+        return cls(**d)

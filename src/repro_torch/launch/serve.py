@@ -70,7 +70,7 @@ import argparse
 import bisect
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -80,7 +80,8 @@ from repro_torch.core.hostcall import CALL_BATCH, CALL_METRIC, CALL_STEP_REPORT
 from repro_torch.core.program_store import ProgramStore
 from repro_torch.core.syscore import (METRIC_KERNEL_BUILD_MS,
                                       METRIC_PROGRAM_COMPILE_MS,
-                                      METRIC_PROGRAM_LOAD_MS, Syscore)
+                                      METRIC_PROGRAM_LOAD_MS, Preloaded,
+                                      Syscore)
 from repro_torch.core.paging import PagedKVManager, PrefixStore
 from repro_torch.engine_config import (EngineConfig, HorizonConfig,
                                        PagingConfig, PrefixConfig,
@@ -124,9 +125,17 @@ class Request:
 
     @property
     def ttft_s(self) -> Optional[float]:
+        """Time to first token; ``None`` for a request never placed."""
         if self.t_first is None:
             return None
         return self.t_first - self.t_submit
+
+    @property
+    def latency_s(self) -> Optional[float]:
+        """Submit-to-done wall latency; ``None`` until finished."""
+        if self.t_done is None:
+            return None
+        return self.t_done - self.t_submit
 
 
 def resolve_device(device: Optional[str]) -> torch.device:
@@ -161,17 +170,26 @@ class ServingEngine:
     memory"; ``config.store_dir`` is shorthand for one): a warm boot
     installs every program from its export, without calling the program
     functions (on the card each is still warmed up and captured), and a
-    cold boot exports every program into it.
+    cold boot exports every program into it.  ``preloaded``: stored
+    programs already read and loaded off the card
+    (:func:`repro_torch.core.syscore.preload`, a fleet's background
+    boot), installed in place of a store read.  ``fault_hook``: called
+    with the engine's step count at the top of every :meth:`tick`; raising
+    :class:`repro_torch.runtime.fault.SimulatedFailure` models this
+    replica crashing mid-serving (:mod:`repro_torch.cluster`).
     """
 
     def __init__(self, arch: str, config: Optional[EngineConfig] = None, *,
                  params=None, device: Optional[str] = None,
                  store: Optional[ProgramStore] = None,
-                 prefix_store: Optional[PrefixStore] = None):
+                 prefix_store: Optional[PrefixStore] = None,
+                 fault_hook: Optional[Callable[[int], None]] = None,
+                 preloaded: Optional[Dict[str, Preloaded]] = None):
         config = config if config is not None else EngineConfig()
         self.device = resolve_device(device or config.device)
         self.config = config.replace(device=str(self.device))
         self.arch = arch
+        self.fault_hook = fault_hook
         self.reduced = config.reduced
         self.cfg = registry.get_config(arch, reduced=config.reduced)
         if self.cfg.is_encdec:
@@ -201,7 +219,7 @@ class ServingEngine:
                               steps_lib.warm_prefix_capable(self.cfg))
         if store is None and config.store_dir is not None:
             store = ProgramStore(config.store_dir)
-        self.syscore = Syscore(self.device, store=store)
+        self.syscore = Syscore(self.device, store=store, preloaded=preloaded)
         on_card = self.device.type == "cuda"
         if on_card:
             # the kernels are built (or found current) once per process
@@ -296,6 +314,8 @@ class ServingEngine:
         self.warm_admissions = 0       # of those, through prefill_offset
         self.prefix_tokens_reused = 0  # prompt tokens never re-prefilled
         self._n_submitted = 0
+        self.draining = False          # quiescing: no new admissions, the
+                                       # in-flight batch runs to completion
         self._t0 = time.perf_counter()
 
     # -- clock ----------------------------------------------------------------
@@ -312,8 +332,14 @@ class ServingEngine:
     def submit(self, prompt: np.ndarray, max_new: int = 16,
                arrival_time: float = 0.0,
                rid: Optional[int] = None) -> Optional[Request]:
-        """Enqueue a request; None if the bounded admission queue is full."""
-        if len(self.queue) >= self.max_queue:
+        """Enqueue a request; None if the bounded admission queue is full
+        or the engine is draining.
+
+        ``rid`` pins the request id instead of taking the next engine-local
+        one: a cluster router assigns global ids, so a request keeps its
+        identity across replicas and failover replays (the internal
+        counter advances past any pinned id)."""
+        if self.draining or len(self.queue) >= self.max_queue:
             self.rejected += 1
             return None
         prompt = np.asarray(prompt, np.int32)[-self.prefill_len:]
@@ -737,12 +763,33 @@ class ServingEngine:
         """True while any request is queued or occupies a slot."""
         return bool(self.queue) or any(s is not None for s in self.slots)
 
+    def begin_drain(self):
+        """Enter drain mode: every later :meth:`submit` is refused while
+        already-accepted work, queued and in flight, runs to completion
+        (the quiesce half of an elastic shrink)."""
+        self.draining = True
+
+    def withdraw(self, rid: int) -> Optional[Request]:
+        """Remove and return a QUEUED request by id, or ``None`` if it is
+        in a slot, preempted (its KV lives in the pager) or unknown.  A
+        withdrawn request holds no engine state, so resubmitting its
+        prompt elsewhere is exact (elastic rebalancing)."""
+        for qi, r in enumerate(self.queue):
+            if r.rid == rid and not r.needs_resume:
+                return self.queue.pop(qi)
+        return None
+
     def tick(self) -> bool:
-        """One supervised engine iteration (the step-level API)."""
+        """One supervised engine iteration (the step-level API a cluster
+        supervisor drives): the fault hook fires first, then one
+        :meth:`step`."""
+        if self.fault_hook is not None:
+            self.fault_hook(self.steps)
         return self.step()
 
     def snapshot(self) -> Dict[str, object]:
-        """Point-in-time load view, host bookkeeping only."""
+        """Point-in-time load view for a router or supervisor, host
+        bookkeeping only (no device sync)."""
         active = [s for s in self.slots if s is not None]
         return {
             "steps": self.steps,
@@ -753,6 +800,9 @@ class ServingEngine:
             "inflight_rids": sorted([r.rid for r in active] +
                                     [r.rid for r in self.queue]),
             "completed": len(self.completed),
+            "draining": self.draining,
+            "arena_occupancy": (self.pager.arena_occupancy()
+                                if self.paged else 0.0),
         }
 
     def step(self) -> bool:

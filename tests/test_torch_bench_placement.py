@@ -93,8 +93,8 @@ def test_bench_main_runs_benches_and_lists_the_waiting():
     assert lines[0]["device"] == {"platform": "cpu"}
     assert lines[0]["seconds"] > 0
     waiting = {r["bench"] for r in lines[1:]}
-    assert waiting == {"cluster", "elastic", "autotune", "roofline",
-                       "pipeline_cross_pod", "tp", "treeload"}
+    assert waiting == {"autotune", "roofline", "pipeline_cross_pod", "tp",
+                       "treeload"}
     assert all("ROADMAP Queue 1 item" in r["waits_for"] for r in lines[1:])
 
 

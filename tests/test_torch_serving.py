@@ -132,7 +132,9 @@ def test_port_imports_neither_jax_nor_the_reference_package():
         "assert not bad, bad\n"
         "assert 'repro_torch.models.encdec' in sys.modules\n"
         "for m in ('core.program_store', 'core.hostcall', 'bench.boot',\n"
-        "          'bench.load_exec', 'bench.hostcall'):\n"
+        "          'bench.load_exec', 'bench.hostcall', 'cluster.supervisor',\n"
+        "          'cluster.router', 'cluster.journal', 'runtime.fault',\n"
+        "          'runtime.elastic', 'bench.cluster', 'bench.elastic'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print('ok', len([n for n in sys.modules if n.startswith('repro_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(src))
