@@ -267,9 +267,10 @@ and the script exits non-zero:
             program; ``repro_torch.bench.boot --warm`` in a fresh process
             boots from that directory: every program ``source == "store"``
             with ``load_s > 0``, no call of a program function, the same
-            streams and launches; then the ``decode`` entry is torn: the
-            next boot captures it from its function (a counted miss),
-            heals the entry and stays exact.  Reported: cold and warm
+            streams and launches; then (qwen3-0.6b only) the ``decode``
+            entry is torn: the next boot captures it from its function (a
+            counted miss), heals the entry and stays exact.  Reported: cold
+            and warm
             ``boot_s``, per program ``load_s``, ``lower_s``,
             ``compile_s``, the export's seconds and ``serialized_bytes``,
             a warm and a cold ``decode`` replay's device time;
@@ -302,14 +303,16 @@ and the script exits non-zero:
             prefill, K3 at C 80, replayed against the program's eager
             function on the burst's inputs, and its first tokens against
             that replay); no program is exported;
-27. benches  ``python -m repro_torch.bench --smoke`` (each bench in a
-            process of its own) at full width in bf16, with the
+27. benches  the port's benches at full width in bf16, with the
             reference's smoke workloads to keep the script inside its
-            time: ``serve`` (qwen3-0.6b), ``placement`` (Table 2 over one
+            time: ``serve`` (qwen3-0.6b) through ``python -m
+            repro_torch.bench --only serve --smoke`` (the runner, a
+            process a bench), then in this process on one draw of
+            qwen3-0.6b's weights ``placement`` (Table 2 over one
             qwen3-moe-30b-a3b layer's 128 experts, which has no smoke
             size: the three layouts' outputs bit-equal, layout A's against
             ``moe_ffn_ref``), ``paging``, ``prefix``, ``fused`` and
-            ``spec`` (qwen3-0.6b); each names
+            ``spec``; each names
             the card, keeps its reference's exactness and count checks,
             reports its speed ratios without asserting them, and launches
             K1 and K3 on the wgmma route only;
@@ -329,7 +332,25 @@ and the script exits non-zero:
             warm (every program from the store, no program function
             called, one store hit a program, no put, nothing exported),
             K1 and K2 launches equal to the programs' replays and warm-ups
-            (B's background load included); one JSON line a sub-run.
+            (B's background load included); one JSON line a sub-run;
+29. autotune  the trace-driven autotuner and its cost model
+            (``repro_torch.runtime.autotune``, ``launch.cost``) on
+            qwen3-0.6b at full width in bf16, on phase 27's weights, at
+            ``bench.autotune``'s geometry (batch 4, max_len 128,
+            prefill_len 64, step clock): its chat workload at smoke size
+            served with a ``TraceLog`` written to a file, which must
+            replay as the live trace; the cost model's ``overhead_frac``
+            measured (a decode replay's device span by CUDA events over a
+            dispatch's median wall), the reference bench's grid searched
+            (counting on ``meta`` launches nothing), the default, tuned
+            and worst-predicted tried configs measured in turns: streams
+            equal, the measured ranking agrees with the predicted one; then
+            ``prefill_slot``, ``decode``, ``decode_horizon`` (H 16) and
+            ``verify`` (k 3) counted on ``meta`` by the search's cost model
+            beside their replays' device ms:
+            every roofline share at most 1.05, the horizon's FLOPs 16 x
+            decode's; launches exact (``chip_smoke.py --serve-autotune``
+            runs the phase alone).
 
 Then a ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.  The full record is also written to
@@ -1487,6 +1508,194 @@ def serve_cluster(store_dir=None):
                seconds=time.perf_counter() - t_start)
     emit(out)
     return 0
+
+
+# phase 29: the autotuner and its cost model on qwen3-0.6b at full width,
+# the reference bench's geometry (bench.autotune: batch 4, max_len 128,
+# prefill_len 64, step clock) and its chat workload at smoke size
+AUTOTUNE_ARCH = "qwen3-0.6b"
+AUTOTUNE_HORIZON, AUTOTUNE_SPEC_K = 16, 3
+# no card beats its roofline: a share above this is a counting fault
+SHARE_LIMIT = 1.05
+
+
+def serve_autotune(params=None):
+    """Phase 29's body (``chip_smoke.py --serve-autotune`` runs it alone):
+    the trace-driven autotuner (``repro_torch.runtime.autotune``) and its
+    cost model on the card.  ``params``: qwen3-0.6b's weights at full
+    width on the card (drawn from seed 0 when None).
+
+    1-3. ``bench.autotune.tune`` on its chat workload at smoke size (4
+       prompts of 8 tokens, 48 new), one repeat: the default engine
+       serves it with a ``TraceLog`` written to a file after a warm-up
+       request, which loaded back must replay exactly as the live trace;
+       ``overhead_frac`` is measured on that engine (one minus a decode
+       replay's device span by CUDA events over the median wall of a
+       decode dispatch), the cost model calibrated on the trace, and
+       ``autotune`` descends the reference bench's grid (horizons 1, 8,
+       16; batches 2, 4), launching nothing (it counts on ``meta``); the
+       default, tuned and worst-predicted tried configs serve it in
+       turns: streams equal, and the measured ranking agrees with the
+       predicted one (pairs predicted within ``RANK_TOL`` are ties).
+    4. ``prefill_slot``, ``decode``, ``decode_horizon`` (H 16) and
+       ``verify`` (k 3) at that geometry, counted on ``meta`` by the
+       search's cost model (``CostModel.cost``; it counted all but
+       verify), and each one's replays timed by CUDA events on an engine
+       of the config counted: per program FLOPs, ideal bytes, compute
+       and memory seconds against
+       the H100's peaks, the replay's device ms and the roofline share
+       ``max(compute_s, memory_s) / device_s``, which must be at most
+       ``SHARE_LIMIT``; ``decode_horizon``'s FLOPs must be 16 x
+       ``decode``'s.
+    5. K1 and K2 launches equal every engine's programs' captured launches
+       times their replays plus one warm-up run a program booted here,
+       every K1 call on the wgmma route.
+
+    Returns the record (its ``launches`` and ``launches_by_route`` the
+    phase's)."""
+    import shutil
+    import tempfile
+
+    import torch
+    sys.path.insert(0, SRC)
+    from repro_torch.bench import autotune as tune
+    from repro_torch.bench.common import events_ms
+    from repro_torch.engine_config import HorizonConfig, SpecConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch.serve import ServingEngine
+    from repro_torch.models import registry
+    t_start = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    arch = AUTOTUNE_ARCH
+    cfg = registry.get_config(arch)
+    assert (cfg.n_layers, cfg.d_model, cfg.padded_vocab) == \
+        (28, 1024, 153_600), cfg
+    base = tune.base_config(full=True, device="cuda")
+    tmp = tempfile.mkdtemp(prefix="repro_trace_")
+    rec = {"card": smi, "model": arch, "dtype": cfg.dtype,
+           "engine": {"batch": base.batch, "max_len": base.max_len,
+                      "prefill_len": base.prefill_len, "clock": "step"}}
+    try:
+        work = tune.workloads(registry.get_config(arch, reduced=True)
+                              .vocab_size, smoke=True)["chat"]
+        ops.reset_launch_counts()
+        # 1-3. record, replay the file, search, measure: bench.autotune's
+        # steps (and gates) for one workload, one repeat
+        res = tune.tune(arch, base, params, work, 1,
+                        os.path.join(tmp, "chat.jsonl"))
+        boots = [{"engine": e} for e in res["engines"].values()]
+        params = res["engines"]["default"].params
+        split, search, cells = res["split"], res["search"], res["cells"]
+        cost_model = res["cost_model"]
+        configs = {"prefill_slot": base, "decode": base}
+        # 4. the four programs: counted by the search's cost model (it
+        # counted prefill_slot, decode and the horizon of 16 at the
+        # traced geometry; verify is counted here), each replay timed on
+        # an engine of the config counted
+        engines = {"prefill_slot": res["engines"]["default"],
+                   "decode": res["engines"]["default"]}
+        for name, config in (("decode_horizon", base.replace(
+                horizon=HorizonConfig(AUTOTUNE_HORIZON))),
+                ("verify", base.replace(spec=SpecConfig(AUTOTUNE_SPEC_K)))):
+            engines[name] = ServingEngine(arch, config, params=params)
+            boots.append({"engine": engines[name]})
+            configs[name] = config
+        launches0 = ops.launch_counts()
+        counted = {name: cost_model.cost(configs[name], name).to_dict()
+                   for name in engines}
+        if ops.launch_counts() != launches0:
+            raise AssertionError("counting the programs launched kernels")
+        dev = engines["decode"].device
+        tok = torch.zeros((base.batch, 1), dtype=torch.int32, device=dev)
+        calls = {
+            "prefill_slot": (10, (torch.zeros(
+                (1, base.prefill_len), dtype=torch.int32, device=dev), 0,
+                base.prefill_len)),
+            "decode": (20, (tok,)),
+            "verify": (10, (torch.zeros((base.batch, AUTOTUNE_SPEC_K + 1),
+                                        dtype=torch.int32, device=dev),)),
+            "decode_horizon": (5, (tok, torch.full(
+                (base.batch,), AUTOTUNE_HORIZON, dtype=torch.int32,
+                device=dev))),
+        }
+        device_ms = {}
+        for name, (n, args) in calls.items():
+            e = engines[name]
+            h = e.programs[name]
+            device_ms[name] = events_ms(
+                lambda e=e, h=h, args=args: h(e.params, e.caches, *args), n)
+        programs = {}
+        for name in calls:
+            c = counted[name]
+            c.update(rl.roofline_terms(c["flops"], c["bytes_ideal"], 0.0,
+                                       dtype=cfg.dtype))
+            share = max(c["compute_s"], c["memory_s"]) / \
+                (device_ms[name] / 1e3)
+            programs[name] = {
+                "flops": c["flops"], "bytes_ideal": c["bytes_ideal"],
+                "compute_s": c["compute_s"], "memory_s": c["memory_s"],
+                "dominant": c["dominant"], "by_op": c["by_op"],
+                "device_ms": device_ms[name], "roofline_share": share}
+            print(f"{arch} {name}: {c['flops'] / 1e9:.4f} GFLOP, "
+                  f"{c['bytes_ideal'] / 1e9:.4f} GB, compute "
+                  f"{1e3 * c['compute_s']:.5f} ms, memory "
+                  f"{1e3 * c['memory_s']:.5f} ms; replay "
+                  f"{device_ms[name]:.4f} device ms, roofline share "
+                  f"{share:.4f} ({smi})", flush=True)
+        bad = {k: p["roofline_share"] for k, p in programs.items()
+               if not p["roofline_share"] <= SHARE_LIMIT}
+        if bad:
+            raise AssertionError(f"roofline shares above {SHARE_LIMIT} "
+                                 f"(a count is wrong): {bad}")
+        if programs["decode_horizon"]["flops"] != \
+                AUTOTUNE_HORIZON * programs["decode"]["flops"]:
+            raise AssertionError(f"decode_horizon counts "
+                                 f"{programs['decode_horizon']['flops']} "
+                                 f"FLOPs, not {AUTOTUNE_HORIZON} x "
+                                 f"{programs['decode']['flops']}")
+        # 5. launches: every engine was booted here
+        torch.cuda.synchronize()
+        launches, routes = ops.launch_counts(), ops.route_counts()
+        want = fleet_expected(boots, {"engines": {}})
+        if {k: v for k, v in launches.items() if v} != \
+                {k: v for k, v in want.items() if v}:
+            raise AssertionError(f"launches {launches}, the programs' "
+                                 f"replays and warm-ups give {want}")
+        if routes["flash_attention"]["wgmma"] != launches["flash_attention"]:
+            raise AssertionError(f"K1 calls off the wgmma route: {routes}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec.update(
+        trace_events=len(res["trace"].events), trace_roundtrip_ok=True,
+        overhead=split, calibration=search.calibration,
+        overlay=search.overlay, predicted_speedup=search.predicted_speedup,
+        measured_speedup=(cells[1]["measured_tok_per_s"]
+                          / cells[0]["measured_tok_per_s"]),
+        trials=search.trials, search_s=res["search_s"],
+        cost_model_counts=cost_model.compiles, cells=cells,
+        ranking_ok=True, ranking_pairs=res["ranking_pairs"],
+        token_exact=True,
+        programs=programs, launches=launches, launches_by_route=routes,
+        expected_launches=want, seconds=time.perf_counter() - t_start)
+    print(f"{arch} autotune: overhead_frac "
+          f"{split['overhead_frac']:.4f} (decode replay "
+          f"{1e3 * split['decode_own_s']:.3f} device ms, dispatch "
+          f"{1e3 * split['decode_wall_s']:.3f} ms), overlay "
+          f"{json.dumps(search.overlay)}, predicted "
+          f"{search.predicted_speedup:.3f}x, measured "
+          f"{rec['measured_speedup']:.3f}x; "
+          + "; ".join(f"{c['name']} {json.dumps(c['overlay'])} predicted "
+                      f"{c['predicted_tok_per_s']:.1f} measured "
+                      f"{c['measured_tok_per_s']:.1f} tok/s"
+                      for c in cells)
+          + f"; search {res['search_s']:.1f} s over {cost_model.compiles} "
+          f"counts "
+          f"({smi})", flush=True)
+    return rec
 
 
 def main():
@@ -4577,7 +4786,8 @@ def main():
     served.clear()
     env = dict(os.environ, PYTHONPATH=SRC)
 
-    def warm_boot(out, arch, plens, arrivals, per_pass, keep_store=None):
+    def warm_boot(out, arch, plens, arrivals, per_pass, keep_store=None,
+                  torn=True):
         """A cold boot over a fresh ProgramStore serves phase 8's requests
         (streams equal ``reference_generate``, launches ``per_pass``) and
         exports every program; ``repro_torch.bench.boot --warm`` in a
@@ -4585,9 +4795,10 @@ def main():
         it (``source == "store"``, ``load_s > 0``), no call of a program
         function, the same streams and launches.  Then one entry is
         corrupted: the next boot captures that program from its function
-        (a miss), heals the entry, and its streams stay exact.  With
-        ``keep_store``, the store as the cold boot left it is copied
-        there first (phase 28's fleet boots from it)."""
+        (a miss), heals the entry, and its streams stay exact (with
+        ``torn`` only: the script's time).  With ``keep_store``, the store
+        as the cold boot left it is copied there first (phase 28's fleet
+        boots from it)."""
         gc.collect()
         torch.cuda.empty_cache()
         store_dir = tempfile.mkdtemp(prefix="repro_store_")
@@ -4657,41 +4868,47 @@ def main():
                                      f"{cold['launches']}")
             # one entry torn: the next boot misses it, captures the program
             # from its function, heals the entry and stays exact
-            store = ProgramStore(store_dir)
-            torn = next(d for d, e in store.entries().items()
-                        if e["key"] == "decode")
-            (store.directory / (torn + ".pt2")).write_bytes(b"torn write")
-            eng, fallback = boot_bench.run_boot(arch, store_dir, **kw)
-            del eng
-            progs = fallback["programs"]
-            if progs["decode"]["source"] != "cuda_graph" or any(
-                    progs[k]["source"] != "store" for k in names
-                    if k != "decode"):
-                raise AssertionError(f"{arch}: after a torn entry "
-                                     f"{progs}")
-            st = fallback["store"]
-            if (st["hits"], st["misses"], st["puts"]) != \
-                    (len(names) - 1, 1, 1):
-                raise AssertionError(f"{arch}: torn-entry store {st}")
-            if fallback["tokens"] != cold["tokens"]:
-                raise AssertionError(f"{arch}: streams after a torn entry "
-                                     f"differ")
+            fallback = None
+            if torn:
+                store = ProgramStore(store_dir)
+                entry = next(d for d, e in store.entries().items()
+                             if e["key"] == "decode")
+                (store.directory / (entry + ".pt2")).write_bytes(
+                    b"torn write")
+                eng, fallback = boot_bench.run_boot(arch, store_dir, **kw)
+                del eng
+                progs = fallback["programs"]
+                if progs["decode"]["source"] != "cuda_graph" or any(
+                        progs[k]["source"] != "store" for k in names
+                        if k != "decode"):
+                    raise AssertionError(f"{arch}: after a torn entry "
+                                         f"{progs}")
+                st = fallback["store"]
+                if (st["hits"], st["misses"], st["puts"]) != \
+                        (len(names) - 1, 1, 1):
+                    raise AssertionError(f"{arch}: torn-entry store {st}")
+                if fallback["tokens"] != cold["tokens"]:
+                    raise AssertionError(f"{arch}: streams after a torn "
+                                         f"entry differ")
         finally:
             shutil.rmtree(store_dir, ignore_errors=True)
         gc.collect()
         torch.cuda.empty_cache()
         for rec in (cold, warm, fallback):
-            rec.pop("tokens")
+            if rec is not None:
+                rec.pop("tokens")
         out[arch] = {"cold": cold, "warm": warm, "torn_entry": fallback,
                      "streams_equal_reference": True}
         path_launches[f"{arch}/store_cold"] = cold["launches"]
         path_launches[f"{arch}/store_warm"] = warm["launches"]
         path_routes[f"{arch}/store_cold"] = cold["launches_by_route"]
         path_routes[f"{arch}/store_warm"] = warm["launches_by_route"]
+        torn_s = (f"{fallback['boot_s']:.2f} s" if fallback is not None
+                  else "not run")
         print(f"{arch} boot: cold {cold['boot_s']:.2f} s, warm "
               f"{warm['boot_s']:.2f} s (its process "
               f"{warm['process_s']:.2f} s), torn entry "
-              f"{fallback['boot_s']:.2f} s; decode replay device ms warm "
+              f"{torn_s}; decode replay device ms warm "
               f"{warm['decode_replay_device_ms']:.4f}, cold "
               f"{cold['decode_replay_device_ms']:.4f} ({smi})", flush=True)
         for k in names:
@@ -4713,10 +4930,12 @@ def main():
                    "flash_attention": (0, n_layers), "moe_ffn": (0, 0),
                    "ssd_scan": (0, 0), "rglru_scan": (0, 0)},
                   keep_store=cluster_store)
+        # the torn entry on qwen3 alone: the script's time
         warm_boot(out, "mamba2-130m", phase8_plens, phase8_arrivals,
                   {"matmul": (ssm_per_step, ssm_per_step),
                    "flash_attention": (0, 0), "moe_ffn": (0, 0),
-                   "ssd_scan": (0, ssm.n_layers), "rglru_scan": (0, 0)})
+                   "ssd_scan": (0, ssm.n_layers), "rglru_scan": (0, 0)},
+                  torn=False)
 
     # -- 24. Table 1 ---------------------------------------------------------
     with phase("table1") as out:
@@ -4839,50 +5058,81 @@ def main():
             moe30["serve_bench"]["launches_by_route"]
 
     # -- 27. the port's benches --------------------------------------------
-    # through the port's runner, each bench in a process of its own, with
-    # the reference's smoke workloads (placement has none): the script's
-    # time
+    # at the reference's smoke sizes (placement has none): bench.serve
+    # through the port's runner, in a process of its own as the runner
+    # starts every bench; the other five in this process, on one draw of
+    # qwen3-0.6b's weights (a process a bench adds its start-up, ~8 s,
+    # to the script's time); phase 29 reuses the draw
+    from repro_torch.bench import (fused as fused_bench,
+                                   paging as paging_bench,
+                                   placement as placement_bench,
+                                   prefix as prefix_bench,
+                                   spec as spec_bench)
     with phase("benches") as out:
-        for names, flags in (
-                (["serve", "placement", "paging", "prefix", "fused",
-                  "spec"], ["--smoke"]),):
-            cmd = [sys.executable, "-m", "repro_torch.bench", "--only",
-                   ",".join(names), "--device", "cuda", *flags]
-            # the runner starts a process per bench: a session of their
-            # own, so that a timeout stops them all
-            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                    stderr=subprocess.PIPE, text=True,
-                                    env=env, cwd=ROOT,
-                                    start_new_session=True)
-            try:
-                stdout, stderr = proc.communicate(timeout=600)
-            except subprocess.TimeoutExpired:
-                os.killpg(proc.pid, signal.SIGKILL)
-                proc.communicate()
-                raise
-            if proc.returncode != 0:
-                raise AssertionError(f"benches {names} failed: "
-                                     f"{stdout[-2000:]} {stderr[-4000:]}")
-            # one line a bench, in order, then the waiting ones
-            recs = [json.loads(line)
-                    for line in stdout.strip().splitlines()[:len(names)]]
-            for name, rec in zip(names, recs):
-                if rec["device"]["platform"] != "gpu":
-                    raise AssertionError(f"bench.{name} did not run on the "
-                                         f"card: {rec['device']}")
-                if any(r["wgmma"] != rec["launches"][k] or r["simt"]
-                       for k, r in rec["launches_by_route"].items()):
-                    raise AssertionError(f"bench.{name}: K1/K3/K4 calls off "
-                                         f"the wgmma route: "
-                                         f"{rec['launches_by_route']}")
-                path_launches[f"bench/{name}"] = rec["launches"]
-                path_routes[f"bench/{name}"] = rec["launches_by_route"]
-                rec.pop("streams", None)
-                rec["args"] = flags
-                out[name] = rec
-                print(f"bench.{name} {' '.join(flags)}: "
-                      f"{rec['seconds']:.1f} s, launches {rec['launches']} "
-                      f"({smi})", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        def check_bench(name, rec, flags):
+            if rec["device"]["platform"] != "gpu":
+                raise AssertionError(f"bench.{name} did not run on the "
+                                     f"card: {rec['device']}")
+            if any(r["wgmma"] != rec["launches"][k] or r["simt"]
+                   for k, r in rec["launches_by_route"].items()):
+                raise AssertionError(f"bench.{name}: K1/K3/K4 calls off "
+                                     f"the wgmma route: "
+                                     f"{rec['launches_by_route']}")
+            path_launches[f"bench/{name}"] = rec["launches"]
+            path_routes[f"bench/{name}"] = rec["launches_by_route"]
+            rec.pop("streams", None)
+            rec["args"] = flags
+            out[name] = rec
+            print(f"bench.{name} {' '.join(flags)}: "
+                  f"{rec['seconds']:.1f} s, launches {rec['launches']} "
+                  f"({smi})", flush=True)
+
+        cmd = [sys.executable, "-m", "repro_torch.bench", "--only", "serve",
+               "--device", "cuda", "--smoke"]
+        # the runner starts a process per bench: a session of their own,
+        # so that a timeout stops them all
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True,
+                                env=env, cwd=ROOT, start_new_session=True)
+        try:
+            stdout, stderr = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+            raise
+        if proc.returncode != 0:
+            raise AssertionError(f"bench serve failed: {stdout[-2000:]} "
+                                 f"{stderr[-4000:]}")
+        # its line, then the waiting ones
+        check_bench("serve", json.loads(stdout.strip().splitlines()[0]),
+                    ["--smoke", "(runner)"])
+        bench_params = transformer.init_params(
+            registry.get_config("qwen3-0.6b"), 0, device=dev)
+        for name, run in (
+                ("placement", lambda: placement_bench.run(
+                    full=True, device="cuda")),
+                ("paging", lambda: paging_bench.run(
+                    full=True, device="cuda", smoke=True,
+                    params=bench_params)),
+                ("prefix", lambda: prefix_bench.run(
+                    full=True, device="cuda", smoke=True,
+                    params=bench_params)),
+                ("fused", lambda: fused_bench.run(
+                    full=True, device="cuda", smoke=True,
+                    params=bench_params)),
+                ("spec", lambda: spec_bench.run(
+                    full=True, device="cuda", smoke=True,
+                    params=bench_params))):
+            t0 = time.perf_counter()
+            rec = run()
+            rec["seconds"] = time.perf_counter() - t0
+            check_bench(name, rec, [] if name == "placement"
+                        else ["--smoke"])
+            gc.collect()
+            torch.cuda.empty_cache()
         table2 = out["placement"]
         if not all(table2["outputs_bit_equal"].values()):
             raise AssertionError(f"Table 2's layouts differ: {table2}")
@@ -4945,6 +5195,15 @@ def main():
               f"{fleet['streams_equal_reference']} streams equal the "
               f"batch-1 engine; {fleet['seconds']:.1f} s ({smi})",
               flush=True)
+
+    # -- 29. the autotuner and its cost model ------------------------------
+    with phase("autotune") as out:
+        gc.collect()
+        torch.cuda.empty_cache()
+        out.update(serve_autotune(bench_params))
+        path_launches["qwen3-0.6b/autotune"] = out["launches"]
+        path_routes["qwen3-0.6b/autotune"] = out["launches_by_route"]
+        del bench_params
 
     def total(name):
         return sum(path[name] for path in path_launches.values())
@@ -5088,6 +5347,12 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:] == ["--serve-qwen3-moe"]:
         sys.exit(serve_qwen3_moe())
+    if sys.argv[1:] == ["--serve-autotune"]:
+        import torch
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        emit(serve_autotune())
+        sys.exit(0)
     if sys.argv[1:2] == ["--serve-cluster"] and len(sys.argv) <= 3:
         sys.exit(serve_cluster(*sys.argv[2:]))
     sys.exit(main())

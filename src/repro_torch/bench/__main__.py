@@ -27,11 +27,11 @@ import time
 from typing import List
 
 BENCHES = ("boot", "load_exec", "hostcall", "serve", "placement", "paging",
-           "spec", "fused", "prefix", "cluster", "elastic")
+           "spec", "fused", "prefix", "cluster", "elastic", "autotune",
+           "roofline")
 # the reference's benches (benchmarks/run.py) the port cannot run yet
-WAITING = {"autotune": "ROADMAP Queue 1 item 12 (the autotuner)",
-           "roofline": "ROADMAP Queue 1 item 12 (the cost model)",
-           "pipeline_cross_pod": "ROADMAP Queue 1 item 12 (dry-run records)",
+WAITING = {"pipeline_cross_pod": "ROADMAP Queue 1 items 13 and 14 "
+                                 "(multi-pod training dry-run records)",
            "tp": "ROADMAP Queue 1 item 13 (tensor parallelism)",
            "treeload": "ROADMAP Queue 1 item 13 (the tree loader)"}
 
@@ -47,6 +47,9 @@ def bench_args(name: str, *, reduced: bool, device: str, smoke: bool,
         return dev
     if name in ("load_exec", "placement"):
         return dev + (["--reduced"] if reduced else [])
+    if name == "roofline":              # counts on meta: no device
+        return (["--reduced"] if reduced else []) + \
+            (["--smoke"] if smoke else [])
     return dev + (["--reduced"] if reduced else []) + \
         (["--smoke"] if smoke else [])
 

@@ -8,11 +8,8 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-
-# H100 SXM peaks (NVIDIA data sheet, dense): memory 3.35 TB/s; bf16 tensor
-# cores 989 TFLOP/s; fp32 outside the tensor cores 67 TFLOP/s
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# the H100's published peaks
+from repro_torch.launch.roofline import HBM_BYTES_PER_S, PEAK_FLOPS
 
 
 def bound_ms(nbytes: float, flops: float, dtype_name: str):

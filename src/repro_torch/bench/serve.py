@@ -15,8 +15,8 @@ By default the published config in bf16 on the card (qwen3-0.6b at
 max_len 512); ``--reduced`` is the reference's own size (the reduced
 config in fp32 at max_len 64).  The engine is decoder-only, so
 ``--arch`` takes every ported arch but seamless-m4t-medium.  The
-cross-pod half of the reference's bench reads dry-run records and waits
-for ROADMAP Queue 1 item 12.
+cross-pod half of the reference's bench reads multi-pod training dry-run
+records and waits for ROADMAP Queue 1 items 13 and 14.
 
 Run from the repository root (``PYTHONPATH=src``)::
 

@@ -238,22 +238,31 @@ class Supervisor:
 
     def _stored_programs(self) -> List[Tuple[ProgramSpec, str]]:
         """(spec, store digest) of every program a new replica installs,
-        read off a live replica's engine (one engine config, so one set of
-        fingerprints); empty without a store or a live engine.  Computed
-        on the supervisor's thread: a digest asks the device its name."""
+        read off a live replica's engine of the current engine config (an
+        adopted overlay changes the fingerprints); empty without a store
+        or such an engine.  Computed on the supervisor's thread: a digest
+        asks the device its name."""
+        want = self.config.engine
         eng = next((r.engine for r in self.replicas
-                    if r.engine is not None), None)
+                    if r.engine is not None and r.engine.config ==
+                    want.replace(device=r.engine.config.device)), None)
         if self.store is None or eng is None:
             return []
         return [(p.spec, self.store.digest(p.spec))
                 for p in eng.syscore.programs.values()]
 
     def adopt_overlay(self, overlay: Dict[str, Any]):
-        """Adopt an autotuned ``EngineConfig`` overlay for every future
-        engine boot: the autotuner is not in the port yet."""
-        raise NotImplementedError(
-            "adopt_overlay needs the autotuner and its config overlays "
-            "(ROADMAP Queue 1 item 12)")
+        """Adopt an autotuned ``EngineConfig`` overlay
+        (:mod:`repro_torch.runtime.autotune`) for every FUTURE engine
+        boot: elastic spawns, failover reboots, straggler replacements.
+        Running replicas keep their current knobs: the fleet converges to
+        the tuned config replica by replica as they cycle, each boot going
+        through the ordinary ProgramStore path (new knobs -> new
+        fingerprints -> at most one cold export fleet-wide per adopted
+        config, warm everywhere after)."""
+        from repro_torch.runtime.autotune import apply_overlay
+        self.config = self.config.replace(
+            engine=apply_overlay(self.config.engine, overlay))
 
     def _on_crash(self, rep: Replica, err: Exception):
         """A tick raised: the engine is gone, with every in-flight request

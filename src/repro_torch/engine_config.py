@@ -6,8 +6,9 @@ paged KV arena of :mod:`repro_torch.core.paging`), ``prefix``
 (:class:`PrefixConfig`, cross-request prefix sharing over that arena),
 ``spec`` (:class:`SpecConfig`, speculative decoding) and ``horizon``
 (:class:`HorizonConfig`, fused decode horizons); and the fleet's
-:class:`ScaleConfig` and :class:`ClusterConfig` (:mod:`repro_torch.cluster`).
-Every config round-trips through a plain dict (``to_dict`` /
+:class:`ScaleConfig` and :class:`ClusterConfig` (:mod:`repro_torch.cluster`),
+and the autotuner's knob grid :class:`AutotuneConfig`
+(:mod:`repro_torch.runtime.autotune`).  Every config round-trips through a plain dict (``to_dict`` /
 ``from_dict``).
 
 Sharding is not ported yet (ROADMAP Queue 1 item 13); the config has no
@@ -26,6 +27,10 @@ from typing import Any, Dict, Optional
 # implements them; the tuple lives here so config validation needs no
 # cluster import)
 ROUTER_POLICIES = ("least_loaded", "round_robin", "prefix_affinity")
+
+__all__ = ["ROUTER_POLICIES", "PagingConfig", "PrefixConfig", "SpecConfig",
+           "HorizonConfig", "EngineConfig", "ScaleConfig", "ClusterConfig",
+           "AutotuneConfig"]
 
 
 @dataclass(frozen=True)
@@ -401,4 +406,66 @@ class ClusterConfig:
         if unknown:
             raise TypeError(
                 f"unknown ClusterConfig fields: {sorted(unknown)}")
+        return cls(**d)
+
+
+@dataclass(frozen=True)
+class AutotuneConfig:
+    """Knob grid and search policy of the trace-driven autotuner
+    (:mod:`repro_torch.runtime.autotune`).
+
+    Each grid axis enumerates the discrete values the search may try for
+    one engine knob; sentinel ``0`` / ``None`` entries mean "subsystem
+    off" (horizon 0/1 -> no HorizonConfig, spec_k 0 -> no SpecConfig,
+    arena_frac None -> full-batch residency, timeslice None -> no
+    rotation).  The search is coordinate descent: ``passes`` sweeps over
+    the axes, each sweep replay-simulating every candidate value of one
+    knob with the others held at the incumbent, adopting a move only when
+    it predicts at least ``min_gain`` x the incumbent's throughput: the
+    hysteresis that keeps simulator noise from flapping configs whose
+    difference is below what the replay model can resolve.
+    """
+    horizons: tuple = (1, 4, 8, 16)
+    spec_ks: tuple = (0, 3)
+    ngrams: tuple = (2,)
+    batches: tuple = (2, 4, 8)
+    kv_blocks: tuple = (8, 16)
+    arena_fracs: tuple = (1.0,)
+    timeslices: tuple = (None,)
+    passes: int = 2
+    min_gain: float = 1.02
+
+    def __post_init__(self):
+        # from_dict round trips through JSON, where tuples arrive as lists
+        for axis in ("horizons", "spec_ks", "ngrams", "batches",
+                     "kv_blocks", "arena_fracs", "timeslices"):
+            vals = tuple(getattr(self, axis))
+            object.__setattr__(self, axis, vals)
+            assert vals, f"empty AutotuneConfig.{axis}"
+        assert all(h >= 1 for h in self.horizons), self.horizons
+        assert all(k >= 0 for k in self.spec_ks), self.spec_ks
+        assert all(n >= 1 for n in self.ngrams), self.ngrams
+        assert all(b >= 1 for b in self.batches), self.batches
+        assert all(kb >= 1 for kb in self.kv_blocks), self.kv_blocks
+        assert all(f is None or 0.0 < f <= 1.0
+                   for f in self.arena_fracs), self.arena_fracs
+        assert all(t is None or t >= 1
+                   for t in self.timeslices), self.timeslices
+        assert self.passes >= 1, self.passes
+        assert self.min_gain >= 1.0, self.min_gain
+
+    def replace(self, **kw) -> "AutotuneConfig":
+        return dataclasses.replace(self, **kw)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "AutotuneConfig":
+        d = dict(d)
+        known = {f.name for f in dataclasses.fields(cls)}
+        unknown = set(d) - known
+        if unknown:
+            raise TypeError(
+                f"unknown AutotuneConfig fields: {sorted(unknown)}")
         return cls(**d)

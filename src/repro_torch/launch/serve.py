@@ -177,6 +177,11 @@ class ServingEngine:
     with the engine's step count at the top of every :meth:`tick`; raising
     :class:`repro_torch.runtime.fault.SimulatedFailure` models this
     replica crashing mid-serving (:mod:`repro_torch.cluster`).
+    ``trace``: a :class:`repro_torch.runtime.autotune.TraceLog` that
+    records the boot, every submit, admission, program dispatch (with its
+    host wall seconds) and completion, so that a serving run can be
+    replayed under other knobs; settable later through ``self.trace``.
+    A ``None`` trace costs one attribute test an event.
     """
 
     def __init__(self, arch: str, config: Optional[EngineConfig] = None, *,
@@ -184,12 +189,14 @@ class ServingEngine:
                  store: Optional[ProgramStore] = None,
                  prefix_store: Optional[PrefixStore] = None,
                  fault_hook: Optional[Callable[[int], None]] = None,
-                 preloaded: Optional[Dict[str, Preloaded]] = None):
+                 preloaded: Optional[Dict[str, Preloaded]] = None,
+                 trace=None):
         config = config if config is not None else EngineConfig()
         self.device = resolve_device(device or config.device)
         self.config = config.replace(device=str(self.device))
         self.arch = arch
         self.fault_hook = fault_hook
+        self.trace = trace
         self.reduced = config.reduced
         self.cfg = registry.get_config(arch, reduced=config.reduced)
         if self.cfg.is_encdec:
@@ -317,6 +324,8 @@ class ServingEngine:
         self.draining = False          # quiescing: no new admissions, the
                                        # in-flight batch runs to completion
         self._t0 = time.perf_counter()
+        if self.trace is not None:
+            self.trace.on_boot(arch, self.config)
 
     # -- clock ----------------------------------------------------------------
     def now(self) -> float:
@@ -355,6 +364,8 @@ class ServingEngine:
                       t_submit=time.perf_counter())
         self._n_submitted = max(self._n_submitted, int(rid) + 1)
         bisect.insort(self.queue, req, key=lambda r: (r.arrival_time, r.rid))
+        if self.trace is not None:
+            self.trace.on_submit(req)
         return req
 
     def _place(self, slot: int, req: Request, last_logits: np.ndarray):
@@ -377,6 +388,8 @@ class ServingEngine:
             self.refill_admissions += 1
         self.syscore.hostcalls.dispatch(
             CALL_METRIC, METRIC_TTFT_MS, 1e3 * req.ttft_s)
+        if self.trace is not None:
+            self.trace.on_admit(req)
         self._maybe_finish(req)   # max_new == 1 or instant EOS
 
     def _admit_one(self, slot: int, req: Request):
@@ -387,9 +400,14 @@ class ServingEngine:
         tokens = self._prompt.numpy()
         tokens[:] = 0
         tokens[0, :req.prompt_len] = req.prompt
+        t1 = time.perf_counter()
         self.caches, last = self._prefill_slot(
             self.params, self.caches, self._prompt, slot, req.prompt_len)
-        self._place(slot, req, last.float().cpu().numpy())
+        last = last.float().cpu().numpy()     # waits for the device result
+        if self.trace is not None:
+            self.trace.on_dispatch("prefill_slot", time.perf_counter() - t1,
+                                   active=1, tokens=0, rid=req.rid)
+        self._place(slot, req, last)
 
     def _admit_offset(self, slot: int, req: Request, offset: int):
         """Warm admission (a prefix hit): the slot's first ``offset``
@@ -402,10 +420,16 @@ class ServingEngine:
         tokens = self._suffix.numpy()
         tokens[:] = 0
         tokens[0, :len(suffix)] = suffix
+        t1 = time.perf_counter()
         self.caches, last = self._prefill_offset(
             self.params, self.caches, self._suffix, slot, offset,
             req.prompt_len)
-        self._place(slot, req, last.float().cpu().numpy())
+        last = last.float().cpu().numpy()     # waits for the device result
+        if self.trace is not None:
+            self.trace.on_dispatch("prefill_offset",
+                                   time.perf_counter() - t1, active=1,
+                                   tokens=0, rid=req.rid)
+        self._place(slot, req, last)
 
     def _admit_burst(self, reqs: List[Request]):
         """Cold-start burst: admit every request in ONE execution of the
@@ -418,9 +442,13 @@ class ServingEngine:
         for i, req in enumerate(reqs):
             tokens[i, :req.prompt_len] = req.prompt
             lengths[i] = req.prompt_len
+        t1 = time.perf_counter()
         self.caches, last = self._prefill(self.params, self.caches,
                                           self._burst, self._burst_lengths)
         last = last.float().cpu().numpy()     # waits for the device result
+        if self.trace is not None:
+            self.trace.on_dispatch("prefill", time.perf_counter() - t1,
+                                   active=len(reqs), tokens=0)
         for i, req in enumerate(reqs):
             self._place(i, req, last[i])
 
@@ -556,6 +584,8 @@ class ServingEngine:
             req.t_done = time.perf_counter()
             self._proposers.pop(req.rid, None)
             self.completed.append(req)
+            if self.trace is not None:
+                self.trace.on_done(req)
             if self.paged and req.rid in self.pager.pages:
                 # the request is done, so its blocks free instead of
                 # swapping; release() also handles a request finishing
@@ -565,10 +595,13 @@ class ServingEngine:
             if req.slot >= 0:
                 self.slots[req.slot] = None
 
-    def _step_metrics(self, dt: float, occupancy: float, extra=()):
+    def _step_metrics(self, dt: float, occupancy: float, extra=(),
+                      program: str = "decode", active: int = 0,
+                      tokens: int = 0, trace_extra=None):
         """ONE aggregated hostcall round trip per engine step (CALL_BATCH):
         decode latency, occupancy, the ``extra`` calls and the step
-        report."""
+        report; and the trace's dispatch event of ``program``, with the
+        same ``dt``, so the trace and the host-call metrics agree."""
         calls = [(CALL_METRIC, METRIC_DECODE_MS, 1e3 * dt),
                  (CALL_METRIC, METRIC_OCCUPANCY, occupancy)]
         calls.extend(extra)
@@ -578,6 +611,9 @@ class ServingEngine:
         calls.append((CALL_STEP_REPORT, self.decode_steps, dt,
                       time.perf_counter()))
         self.syscore.hostcalls.dispatch(CALL_BATCH, calls)
+        if self.trace is not None:
+            self.trace.on_dispatch(program, dt, active=active,
+                                   tokens=tokens, **(trace_extra or {}))
 
     def _decode_once(self):
         tokens = self._last_tokens.numpy()
@@ -593,7 +629,8 @@ class ServingEngine:
         dt = time.perf_counter() - t1
         self.decode_steps += 1
         self.decode_tokens += active
-        self._step_metrics(dt, active / self.batch)
+        self._step_metrics(dt, active / self.batch, program="decode",
+                           active=active, tokens=active)
         for i, req in enumerate(self.slots):
             if req is None:
                 continue
@@ -671,7 +708,11 @@ class ServingEngine:
         self.accepted_drafts += accepted
         self._step_metrics(dt, active / self.batch,
                            extra=[(CALL_METRIC, METRIC_SPEC_ACCEPT,
-                                   accepted / drafted)])
+                                   accepted / drafted)],
+                           program="verify", active=active,
+                           tokens=self.decode_tokens - toks0,
+                           trace_extra={"drafted": drafted,
+                                        "accepted": accepted})
         return dt
 
     # -- fused decode horizons ------------------------------------------------
@@ -727,6 +768,7 @@ class ServingEngine:
                 continue
             tokens[i, 0] = req.generated[-1]
             budget[i] = min(self._budget_left(req), self.horizon)
+        active = sum(s is not None for s in self.slots)
         t1 = time.perf_counter()
         self.caches, events = self._decode_horizon(
             self.params, self.caches, self._last_tokens, self._budget)
@@ -755,7 +797,9 @@ class ServingEngine:
         ran = [float(o) for o in occ if o > 0]
         extra = [(CALL_METRIC, METRIC_OCCUPANCY, o) for o in ran[1:]]
         extra.append((CALL_METRIC, METRIC_HORIZON_TOKENS, float(emitted)))
-        self._step_metrics(dt, ran[0] if ran else 0.0, extra=extra)
+        self._step_metrics(dt, ran[0] if ran else 0.0, extra=extra,
+                           program="decode_horizon", active=active,
+                           tokens=emitted)
         return dt
 
     @property

@@ -83,6 +83,11 @@ class ModelConfig:
     def is_encdec(self) -> bool:
         return self.n_enc_layers > 0
 
+    @property
+    def supports_long_context(self) -> bool:
+        """True when the decode state is bounded (sub-quadratic)."""
+        return self.family in ("ssm", "hybrid")
+
     def pattern_for_layers(self, n: Optional[int] = None) -> Tuple[str, ...]:
         """Expand the repeating layer pattern to n layers."""
         n = n if n is not None else self.n_layers

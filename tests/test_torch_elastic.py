@@ -118,9 +118,11 @@ def test_elastic_plan_batch_advice_rounds_not_floors():
 def test_unported_parts_name_their_roadmap_items():
     with pytest.raises(NotImplementedError, match="item 13"):
         reshard_tree(None, None, None, None)
+    # item 12 (the autotuner) is ported: an overlay is adopted for the
+    # fleet's future boots
     sup = Supervisor(ARCH, ClusterConfig(engine=_engine_cfg(), replicas=1))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        sup.adopt_overlay({"batch": 4})
+    sup.adopt_overlay({"batch": 4})
+    assert sup.config.engine.batch == 4
     sup.close()
 
 

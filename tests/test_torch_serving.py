@@ -134,7 +134,9 @@ def test_port_imports_neither_jax_nor_the_reference_package():
         "for m in ('core.program_store', 'core.hostcall', 'bench.boot',\n"
         "          'bench.load_exec', 'bench.hostcall', 'cluster.supervisor',\n"
         "          'cluster.router', 'cluster.journal', 'runtime.fault',\n"
-        "          'runtime.elastic', 'bench.cluster', 'bench.elastic'):\n"
+        "          'runtime.elastic', 'bench.cluster', 'bench.elastic',\n"
+        "          'launch.cost', 'launch.roofline', 'launch.dryrun',\n"
+        "          'runtime.autotune', 'bench.autotune', 'bench.roofline'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print('ok', len([n for n in sys.modules if n.startswith('repro_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(src))
