@@ -1100,10 +1100,12 @@ CLUSTER_ARCH = "qwen3-0.6b"
 # tick), so only the slowed replica escalates
 A_KILL_STEP, C_SLEEP_S, C_SLOW_AFTER = 12, 0.05, 6
 # sub-run B: the burst that grows the fleet, the top-ups that keep
-# replica 0's queue at B_QUEUE while the grow's loads run in the
+# replica 0's queue at BATCH + B_QUEUE while the grow's loads run in the
 # background (paced at B_LOAD_PACE_S a pass, which hands the loads the
 # interpreter), and the trickle that leaves replica 1 idle until it
-# shrinks
+# shrinks.  The pass that attaches replica 1 ticks replica 0 first, and
+# that tick may fill all BATCH slots from the queue: B_QUEUE requests
+# are still queued when the attach rebalances
 B_BURST, B_QUEUE, B_TOPUP_CAP, B_LOAD_PACE_S, B_MAX_NEW = 12, 2, 80, 0.2, 24
 
 
@@ -1442,9 +1444,10 @@ def serve_cluster(store_dir=None):
                     passes_loading += 1
                     time.sleep(B_LOAD_PACE_S)
                     depth = sup.replicas[0].engine.snapshot()["queue_depth"]
-                    if depth < B_QUEUE and topups < B_TOPUP_CAP:
-                        submit(1)
-                        topups += 1
+                    n = min(BATCH + B_QUEUE - depth, B_TOPUP_CAP - topups)
+                    if n > 0:
+                        submit(n)
+                        topups += n
                 if not sup.run(max_ticks=1)["ticks"] and not sup.spawning:
                     raise AssertionError(f"B: no grow: {sup.scale_events}")
             sup.run()
