@@ -352,7 +352,24 @@ and the script exits non-zero:
             decode's; launches exact (``chip_smoke.py --serve-autotune``
             runs the phase alone).
 
-Then a ``{"kernels": [...]}`` line, and as the last line
+30. train   training in a process of its own (``chip_smoke.py --train``
+            runs it alone): K1's backward kernel against its plain version
+            at qwen3-0.6b's training shape (bf16, B 4, S 1024, D 128,
+            causal), a gemma3 "L" layer (D 256, window 512) and in fp32,
+            the same bits on two runs, timed beside SDPA's backward; K2's
+            gradient (dX, dW) at M 4,096 for wq, w_gate, w_down and the
+            tied head beside ``torch.matmul``; card == CPU for 3 fp32
+            train steps at reduced size; then qwen3-0.6b at full width in
+            bf16 through ``repro_torch.launch.train`` (4 x 1,024 tokens a
+            step, 30 steps, checkpoints every 10, one injected failure):
+            one restart, the loss falling, telemetry points == steps run,
+            the program a CUDA graph, K1 and K2 launches exact; step p50,
+            tokens/s, peak memory, device ms by kernel family from one
+            profiled replay, and Table 1's cold execute, hot load and
+            re-execute of the train program.
+
+Then a ``{"kernels": [...]}`` line (K1's and K2's entries with a
+``backward`` record from phase 30), and as the last line
 ``{"ok": true, "device": {...}}``.  The full record is also written to
 ``results/chip_smoke.json``.  Without a card, or outside a checkout of
 the repository, the script exits non-zero and prints no result.
@@ -663,8 +680,8 @@ def time_calls(torch, call, steps):
 
 def profile_calls(torch, call, steps, timed):
     """``call`` ``steps`` times under torch.profiler, each ended by a
-    sync: device time by kernel family (K2, K1, K3, K4, K5, PyTorch's own
-    kernels) and kernels per call, beside ``timed`` (:func:`time_calls`,
+    sync: device time by kernel family (K2, K1, K1's backward, K3, K4,
+    K5, PyTorch's own kernels) and kernels per call, beside ``timed`` (:func:`time_calls`,
     measured before any profiler ran in the phase).  The idle share is one
     minus the profiled (or the events') device time over the unprofiled
     wall time of a step; under the profiler the wall time grows, so its
@@ -679,7 +696,7 @@ def profile_calls(torch, call, steps, timed):
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     fam = {"matmul_kernel": 0.0, "flash_attention_kernel": 0.0,
-           "moe_ffn_kernel": 0.0, "ssd_scan_kernel": 0.0,
+           "fa_bwd": 0.0, "moe_ffn_kernel": 0.0, "ssd_scan_kernel": 0.0,
            "rglru_scan_kernel": 0.0, "torch": 0.0}
     n_kernels = 0
     for e in prof.key_averages():
@@ -703,6 +720,7 @@ def profile_calls(torch, call, steps, timed):
                 device_ms_per_step=busy / steps,
                 matmul_ms_per_step=fam["matmul_kernel"] / steps,
                 flash_ms_per_step=fam["flash_attention_kernel"] / steps,
+                flash_bwd_ms_per_step=fam["fa_bwd"] / steps,
                 moe_ffn_ms_per_step=fam["moe_ffn_kernel"] / steps,
                 ssd_scan_ms_per_step=fam["ssd_scan_kernel"] / steps,
                 rglru_scan_ms_per_step=fam["rglru_scan_kernel"] / steps,
@@ -1699,6 +1717,416 @@ def serve_autotune(params=None):
           f"counts "
           f"({smi})", flush=True)
     return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 30: training (``chip_smoke.py --train``)
+# ---------------------------------------------------------------------------
+# the full-width run: qwen3-0.6b, 4 x 1024 tokens a step, a checkpoint
+# every 10 steps, one failure injected before step 15 (the restart resumes
+# from step 10, so 34 steps run); the CPU parity run: 3 steps
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 30, 10, 15
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 4, 1024, 1e-3
+PARITY_STEPS, PARITY_LR = 3, 1e-3
+# card == CPU after PARITY_STEPS fp32 steps: losses and grad norms to
+# these relative errors, every parameter to this absolute one (a tenth of
+# one step of the learning rate)
+PARITY_LOSS_RTOL, PARITY_GNORM_RTOL = 1e-4, 1e-3
+PARITY_PARAM_ATOL = 0.1 * PARITY_LR
+
+
+def visible_pairs(sq, sk, causal, window):
+    """(query, key) pairs the masks leave visible, queries right-aligned:
+    the work K1's backward must do on them."""
+    total = 0
+    for i in range(sq):
+        qpos = sk - sq + i
+        hi = min(sk, qpos + 1) if causal else sk
+        lo = max(0, qpos - window + 1) if window > 0 else 0
+        total += max(0, hi - lo)
+    return total
+
+
+def k1_backward_case(torch, name, dname, b, h, hk, s, d, causal, window):
+    """K1's backward kernel against ``flash_attention_bwd_ref`` on one
+    shape: max |err| of dq, dk and dv, the same bits on two runs, and the
+    kernel's, the plain version's and SDPA's backward times (SDPA forward
+    plus backward minus its forward; a yardstick only) beside the bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_ref
+    dev = torch.device("cuda")
+    dt = {"bfloat16": torch.bfloat16, "float32": torch.float32}[dname]
+    g = torch.Generator(dev).manual_seed(0)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dt)
+
+    q, k, v = rand(b * h, s, d), rand(b * hk, s, d), rand(b * hk, s, d)
+    o = ops.flash_attention(q, k, v, causal=causal, window=window)
+    do = rand(b * h, s, d)
+
+    def kernel():
+        return ops.flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                       window=window)
+
+    got, again = kernel(), kernel()
+    want = flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
+                                   window=window)
+    tol = FLASH_TOL[dname]
+    errs, viols = {}, {}
+    for key, a, w in zip(("dq", "dk", "dv"), got, want):
+        viols[key], errs[key] = max_violation(a, w, tol)
+    same_bits = all(torch.equal(a, c) for a, c in zip(got, again))
+    ms = cuda_ms(torch, kernel)
+    plain_ms = cuda_ms(torch, lambda: flash_attention_bwd_ref(
+        q, k, v, o, do, causal=causal, window=window), iters=3)
+    qs, ks, vs, dos = (t.view(b, -1, s, d) for t in (q, k, v, do))
+    mask = None
+    if window > 0:
+        pos = torch.arange(s, device=dev)
+        mask = (pos[:, None] >= pos[None, :]) & \
+            (pos[:, None] - pos[None, :] < window)
+    qr, kr, vr = (t.detach().requires_grad_() for t in (qs, ks, vs))
+
+    def sdpa(x, y, z):
+        return F.scaled_dot_product_attention(
+            x, y, z, attn_mask=mask, is_causal=mask is None and causal,
+            enable_gqa=True)
+
+    def sdpa_both():
+        torch.autograd.grad(sdpa(qr, kr, vr), (qr, kr, vr), dos)
+
+    with torch.no_grad():
+        fwd_ms = cuda_ms(torch, lambda: sdpa(qs, ks, vs))
+    library_ms = cuda_ms(torch, sdpa_both) - fwd_ms
+    itemsize = q.element_size()
+    nbytes = itemsize * (3 * q.numel() + 2 * k.numel()     # q, o, do; k, v
+                         + q.numel() + 2 * k.numel())      # dq; dk, dv
+    flops = 10.0 * b * h * visible_pairs(s, s, causal, window) * d
+    bms, by = bound_ms(nbytes, flops, dname)
+    return {"case": name, "dtype": dname, "B": b, "H": h, "Hk": hk, "S": s,
+            "D": d, "causal": causal, "window": window, "tol": tol,
+            "max_abs_err": errs, "violation": viols,
+            "same_bits_two_runs": same_bits, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library": "scaled_dot_product_"
+            "attention backward (forward + backward - forward)",
+            "bound_ms": bms, "bound_by": by, "bound_share": bms / ms}
+
+
+def k2_gradient_case(torch, name, k_dim, n_dim, m, tied=False):
+    """K2's gradient (``register_autograd`` on ``repro_torch::matmul``) of
+    one bf16 product at M rows against ``matmul_ref``: dX = dY W^T and
+    dW = X^T dY, each timed as the K2 product it launches beside
+    ``matmul_ref`` and ``torch.matmul`` (a yardstick only).  ``tied``: W
+    is the transposed (N, K) embedding table, as the tied head reads it."""
+    from repro_torch.kernels import ops
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    g = torch.Generator(dev).manual_seed(1)
+    x = torch.randn((m, k_dim), generator=g, device=dev).to(bf)
+    if tied:
+        table = (torch.randn((n_dim, k_dim), generator=g, device=dev)
+                 * k_dim ** -0.5).to(bf)
+        leaf = table.clone().requires_grad_()
+        w, w_of = table.t(), (lambda t: t.t())
+    else:
+        leaf = (torch.randn((k_dim, n_dim), generator=g, device=dev)
+                * k_dim ** -0.5).to(bf).requires_grad_()
+        w, w_of = leaf.detach(), (lambda t: t)
+    dy = torch.randn((m, n_dim), generator=g, device=dev).to(bf)
+    xr = x.clone().requires_grad_()
+    y = ops.matmul(xr, w_of(leaf))
+    dx, dleaf = torch.autograd.grad(y, (xr, leaf), dy)
+    dw = w_of(dleaf)
+    xt = x.t().contiguous()
+    want_dx = ops.matmul_ref(dy, w.t())
+    want_dw = ops.matmul_ref(xt, dy)
+    tol = MATMUL_TOL["bfloat16"]
+    out = {"product": name, "M": m, "K": k_dim, "N": n_dim, "tol": tol}
+    for key, got, want, call, ref, lib, mnk in (
+            ("dX", dx, want_dx, lambda: ops.matmul(dy, w.t()),
+             lambda: ops.matmul_ref(dy, w.t()),
+             lambda: torch.matmul(dy, w.t()), (m, k_dim, n_dim)),
+            ("dW", dw, want_dw, lambda: ops.matmul(xt, dy),
+             lambda: ops.matmul_ref(xt, dy), lambda: torch.matmul(xt, dy),
+             (k_dim, n_dim, m))):
+        viol, err = max_violation(got, want, tol)
+        rows, cols, inner = mnk
+        nbytes = 2 * (rows * inner + inner * cols + rows * cols)
+        bms, by = bound_ms(nbytes, 2.0 * rows * cols * inner, "bfloat16")
+        ms = cuda_ms(torch, call)
+        out[key] = {"max_abs_err": err, "violation": viol, "ms": ms,
+                    "plain_ms": cuda_ms(torch, ref, iters=3),
+                    "library_ms": cuda_ms(torch, lib), "bound_ms": bms,
+                    "bound_by": by, "bound_share": bms / ms}
+    return out
+
+
+def train_parity(torch):
+    """qwen3-0.6b's reduced config in fp32: PARITY_STEPS train steps on
+    the card (K1, K1's backward and K2 launched) and on the CPU (their
+    plain versions) from one state drawn on the CPU, on the same
+    batches."""
+    from repro_torch import steps as steps_lib
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.models import registry
+    from repro_torch.optim import AdamWConfig
+    dev = torch.device("cuda")
+    cfg = registry.get_config("qwen3-0.6b", reduced=True)
+    assert cfg.dtype == "float32", cfg.dtype
+    opt = AdamWConfig(lr=PARITY_LR, warmup_steps=1, total_steps=10)
+    cpu = steps_lib.init_train_state(cfg, 0, device="cpu")
+    card = to_device(cpu, dev)
+    step = steps_lib.make_train_step(cfg, opt)
+    pipe = TokenPipeline(cfg, DataConfig(4, 64, 0))
+    rows = []
+    for i in range(PARITY_STEPS):
+        _, mc = step(cpu, pipe.device_batch(i, "cpu"))
+        _, mg = step(card, pipe.device_batch(i, dev))
+        rows.append({k: (float(mc[k]), float(mg[k])) for k in
+                     ("loss", "grad_norm", "lr")})
+    param_err = max(float((a.cpu() - b).abs().max()) for a, b in
+                    zip(leaves(card["params"]), leaves(cpu["params"])))
+    moved = max(float((a - b).abs().max()) for a, b in zip(
+        leaves(cpu["params"]), leaves(steps_lib.init_train_state(
+            cfg, 0, device="cpu")["params"])))
+    loss_err = max(abs(c - g) / abs(c) for c, g in
+                   (r["loss"] for r in rows))
+    gnorm_err = max(abs(c - g) / abs(c) for c, g in
+                    (r["grad_norm"] for r in rows))
+    rec = {"arch": "qwen3-0.6b (reduced, fp32)", "steps": rows,
+           "loss_rel_err": loss_err, "grad_norm_rel_err": gnorm_err,
+           "param_max_abs_err": param_err, "param_max_moved": moved,
+           "tol": {"loss_rtol": PARITY_LOSS_RTOL,
+                   "grad_norm_rtol": PARITY_GNORM_RTOL,
+                   "param_atol": PARITY_PARAM_ATOL}}
+    if not (loss_err <= PARITY_LOSS_RTOL and gnorm_err <= PARITY_GNORM_RTOL
+            and param_err <= PARITY_PARAM_ATOL):
+        raise AssertionError(f"card != CPU after {PARITY_STEPS} fp32 "
+                             f"train steps: {rec}")
+    return rec
+
+
+def train_phase():
+    """Phase 30's body (``chip_smoke.py --train``, started by the whole
+    script in a process of its own so that phases 8-29's engines hold
+    none of its memory):
+
+    a. K1's backward kernel against its plain version at qwen3-0.6b's
+       training shape (bf16, B 4, S 1024, 16 query heads over 8, D 128,
+       causal), at a gemma3 "L" layer (bf16, D 256, 8 over 4 heads,
+       window 512 at S 1024) and in fp32 (qwen3's heads, S 512): dq, dk
+       and dv within FLASH_TOL, the same bits on two runs, timed beside
+       the plain version, SDPA's backward and the bound;
+    b. K2's gradient at M 4,096 for qwen3's wq, w_gate, w_down and the
+       tied head (1024 x 151,936 padded to 153,600): dX and dW within
+       MATMUL_TOL of ``matmul_ref``, each timed beside ``torch.matmul``;
+    c. card == CPU for PARITY_STEPS fp32 train steps at reduced size;
+    d. qwen3-0.6b at its published width and depth, bf16, weights from
+       seed 0, 4 x 1,024 tokens a step, through
+       ``repro_torch.launch.train.train``: TRAIN_STEPS steps, a
+       checkpoint every TRAIN_CKPT_EVERY, one failure injected at step
+       TRAIN_FAIL_AT.  Before training, on the hot-loaded program: its
+       re-execution timed, one replay profiled by kernel family, and one
+       ``cold_execute`` (Table 1's rows that need no export).  Gates: one
+       restart, the final step reached, every loss finite and the last
+       five below the first five, telemetry points equal to the steps
+       run, the program a CUDA graph, and K1's and K2's launches exactly
+       the captured per-step counts (28 layers: K2 28 a layer + 3 for the
+       head, K1 3 a layer: forward, the recompute of ``remat_policy``
+       "nothing", backward) times the steps run.
+
+    Prints the record as its last line."""
+    import shutil
+    import tempfile
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke --train: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, SRC)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch import steps as steps_lib
+    from repro_torch.core.syscore import cold_execute
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train
+    from repro_torch.models import registry
+    t_start = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    rec = {"nvidia_smi": smi}
+
+    # a. K1's backward
+    k1 = [k1_backward_case(torch, "qwen3-0.6b", "bfloat16", 4, 16, 8,
+                           1024, 128, True, 0),
+          k1_backward_case(torch, "gemma3 L", "bfloat16", 2, 8, 4, 1024,
+                           256, True, 512),
+          k1_backward_case(torch, "qwen3-0.6b fp32", "float32", 1, 16, 8,
+                           512, 128, True, 0)]
+    for c in k1:
+        print(f"K1 backward {c['case']} {c['dtype']}: err {c['max_abs_err']}"
+              f", same bits {c['same_bits_two_runs']}, {c['ms']:.3f} ms "
+              f"(plain {c['plain_ms']:.3f}, SDPA backward "
+              f"{c['library_ms']:.3f}, bound {c['bound_ms']:.4f}) on {smi}",
+              flush=True)
+        if max(c["violation"].values()) > 0 or not c["same_bits_two_runs"]:
+            raise AssertionError(f"K1 backward {c}")
+    rec["k1_backward"] = k1
+
+    # b. K2's gradient
+    cfg = registry.get_config("qwen3-0.6b")
+    m = TRAIN_BATCH * TRAIN_SEQ
+    d, ff, q_out = cfg.d_model, cfg.d_ff, cfg.n_heads * cfg.resolved_head_dim
+    k2 = [k2_gradient_case(torch, "wq", d, q_out, m),
+          k2_gradient_case(torch, "w_gate", d, ff, m),
+          k2_gradient_case(torch, "w_down", ff, d, m),
+          k2_gradient_case(torch, "tied head", d, cfg.padded_vocab, m,
+                           tied=True)]
+    for c in k2:
+        print(f"K2 gradient {c['product']} (M {m}, K {c['K']}, N {c['N']}):"
+              f" dX {c['dX']['ms']:.3f} ms (torch.matmul "
+              f"{c['dX']['library_ms']:.3f}), dW {c['dW']['ms']:.3f} ms "
+              f"(torch.matmul {c['dW']['library_ms']:.3f}) on {smi}",
+              flush=True)
+        if max(c["dX"]["violation"], c["dW"]["violation"]) > 0:
+            raise AssertionError(f"K2 gradient {c}")
+    rec["k2_gradient"] = k2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # c. card == CPU, reduced, fp32
+    rec["parity"] = train_parity(torch)
+    print(f"train parity (reduced fp32, {PARITY_STEPS} steps): loss rel "
+          f"{rec['parity']['loss_rel_err']:.2e}, grad norm rel "
+          f"{rec['parity']['grad_norm_rel_err']:.2e}, params "
+          f"{rec['parity']['param_max_abs_err']:.2e}", flush=True)
+
+    # d. full width through the trainer
+    assert (cfg.n_layers, cfg.d_model, cfg.vocab_size, cfg.dtype) == \
+        (28, 1024, 151936, "bfloat16"), cfg
+    table1, per_step = {}, {}
+    keys = steps_lib.batch_keys(cfg)
+
+    def hook(handle, state, pipeline):
+        prog = handle.program
+        per_step.update(launches=dict(prog.launches),
+                        routes={k: dict(v) for k, v in prog.routes.items()},
+                        source=prog.source, lower_s=prog.stats.lower_s,
+                        compile_s=prog.stats.compile_s,
+                        graph_bytes=prog.stats.graph_bytes)
+        batch = pipeline.device_batch(0)
+        args = [batch[k] for k in keys]
+
+        def call():
+            handle(state, *args)
+
+        timed = time_calls(torch, call, 3)
+        table1.update(
+            hot_load_s=prog.stats.lower_s + prog.stats.compile_s,
+            re_execute_ms=timed["wall_ms_per_step"], **timed)
+        prof = profile_calls(torch, call, 1, timed)
+        table1["profile"] = None if "device_ms_per_step" not in prof else {
+            "K2_ms": prof["matmul_ms_per_step"],
+            "K1_forward_ms": prof["flash_ms_per_step"],
+            "K1_backward_ms": prof["flash_bwd_ms_per_step"],
+            "torch_ms": prof["torch_ms_per_step"],
+            "device_ms": prof["device_ms_per_step"],
+            "kernels": prof["kernels_per_step"],
+            "idle_share": prof["idle_share"]}
+        t0 = time.perf_counter()
+        cold_execute(prog.fn, state, *args)
+        torch.cuda.synchronize()
+        table1["cold_execute_s"] = time.perf_counter() - t0
+        ops.reset_launch_counts()
+
+    # the checkpoints (6 GB a save: bf16 weights, fp32 moments) go to the
+    # process's temporary directory, and are removed after the run
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        res = train("qwen3-0.6b", reduced=False, steps=TRAIN_STEPS,
+                    global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                    ckpt_dir=ckpt, ckpt_every=TRAIN_CKPT_EVERY,
+                    fail_at=[TRAIN_FAIL_AT], lr=TRAIN_LR, log_every=5,
+                    device="cuda", on_program=hook)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    train_s = time.perf_counter() - t0
+    launches, routes = ops.launch_counts(), ops.route_counts()
+    n = res["steps_run"]
+    losses = res["losses"]
+    want_steps = TRAIN_STEPS + TRAIN_FAIL_AT - TRAIN_CKPT_EVERY - 1
+    per_layer = {"matmul": 28 * cfg.n_layers + 3,
+                 "flash_attention": 3 * cfg.n_layers}
+    p50 = res["straggler"]["median_s"]
+    full = {"arch": "qwen3-0.6b", "dtype": cfg.dtype, "batch": TRAIN_BATCH,
+            "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "steps_run": n,
+            "restarts": res["restarts"], "final_step": res["final_step"],
+            "first_loss": res["first_loss"], "final_loss": res["final_loss"],
+            "losses": losses, "grad_norms": res["grad_norms"],
+            "telemetry_points": res["telemetry_points"],
+            "telemetry_errors": res["telemetry_errors"],
+            "source": per_step["source"], "export_error": res["export_error"],
+            "program_store": res["program_store"],
+            "per_step_launches": per_step["launches"],
+            "per_step_routes": per_step["routes"],
+            "launches": launches, "launches_by_route": routes,
+            "step_p50_s": p50, "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / p50,
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "graph_bytes": per_step["graph_bytes"],
+            "checkpoint_save_s": res["checkpoint_save_s"],
+            "checkpoint_restore_s": res["checkpoint_restore_s"],
+            "lower_s": per_step["lower_s"],
+            "compile_s": per_step["compile_s"], "table1": table1,
+            "train_wall_s": train_s}
+    rec["full"] = full
+    rec["launches"], rec["launches_by_route"] = launches, routes
+    print(f"train qwen3-0.6b full width bf16: {n} steps run, restarts "
+          f"{res['restarts']}, loss {losses[0]:.3f} -> {losses[-1]:.3f}, "
+          f"step p50 {p50 * 1e3:.1f} ms, {full['tokens_per_s']:.0f} tok/s, "
+          f"peak {full['peak_memory_gib']:.1f} GiB, cold_execute "
+          f"{table1['cold_execute_s']:.2f} s, hot load "
+          f"{table1['hot_load_s']:.2f} s, re-execute "
+          f"{table1['re_execute_ms']:.1f} ms, checkpoint saves "
+          f"{[round(x, 2) for x in res['checkpoint_save_s']]} s, restore "
+          f"{[round(x, 2) for x in res['checkpoint_restore_s']]} s, by "
+          f"family "
+          f"{table1['profile']} on {smi}", flush=True)
+    fails = []
+    if res["restarts"] != 1 or res["final_step"] != TRAIN_STEPS - 1:
+        fails.append("restarts or final step")
+    if n != want_steps or not all(math.isfinite(x) for x in losses):
+        fails.append(f"{n} steps run (want {want_steps}) or a loss not "
+                     f"finite")
+    if not sum(losses[-5:]) < sum(losses[:5]):
+        fails.append("the loss did not fall")
+    if res["telemetry_points"] != n or res["telemetry_errors"]:
+        fails.append("telemetry points != steps run")
+    if per_step["source"] != "cuda_graph":
+        fails.append(f"source {per_step['source']}")
+    for name, want in per_layer.items():
+        if per_step["launches"].get(name) != want or \
+                launches[name] != want * n:
+            fails.append(f"{name} launches {launches[name]} (per step "
+                         f"{per_step['launches'].get(name)}, want {want} "
+                         f"x {n})")
+    fa_routes = per_step["routes"].get("flash_attention", {})
+    if fa_routes != {"wgmma": 2 * cfg.n_layers, "bwd": cfg.n_layers} or \
+            routes["flash_attention"]["bwd"] != cfg.n_layers * n:
+        fails.append(f"K1 routes {fa_routes}, {routes['flash_attention']}")
+    if fails:
+        raise AssertionError(f"phase 30 full width: {fails}: {full}")
+    rec["seconds"] = time.perf_counter() - t_start
+    emit(rec)
+    return 0
 
 
 def main():
@@ -5208,6 +5636,26 @@ def main():
         path_routes["qwen3-0.6b/autotune"] = out["launches_by_route"]
         del bench_params
 
+    # -- 30. training, in a process of its own ---------------------------
+    with phase("train") as out:
+        gc.collect()
+        torch.cuda.empty_cache()
+        res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--train"], capture_output=True, text=True,
+                             env=env, timeout=600, cwd=ROOT)
+        lines = res.stdout.strip().splitlines()
+        for line in lines[:-1]:
+            print(line, flush=True)
+        if res.returncode != 0 or not lines:
+            raise AssertionError(f"phase 30's process failed "
+                                 f"({res.returncode}): {res.stderr[-4000:]}")
+        trained = json.loads(lines[-1])
+        out.update(trained)
+        path_launches["qwen3-0.6b/train"] = trained["launches"]
+        path_routes["qwen3-0.6b/train"] = trained["launches_by_route"]
+        print(f"train: {trained['seconds']:.1f} s in its process ({smi})",
+              flush=True)
+
     def total(name):
         return sum(path[name] for path in path_launches.values())
 
@@ -5215,8 +5663,34 @@ def main():
         return {arch: path[name] for arch, path in path_launches.items()}
 
     def by_route(name):
-        return {r: sum(path[name][r] for path in path_routes.values())
-                for r in ("wgmma", "simt")}
+        return {r: sum(path[name].get(r, 0) for path in path_routes.values())
+                for r in ("wgmma", "simt", "bwd")}
+
+    # phase 30's backward records: K1's backward kernel at qwen3's
+    # training shape (its other cases beside it), K2's gradient products
+    # summed over the four weights of one step's set
+    k1_bwd = trained["k1_backward"]
+    k1_backward = {
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "launches": trained["launches_by_route"]["flash_attention"]["bwd"],
+        "max_abs_err": max(max(c["max_abs_err"].values()) for c in k1_bwd),
+        **{key: k1_bwd[0][key] for key in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms")},
+        "per": "one call: bf16 causal, B 4, S 1024, H 16, Hk 8, D 128",
+        "cases": k1_bwd}
+    k2_grad = trained["k2_gradient"]
+    k2_backward = {
+        "launches": trained["launches"]["matmul"],
+        "max_abs_err": max(max(c["dX"]["max_abs_err"],
+                               c["dW"]["max_abs_err"]) for c in k2_grad),
+        **{key: sum(c[g][key] for c in k2_grad for g in ("dX", "dW"))
+           for key in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "bound_by": max(("bytes", "operations"), key=lambda by: sum(
+            c[g]["bound_ms"] for c in k2_grad for g in ("dX", "dW")
+            if c[g]["bound_by"] == by)),
+        "per": "dX and dW of wq, w_gate, w_down and the tied head at "
+               "M 4096, bf16, summed",
+        "cases": k2_grad}
 
     k2 = k2_aggregate("bfloat16", BATCH, per_layer, n_layers,
                       (d_model, vocab))
@@ -5261,7 +5735,8 @@ def main():
          "new_layouts": {arch: fa[arch] for arch in (*new_cfgs, QWEN3_MOE)},
          "seamless": {key: fa[f"seamless_{key}"]
                       for key in ("encoder", "cross", "self")},
-         "bits_equal_B1_B2": flash_bits, "build": k1_build},
+         "bits_equal_B1_B2": flash_bits, "build": k1_build,
+         "backward": k1_backward},
         {"name": "matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/matmul.cu",
          "replaces": "src/repro/kernels/matmul.py:33",
@@ -5283,7 +5758,8 @@ def main():
          "recurrentgemma_prefill_per_admission": k2_rg_prefill,
          **k2_new,
          "seamless-m4t-medium_per_decode_step": k2_seamless,
-         "bits": matmul_bits, "build": matmul_build},
+         "bits": matmul_bits, "build": matmul_build,
+         "backward": k2_backward},
         {"name": "moe_ffn", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/moe_ffn.cu",
          "replaces": "src/repro/kernels/moe_dispatch.py:38",
@@ -5348,6 +5824,8 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--train"]:
+        sys.exit(train_phase())
     if sys.argv[1:] == ["--serve-qwen3-moe"]:
         sys.exit(serve_qwen3_moe())
     if sys.argv[1:] == ["--serve-autotune"]:

@@ -1,11 +1,15 @@
 """Paper Table 1 on the port: program load and execute paths (the
 counterpart of ``benchmarks/bench_load_exec.py``).
 
-The four rows, on one program, the serving engine's ``decode`` step
-(``steps.make_serve_step``) bound to its parameters and caches: at full
-width by default, qwen3-0.6b in bf16 at batch 4 and max_len 512.  The
-reference times its training step; the port has no training step yet
-(ROADMAP Queue 1 item 14), so the decode program stands in.
+The four rows, on one program: the train program (``--program train``,
+``steps.make_train_program`` bound to the train state, its inputs one
+batch), as the reference times its training step, or the serving
+engine's ``decode`` step (``steps.make_serve_step``, the default) bound to
+its parameters and caches.  At full width by default: qwen3-0.6b in bf16,
+the train program at 4 x 1,024 tokens, decode at batch 4 and max_len 512.
+The train program reports its steps from the host (no in-graph host
+call), so that the serialized row can try ``torch.export`` on it; where
+the export fails, that row reports the error in place of a time.
 
 =============================  ==========================================
 Table 1 row                    here
@@ -32,7 +36,7 @@ loader (ROADMAP Queue 1 item 13).
 Run from the repository root (``PYTHONPATH=src``)::
 
     python -m repro_torch.bench.load_exec [--arch qwen3-0.6b] [--reduced]
-        [--device cuda]
+        [--device cuda] [--program decode|train]
 
 prints one JSON line: the rows (each in microseconds) and the device.
 """
@@ -51,6 +55,7 @@ from repro_torch.bench.common import device_record, events_ms, median_s, sync
 from repro_torch.core.program_store import ProgramSpec, leaves
 from repro_torch.core.syscore import Syscore, cold_execute
 from repro_torch.models import registry, transformer
+from repro_torch.optim import AdamWConfig
 
 
 def decode_spec(cfg, params, caches, batch: int, device) -> ProgramSpec:
@@ -60,23 +65,43 @@ def decode_spec(cfg, params, caches, batch: int, device) -> ProgramSpec:
                        context=repr(cfg))
 
 
+def train_spec(cfg, state, batch: int, seq: int, device) -> ProgramSpec:
+    """The train program at ``batch`` x ``seq`` tokens, bound to
+    ``state``, with the default AdamW config."""
+    opt = AdamWConfig()
+    return steps.train_program_spec(
+        cfg, opt, state, steps.batch_templates(cfg, batch, seq, device))
+
+
 def run(arch: str = "qwen3-0.6b", *, full: bool = True,
         device: str = "cuda", batch: int = 4, max_len: int = 512,
         seed: int = 0, params=None, cold_reps: int = 3,
-        reexec_reps: int = 20) -> Dict[str, object]:
-    """Table 1's four rows for ``arch``'s decode program; ``params`` (on
-    ``device``) spares a second draw."""
+        reexec_reps: int = 20, program: str = "decode",
+        seq: Optional[int] = None) -> Dict[str, object]:
+    """Table 1's four rows for ``arch``'s ``program`` ("decode" or
+    "train"; ``seq`` the train program's tokens a row, default 1,024 at
+    full width and 64 reduced); ``params`` (on ``device``) spares a
+    second draw."""
     dev = torch.device(device)
     cfg = registry.get_config(arch, reduced=not full)
     if params is None:
         params = transformer.init_params(cfg, seed, device=dev)
-    caches = transformer.init_cache(cfg, batch, max_len, device=dev)
-    spec = decode_spec(cfg, params, caches, batch, dev)
-    token = spec.inputs[0]
+    if program == "train":
+        seq = seq or (1024 if full else 64)
+        resident = (steps.init_train_state(cfg, params=params),)
+        spec = train_spec(cfg, resident[0], batch, seq, dev)
+        geometry = {"batch": batch, "seq": seq}
+    elif program == "decode":
+        resident = (params, transformer.init_cache(cfg, batch, max_len,
+                                                   device=dev))
+        spec = decode_spec(cfg, *resident, batch, dev)
+        geometry = {"batch": batch, "max_len": max_len}
+    else:
+        raise ValueError(f"program {program!r}: decode or train")
+    args = (*resident, *spec.inputs)
     rows: List[Dict[str, object]] = []
 
-    cold = median_s(lambda: cold_execute(spec.fn, params, caches, token),
-                    dev, cold_reps)
+    cold = median_s(lambda: cold_execute(spec.fn, *args), dev, cold_reps)
     rows.append({"row": "cold", "us": 1e6 * cold,
                  "what": "cold_execute: warm-up + capture + instantiate + "
                          "replay + sync, every call (median)"})
@@ -92,33 +117,42 @@ def run(arch: str = "qwen3-0.6b", *, full: bool = True,
                  "what": "hot_load: warm-up + capture, once"})
 
     t0 = time.perf_counter()
-    payload = sc.serialize("decode")
-    export_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    loaded = sc.install_serialized("decode_serialized", payload, spec)
-    sync(dev)
-    install = time.perf_counter() - t0
-    rows.append({"row": "hot_load_serialized", "us": 1e6 * install,
-                 "payload_bytes": len(payload),
-                 "load_s": loaded.stats.load_s,
-                 "lower_s": loaded.stats.lower_s,
-                 "compile_s": loaded.stats.compile_s, "export_s": export_s,
-                 "what": "install_serialized: torch.export.load, then "
-                         "warm-up + capture on the card"})
+    loaded = None
+    try:
+        payload = sc.serialize(spec.key)
+    except Exception as e:
+        rows.append({"row": "hot_load_serialized", "us": None,
+                     "export_error": f"{type(e).__name__}: {e}",
+                     "what": "torch.export of the program failed: no "
+                             "payload to load"})
+    else:
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = sc.install_serialized(spec.key + "_serialized", payload,
+                                       spec)
+        sync(dev)
+        install = time.perf_counter() - t0
+        rows.append({"row": "hot_load_serialized", "us": 1e6 * install,
+                     "payload_bytes": len(payload),
+                     "load_s": loaded.stats.load_s,
+                     "lower_s": loaded.stats.lower_s,
+                     "compile_s": loaded.stats.compile_s,
+                     "export_s": export_s,
+                     "what": "install_serialized: torch.export.load, then "
+                             "warm-up + capture on the card"})
 
-    reexec = median_s(lambda: handle(params, caches, token), dev,
-                      reexec_reps)
+    reexec = median_s(lambda: handle(*args), dev, reexec_reps)
     device_ms: Optional[float] = None
     if dev.type == "cuda":
-        device_ms = events_ms(lambda: handle(params, caches, token),
-                              reexec_reps)
-    same = _same_outputs(handle, loaded, params, caches, token)
+        device_ms = events_ms(lambda: handle(*args), reexec_reps)
+    same = (None if loaded is None or program != "decode"
+            else _same_outputs(handle, loaded, *args))
     rows.append({"row": "reexecute", "us": 1e6 * reexec,
                  "device_ms": device_ms,
                  "cold_over_reexecute": cold / reexec,
                  "what": "a handle call (graph replay) + sync (median)"})
     return {"bench": "load_exec", "arch": arch, "full": full,
-            "program": "decode", "batch": batch, "max_len": max_len,
+            "program": program, **geometry,
             "dtype": str(cfg.dtype), "rows": rows,
             "serialized_equals_hot_load": same,
             "device": device_record(dev)}
@@ -156,9 +190,11 @@ def main(argv=None) -> int:
     ap.add_argument("--arch", default="qwen3-0.6b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--program", default="decode",
+                    choices=("decode", "train"))
     args = ap.parse_args(argv)
     out = run(args.arch, full=not args.reduced, device=args.device,
-              max_len=512 if not args.reduced else 64)
+              max_len=512 if not args.reduced else 64, program=args.program)
     print(json.dumps(out), flush=True)
     return 0
 

@@ -6,16 +6,20 @@ The reference reads the records of its multi-pod dry run (every cell
 lowered and compiled for a TPU mesh) and reports per cell the roofline
 terms, the dominant one, whether the cell fits a chip's memory and the
 analytic MODEL_FLOPS over the counted FLOPs.  The port counts each cell's
-program (``registry.build_step_fn``: the whole-batch prefill or the decode
-step) once on ``meta`` tensors (:mod:`repro_torch.launch.cost`), so no
+program (``registry.build_step_fn``: the whole-batch prefill, the decode
+step or the train program) once on ``meta`` tensors (:mod:`repro_torch.launch.cost`), so no
 parameter is allocated and no card is needed, and prices it against the
 H100's published peaks (:mod:`repro_torch.launch.roofline`).  Per cell:
 FLOPs, ideal bytes, ``compute_s``, ``memory_s``, the dominant term,
-whether the parameters and caches fit one card's 80 GB, and
-``model_flops`` over the counted FLOPs.  The ``train_4k`` cells are
-listed as waiting for the training step (ROADMAP Queue 1 item 14); the
-reference's 500k-token cells of the full-attention archs are skipped as
-the reference skips them.
+whether the parameters and caches (a train cell: the parameters and the
+fp32 moments) fit one card's 80 GB, and ``model_flops`` over the counted
+FLOPs.  The ``train_4k`` cells of the dense family are counted through
+the train program (forward, the recompute its ``remat_policy`` asks for,
+K2's dX and dW products and K1's backward, AdamW); those of the MoE, SSM,
+hybrid and encoder-decoder families are listed as waiting for their
+training step (ROADMAP Queue 1 item 14b); the reference's 500k-token
+cells of the full-attention archs are skipped as the reference skips
+them.
 
 ``--reduced`` counts the reduced configs at the reference's reduced cell
 size (64 tokens, batch 4), in fp32; ``--smoke`` counts the ``decode_32k``
@@ -34,6 +38,7 @@ import sys
 import time
 from typing import Dict
 
+from repro_torch import steps
 from repro_torch.bench.common import write_out
 from repro_torch.launch import roofline as rl
 from repro_torch.launch.cost import count
@@ -49,11 +54,13 @@ def count_cell(arch: str, shape: str, *, reduced: bool) -> Dict[str, object]:
     count_s = time.perf_counter() - t0
     terms = rl.roofline_terms(cost.flops, cost.bytes_ideal, 0.0,
                               dtype=spec.cfg.dtype)
-    resident = tree_bytes(spec.abstract_args[:2])     # params, caches
+    # params and caches; a train cell's state
+    resident = tree_bytes(spec.abstract_args[:1 if spec.kind == "train"
+                                             else 2])
     # MODEL_FLOPS at the cell's own size (a reduced cell is 64 x 4)
     seq, batch, kind = registry.SHAPES[shape]
     scale = spec.global_batch / batch
-    if kind == "prefill":
+    if kind in ("prefill", "train"):
         scale *= spec.seq_len / seq
     mflops = registry.model_flops(spec.cfg, shape) * scale
     return {
@@ -76,10 +83,10 @@ def run(*, reduced: bool = False, smoke: bool = False) -> Dict[str, object]:
     cells, waiting = [], []
     for arch, shape in registry.all_cells():
         kind = registry.SHAPES[shape][2]
-        if kind == "train":
-            waiting.append({"arch": arch, "shape": shape,
-                            "waits_for": "ROADMAP Queue 1 item 14 "
-                                         "(the training step)"})
+        why = (steps.train_unsupported(registry.get_config(arch))
+               if kind == "train" else None)
+        if why is not None:
+            waiting.append({"arch": arch, "shape": shape, "waits_for": why})
             continue
         if smoke and shape != "decode_32k":
             continue

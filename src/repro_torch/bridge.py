@@ -47,11 +47,11 @@ from repro_torch.models import encdec, transformer
 
 
 def _leaf_from_numpy(a, device) -> torch.Tensor:
-    a = np.asarray(a)
+    a = np.array(a, order="C")       # a copy; keeps a 0-dim leaf 0-dim
     if a.dtype.name == "bfloat16":
-        t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
-        return t.view(torch.bfloat16).to(device)
-    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
+        return torch.from_numpy(a.view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
 
 
 def _tree_from_numpy(tree, device):
@@ -169,3 +169,41 @@ def paged_cache_to_numpy(caches) -> dict:
     leaves, the arena leaves without their sink block."""
     return to_numpy(_arena_leaves(
         caches, lambda t, axis: t.narrow(axis, 0, t.shape[axis] - 1)))
+
+
+def train_state_from_numpy(tree, cfg, device) -> dict:
+    """The reference's train state ``{"params", "opt": {"m", "v", "step"}}``
+    (numpy leaves) -> the port's: the parameters checked as
+    :func:`params_from_numpy` does, the moments fp32 trees of the same
+    keys and shapes, ``step`` a 0-dim int32."""
+    model = encdec if cfg.is_encdec else transformer
+    shapes = model.abstract_params(cfg)
+    opt = tree["opt"]
+    for name in ("m", "v"):
+        _check_shapes(opt[name], shapes, f"/opt/{name}")
+        dtypes = {np.asarray(a).dtype.name for a in _np_leaves(opt[name])}
+        if dtypes != {"float32"}:
+            raise ValueError(f"opt/{name} must be float32, got "
+                             f"{sorted(dtypes)}")
+    step = np.asarray(opt["step"])
+    if step.shape != () or step.dtype != np.int32:
+        raise ValueError(f"opt/step must be a 0-dim int32, got "
+                         f"{step.dtype} {step.shape}")
+    return {"params": params_from_numpy(tree["params"], cfg, device),
+            "opt": {"m": _tree_from_numpy(opt["m"], device),
+                    "v": _tree_from_numpy(opt["v"], device),
+                    "step": _leaf_from_numpy(step, device)}}
+
+
+def train_state_to_numpy(state) -> dict:
+    """The port's train state -> numpy leaves under the reference's key
+    paths (bfloat16 parameters as ``uint16`` bit patterns)."""
+    return to_numpy(state)
+
+
+def _np_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _np_leaves(v)
+    else:
+        yield tree

@@ -176,6 +176,19 @@ def leaves(tree):
         yield tree
 
 
+def unflatten(like, flat):
+    """A nested dict shaped as ``like`` over ``flat``: :func:`leaves`
+    undone."""
+    it = iter(flat)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        return next(it)
+
+    return build(like)
+
+
 # ---------------------------------------------------------------------------
 # Export and install
 # ---------------------------------------------------------------------------

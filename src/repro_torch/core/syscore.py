@@ -371,6 +371,17 @@ class Syscore:
         store = store if store is not None else self.store
         if prog.serializable is False:
             return False
+        if prog.host_sites:
+            # its capture recorded host calls, which torch.export cannot
+            # hold: known without tracing the program (a full-width train
+            # step's trace takes tens of seconds to reach its report)
+            prog.serializable = False
+            prog.export_error = (
+                f"HostCallExportError: the captured program makes "
+                f"{len(prog.host_sites)} in-graph host call(s), which "
+                f"torch.export cannot hold")
+            store.skipped += 1
+            return False
         try:
             payload = self._payload(prog)
         except Exception as e:

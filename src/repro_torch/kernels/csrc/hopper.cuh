@@ -377,6 +377,14 @@ inline bool tensor_map(CUtensorMap* out, const void* ptr, int rank,
   }
   EncodeTiled encode = encoder();
   if (encode == nullptr) return false;
+  // cuTensorMapEncodeTiled works in the calling thread's context, and a
+  // thread that has launched nothing yet may have none current
+  // (PyTorch's autograd worker, which runs the gradients' products):
+  // bind the device's primary context first
+  int device = 0;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaSetDevice(device) != cudaSuccess)
+    return false;
   if (cache.size() >= 4096) cache.clear();
   Map map;
   cuuint64_t d[3], s[2];

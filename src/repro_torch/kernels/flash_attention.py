@@ -17,10 +17,18 @@ the head dim alone: bf16 at head dim 128 or 256 (every served call) runs
 the wgmma + TMA kernel, everything else the CUDA-core kernel.
 ``flash_attention.launches`` counts kernel launches,
 ``flash_attention.launches_by_route`` the same by route.
+
+The operator has a gradient: :func:`flash_attention_bwd`, the
+``repro_torch::flash_attention_bwd`` operator, whose CUDA kernel is
+``csrc/flash_attention_bwd.cu`` (its header gives the design) and whose
+CPU kernel is the closed form :func:`flash_attention_bwd_ref`.  A call
+launches the kernel's three passes and counts once, in ``launches`` and
+under the route ``"bwd"``.  Training never passes ``q_start``: the
+gradient of a call that did raises.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -32,6 +40,10 @@ HEAD_DIMS = (16, 32, 64, 128, 256)
 BQ, BK = 16, 32    # SIMT route's query and key tile rows
 SMEM_LIMIT = 232448
 ROUTES = ("wgmma", "simt")
+# the counters' keys: the forward's routes and the backward's kernel
+COUNTED = ROUTES + ("bwd",)
+# the backward kernel's tiles (csrc/flash_attention_bwd.cu, namespace fa_bwd)
+BWD_TILE = 32
 # the wgmma route (csrc/flash_attention.cu, namespace fa_tc): 64 query rows
 # a block, K/V tiles of 64 keys in a ring of 2 stages
 WGMMA_HEAD_DIMS = (128, 256)
@@ -62,12 +74,33 @@ def wgmma_smem_bytes(d: int) -> int:
     return (1 + 2 * WGMMA_STAGES) * tile + 8 * (1 + 3 * WGMMA_STAGES) + 1024
 
 
+def bwd_smem_bytes(d: int) -> int:
+    """Dynamic shared memory of one block of the backward's dK/dV pass,
+    its largest (``fa_bwd::dkdv_smem``): K, V, Q and dO tiles padded to
+    d + 1 fp32 columns, the P and dS tiles (32 x 33) and two rows of
+    per-query statistics."""
+    t = BWD_TILE
+    return 4 * (4 * t * (d + 1) + 2 * t * (t + 1) + 2 * t)
+
+
 def _check_start(q_start: torch.Tensor, q: torch.Tensor):
     if q_start.dtype != torch.int32 or q_start.numel() != 1:
         raise ValueError(f"q_start takes one int32 value: got "
                          f"{q_start.dtype}, {tuple(q_start.shape)}")
     if q_start.device != q.device:
         raise ValueError(f"q_start on {q_start.device}, q on {q.device}")
+
+
+def _mask(sq: int, sk: int, causal: bool, window: int, start, device):
+    """(Sq, Sk) bool: which keys each query sees, queries from ``start``."""
+    q_pos = torch.arange(sq, device=device) + start
+    k_pos = torch.arange(sk, device=device)
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= q_pos[:, None] >= k_pos[None, :]
+    if window > 0:
+        mask &= (q_pos[:, None] - k_pos[None, :]) < window
+    return mask
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -84,13 +117,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     v = v.repeat_interleave(g, dim=0)
     scores = torch.einsum("bqd,bkd->bqk", q, k).float() * d ** -0.5
     start = sk - sq if q_start is None else q_start.reshape(()).long()
-    q_pos = torch.arange(sq, device=q.device) + start
-    k_pos = torch.arange(sk, device=q.device)
-    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= q_pos[:, None] >= k_pos[None, :]
-    if window > 0:
-        mask &= (q_pos[:, None] - k_pos[None, :]) < window
+    mask = _mask(sq, sk, causal, window, start, q.device)
     scores = torch.where(mask[None], scores,
                          torch.full_like(scores, NEG_INF))
     p = torch.softmax(scores, dim=-1)
@@ -175,5 +202,126 @@ def _(q, k, v, causal, window, q_start):
     return q.new_empty(q.shape)
 
 
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, out: torch.Tensor,
+                            dout: torch.Tensor, *, causal: bool = True,
+                            window: int = 0
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """Plain version of K1's gradient, in closed form and fp32: P
+    recomputed as the forward's masked softmax, then dV = P^T dO,
+    dS = P * (dO V^T - rowsum(dO * O)), dQ = dS K * scale,
+    dK = dS^T Q * scale, dK and dV summed over each KV head's G query
+    heads.  Queries right-aligned against the keys.  Returns (dq, dk, dv)
+    in the inputs' dtypes."""
+    bh, sq, d = q.shape
+    bhk, sk, _ = k.shape
+    g = bh // bhk
+    qf, kf, vf, of, dof = (t.float() for t in (q, k, v, out, dout))
+    kr = kf.repeat_interleave(g, dim=0)
+    vr = vf.repeat_interleave(g, dim=0)
+    scale = d ** -0.5
+    scores = torch.einsum("bqd,bkd->bqk", qf, kr) * scale
+    mask = _mask(sq, sk, causal, window, sk - sq, q.device)
+    scores = torch.where(mask[None], scores,
+                         torch.full_like(scores, NEG_INF))
+    p = torch.softmax(scores, dim=-1)
+    dv = torch.einsum("bqk,bqd->bkd", p, dof)
+    dp = torch.einsum("bqd,bkd->bqk", dof, vr)
+    ds = p * (dp - (dof * of).sum(-1, keepdim=True))
+    dq = torch.einsum("bqk,bkd->bqd", ds, kr) * scale
+    dk = torch.einsum("bqk,bqd->bkd", ds, qf) * scale
+    dk = dk.reshape(bhk, g, sk, d).sum(1)
+    dv = dv.reshape(bhk, g, sk, d).sum(1)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, dout: torch.Tensor, *,
+                        causal: bool = True, window: int = 0
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of ``flash_attention(q, k, v)`` = ``out`` for the
+    output gradient ``dout`` (shaped as q), through the
+    ``repro_torch::flash_attention_bwd`` operator."""
+    _check(q, k, v)
+    if out.shape != q.shape or dout.shape != q.shape:
+        raise ValueError(f"flash_attention_bwd takes out and dout shaped as "
+                         f"q {tuple(q.shape)}, got {tuple(out.shape)} and "
+                         f"{tuple(dout.shape)}")
+    if out.dtype != q.dtype or dout.dtype != q.dtype or \
+            out.device != q.device or dout.device != q.device:
+        raise TypeError("flash_attention_bwd takes out and dout of q's dtype "
+                        "and device")
+    return _flash_attention_bwd_op(q, k, v, out, dout, causal, window)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=(),
+                         device_types="cuda")
+def _flash_attention_bwd_op(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, out: torch.Tensor,
+                            dout: torch.Tensor, causal: bool, window: int
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """The CUDA implementation: launch the backward's three passes on the
+    current stream."""
+    bh, sq, d = q.shape
+    bhk, sk, _ = k.shape
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd kernel takes head_dim in "
+                         f"{HEAD_DIMS}, got {d}")
+    if sq > sk:
+        raise ValueError(f"flash_attention_bwd kernel takes Sq <= Sk, got "
+                         f"{sq} > {sk}")
+    if not all(t.is_contiguous() for t in (q, k, v, out, dout)):
+        raise ValueError("flash_attention_bwd kernel needs contiguous q, k, "
+                         "v, out and dout")
+    lib = _build.library()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
+        torch.empty_like(v)
+    lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    err = lib.repro_flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), bh, bhk, sq, sk, d, int(causal),
+        int(window), _build.DTYPE_CODES[q.dtype], _build.stream_handle())
+    _build.check(err, "flash_attention_bwd")
+    flash_attention.launches += 1
+    flash_attention.launches_by_route["bwd"] += 1
+    return dq, dk, dv
+
+
+@_flash_attention_bwd_op.register_kernel("cpu")
+def _(q, k, v, out, dout, causal, window):
+    return tuple(t.contiguous() for t in flash_attention_bwd_ref(
+        q, k, v, out, dout, causal=causal, window=window))
+
+
+@_flash_attention_bwd_op.register_fake
+def _(q, k, v, out, dout, causal, window):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+def _setup_context(ctx, inputs, output):
+    q, k, v, causal, window, q_start = inputs
+    ctx.save_for_backward(q, k, v, output)
+    ctx.causal, ctx.window = causal, window
+    ctx.has_start = q_start is not None
+
+
+def _backward(ctx, dout):
+    if ctx.has_start:
+        raise NotImplementedError(
+            "flash_attention's gradient takes right-aligned queries: a call "
+            "with q_start (a warm prefix admission) has none")
+    q, k, v, out = ctx.saved_tensors
+    dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(),
+                                     causal=ctx.causal, window=ctx.window)
+    return dq, dk, dv, None, None, None
+
+
+_flash_attention_op.register_autograd(_backward,
+                                      setup_context=_setup_context)
+
 flash_attention.launches = 0
-flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
+flash_attention.launches_by_route = dict.fromkeys(COUNTED, 0)

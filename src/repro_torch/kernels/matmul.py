@@ -11,6 +11,12 @@ The bf16 kernel splits K into segments that :func:`plan` chooses from
 (K, N, dtype) alone, never from M, and adds the segments' fp32 sums in
 segment order: a row of the product has the same bits whatever M is, which
 the engine's token exactness against its batch-1 reference rests on.
+
+The operator has a gradient made of two more K2 products: dX = dY W^T
+(W^T of a row-major W is K-contiguous, read in place) and dW = X^T dY
+(X^T made row-major first).  Each goes through ``repro_torch::matmul``
+again, so it launches K2 on the card and takes :func:`matmul_ref` on the
+CPU, and counts as one launch.
 """
 from __future__ import annotations
 
@@ -241,5 +247,19 @@ def _(x, w):
 def _(x, w):
     return x.new_empty((x.shape[0], w.shape[1]))
 
+
+def _setup_context(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _backward(ctx, dy):
+    x, w = ctx.saved_tensors
+    dy = dy.contiguous()
+    dx = matmul(dy, w.t()) if ctx.needs_input_grad[0] else None
+    dw = matmul(x.t().contiguous(), dy) if ctx.needs_input_grad[1] else None
+    return dx, dw
+
+
+_matmul_op.register_autograd(_backward, setup_context=_setup_context)
 
 matmul.launches = 0

@@ -3,13 +3,16 @@
 There is no implementation switch: the device of the tensors decides.  A
 CPU tensor takes the kernel's plain PyTorch version; a CUDA tensor launches
 the hand-written Hopper kernel or raises.  Every TPU kernel of the
-reference has its counterpart here (K1-K5).
+reference has its counterpart here (K1-K5), and K1 and K2 have gradients
+(K1's backward kernel counts under K1, route "bwd").
 """
 from __future__ import annotations
 
 from typing import Dict
 
 from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_bwd,
+                                                 flash_attention_bwd_ref,
                                                  flash_attention_ref)
 from repro_torch.kernels.matmul import matmul, matmul_ref
 from repro_torch.kernels.moe_dispatch import moe_ffn, moe_ffn_ref
@@ -21,6 +24,7 @@ KERNELS = {"matmul": matmul, "flash_attention": flash_attention,
            "rglru_scan": rglru_scan}
 
 __all__ = ["matmul", "matmul_ref", "flash_attention", "flash_attention_ref",
+           "flash_attention_bwd", "flash_attention_bwd_ref",
            "moe_ffn", "moe_ffn_ref", "ssd_scan", "ssd_scan_ref",
            "rglru_scan", "rglru_scan_ref", "KERNELS", "launch_counts",
            "route_counts", "reset_launch_counts", "add_launch_counts"]

@@ -7,7 +7,8 @@ function the Syscore captures.  So :func:`count` runs the function once
 on ``meta`` tensors (shapes and dtypes, no storage) under a
 ``TorchDispatchMode`` that sees every ATen operator and every one of the
 five kernels' custom operators (``repro_torch::{matmul,flash_attention,
-moe_ffn,ssd_scan,rglru_scan}``), and adds up what each costs.  On
+moe_ffn,ssd_scan,rglru_scan}``, and K1's gradient
+``flash_attention_bwd``), and adds up what each costs.  On
 ``meta`` the kernels' registered fakes run, never their CUDA
 implementations: counting launches nothing, moves no launch counter and
 allocates no device memory.
@@ -21,6 +22,11 @@ FLOPs:
   the scores and the weighted sum over every (query, key) pair, with no
   causal or window discount: the reference model's attention computes
   them all, so the count agrees with the JAX package's;
+- K1's gradient ``flash_attention_bwd``: 10·BH·Sq·Sk·D, its five products
+  (the recomputed scores, dO·Vᵀ, dV, dQ and dK), with no discount either;
+- K2's gradient is two more K2 products (dX and dW), counted as K2, so a
+  train program counts its products at 3x the forward's, plus the
+  forward's again for each layer group its ``remat_policy`` recomputes;
 - K3 ``moe_ffn`` buf (E, C, d), w1/w3 (E, d, f): 6·E·C·d·f over the whole
   capacity buffer.  On ``meta`` no routing is known, so rows the router
   leaves empty are counted as if full: an upper bound of the work;
@@ -119,6 +125,11 @@ def _flash(args):
     return 4.0 * q.shape[0] * q.shape[1] * k.shape[1] * q.shape[2]
 
 
+def _flash_bwd(args):
+    q, k = args[0], args[1]
+    return 10.0 * q.shape[0] * q.shape[1] * k.shape[1] * q.shape[2]
+
+
 def _moe(args):
     buf, w1 = args[0], args[1]
     e, c, d = buf.shape
@@ -144,6 +155,7 @@ _PRODUCTS: Dict[str, Callable] = {
     "aten::bmm": _bmm, "aten::baddbmm": _bmm,
     "repro_torch::matmul": _mm,
     "repro_torch::flash_attention": _flash,
+    "repro_torch::flash_attention_bwd": _flash_bwd,
     "repro_torch::moe_ffn": _moe,
     "repro_torch::ssd_scan": _ssd,
     "repro_torch::rglru_scan": _rglru,

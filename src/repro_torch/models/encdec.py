@@ -199,8 +199,8 @@ def forward(cfg, params, frames: torch.Tensor, tokens: torch.Tensor, *,
     check_supported(cfg)
     if mode != "prefill" or caches is None:
         raise NotImplementedError(
-            "forward runs in prefill mode with a cache; the training forward "
-            "is not ported yet (ROADMAP Queue 1 item 14)")
+            "forward runs in prefill mode with a cache; the encoder-decoder "
+            "training forward is not ported yet (ROADMAP Queue 1 item 14b)")
     if frames.shape[1] != caches["cross_k"].shape[2]:
         raise ValueError(f"frames hold {frames.shape[1]} positions, the "
                          f"cross cache {caches['cross_k'].shape[2]}")

@@ -124,8 +124,9 @@ def apply_rglru_layer(cfg, p: Params, x: torch.Tensor, *, mode: str,
         new_conv = F.pad(xb, (0, 0, w, 0))[:, -w:]
     else:
         raise NotImplementedError(
-            f"mode {mode!r}: the training forward is not ported yet "
-            f"(ROADMAP Queue 1 item 14)")
+            f"mode {mode!r}: the RG-LRU layer's training forward (and its "
+            f"scan's backward kernel) is not ported yet (ROADMAP Queue 1 "
+            f"item 14b)")
 
     out = linear(y * gate, p["w_out"])
     if live is not None and mode == "decode":

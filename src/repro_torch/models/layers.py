@@ -132,6 +132,28 @@ def apply_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
     return linear(h, p["w_down"])
 
 
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 valid_vocab: int) -> torch.Tensor:
+    """Per-position cross-entropy in fp32 (``repro/models/layers.py:
+    softmax_xent``): vocab padding masked out of the partition function,
+    the max held constant (no gradient through it), the label's logit
+    gathered.  The reference selects it by a one-hot product, which gives
+    the same value; at 4,096 tokens over a 153,600-row vocab the one-hot
+    alone would be 2.5 GB of fp32.  logits (..., V), labels (...) int in
+    [0, valid_vocab)."""
+    vocab = logits.shape[-1]
+    logits = logits.float()
+    if valid_vocab < vocab:
+        pad = torch.arange(vocab, device=logits.device) >= valid_vocab
+        logits = logits.masked_fill(pad, -1e30)
+    m = torch.amax(logits, dim=-1, keepdim=True).detach()
+    shifted = logits - m
+    lse = torch.log(torch.sum(torch.exp(shifted), dim=-1)) + m[..., 0]
+    label_logit = torch.gather(shifted, -1, labels.long()[..., None])[..., 0] \
+        + m[..., 0]
+    return lse - label_logit
+
+
 # ---------------------------------------------------------------------------
 # parameter initialisation
 # ---------------------------------------------------------------------------

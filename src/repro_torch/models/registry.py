@@ -78,7 +78,7 @@ def all_cells(include_skipped: bool = False) -> List[Tuple[str, str]]:
 class CellSpec:
     arch: str
     shape: str
-    kind: str                      # prefill | decode (train: item 14)
+    kind: str                      # train | prefill | decode
     cfg: ModelConfig
     abstract_args: Tuple[Any, ...]  # meta tensors, step-fn order
     donate_argnums: Tuple[int, ...]  # the caches, updated in place
@@ -86,26 +86,40 @@ class CellSpec:
     global_batch: int
 
 
-def cell_spec(arch_id: str, shape_id: str, *,
-              reduced: bool = False) -> CellSpec:
+def cell_spec(arch_id: str, shape_id: str, *, reduced: bool = False,
+              remat: Optional[str] = None) -> CellSpec:
     """One cell's step-function arguments as ``meta`` tensors: the
     parameters (from ``abstract_params``: a ``meta`` device has no
     generator to draw from), the caches, and the per-call inputs of
-    :func:`build_step_fn`'s program.  The reference's ``remat``,
-    ``attn_impl`` and ``cache_heads`` knobs are training and sharding
-    switches (ROADMAP Queue 1 items 14 and 13)."""
+    :func:`build_step_fn`'s program; a ``train`` cell's are the train
+    state (parameters, fp32 moments, step) and the batch, for the dense
+    family (the others raise: ROADMAP Queue 1 item 14b).  The
+    reference's ``attn_impl`` and ``cache_heads`` knobs are sharding
+    switches (ROADMAP Queue 1 item 13); ``remat`` replaces the config's
+    ``remat_policy`` (nothing, dots or full)."""
     from repro_torch.models import encdec, layers, transformer
 
     cfg = get_config(arch_id, reduced=reduced)
+    if remat is not None:
+        cfg = cfg.replace(remat_policy=remat)
     seq, batch, kind = SHAPES[shape_id]
     if reduced:
         seq, batch = 64, 4
-    if kind == "train":
-        raise NotImplementedError(
-            f"{arch_id} x {shape_id}: the training step is not ported yet "
-            f"(ROADMAP Queue 1 item 14)")
     dtype = layers.torch_dtype(cfg.dtype)
     mod = encdec if cfg.is_encdec else transformer
+    if kind == "train":
+        from repro_torch import steps
+        why = steps.train_unsupported(cfg)
+        if why is not None:
+            raise NotImplementedError(f"{arch_id} x {shape_id}: {why}")
+        params = layers.zeros(mod.abstract_params(cfg), dtype, META)
+        state = steps.init_train_state(cfg, params=params)
+        inputs = steps.batch_templates(cfg, batch, seq, META)
+        return CellSpec(arch=arch_id, shape=shape_id, kind=kind, cfg=cfg,
+                        abstract_args=(state,) + tuple(
+                            inputs[k] for k in steps.batch_keys(cfg)),
+                        donate_argnums=(0,), seq_len=seq,
+                        global_batch=batch)
     params = layers.zeros(mod.abstract_params(cfg), dtype, META)
     if cfg.is_encdec:
         se = sd = seq // 2
@@ -138,16 +152,18 @@ def cell_spec(arch_id: str, shape_id: str, *,
                     donate_argnums=(1,), seq_len=seq, global_batch=batch)
 
 
-def build_step_fn(spec: CellSpec):
-    """The program a cell runs: the whole-batch prefill or the decode
-    step of ``repro_torch.steps``."""
+def build_step_fn(spec: CellSpec, opt_cfg=None, accum: int = 1):
+    """The program a cell runs: the whole-batch prefill, the decode step,
+    or the train program (``steps.make_train_program``: state then the
+    batch's tensors) of ``repro_torch.steps``."""
     from repro_torch import steps
     if spec.kind == "prefill":
         return steps.make_prefill_step(spec.cfg)
     if spec.kind == "decode":
         return steps.make_serve_step(spec.cfg)
-    raise NotImplementedError(
-        f"{spec.kind} step: ROADMAP Queue 1 item 14 (training)")
+    from repro_torch.optim import AdamWConfig
+    return steps.make_train_program(spec.cfg, opt_cfg or AdamWConfig(),
+                                    accum=accum)
 
 
 # ----------------------------------------------------------------------------

@@ -122,8 +122,9 @@ def apply_ssm_layer(cfg, p: Params, x: torch.Tensor, *, mode: str,
         new_conv = F.pad(conv_in, (0, 0, w, 0))[:, -w:]
     else:
         raise NotImplementedError(
-            f"mode {mode!r}: the training forward is not ported yet "
-            f"(ROADMAP Queue 1 item 14)")
+            f"mode {mode!r}: the Mamba-2 layer's training forward (and its "
+            f"scan's backward kernel) is not ported yet (ROADMAP Queue 1 "
+            f"item 14b)")
 
     bsz, s = conv_out.shape[0], conv_out.shape[1]
     xh = conv_out[..., :d_inner].reshape(bsz, s, h, phd)

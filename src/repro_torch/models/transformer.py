@@ -361,20 +361,20 @@ def _apply_attn(cfg, p: Params, x: torch.Tensor, *, mode: str, cache,
             q, attn_mod.gather_paged(cache["k"], paged.blocks),
             attn_mod.gather_paged(cache["v"], paged.blocks),
             causal=True, window=window, q_start=pos[:, 0])
-    elif mode == "prefill":
+    elif mode in ("prefill", "train"):
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device)[None].expand(b, s)
         q = apply_rope(q, positions, theta)
         k = apply_rope(k, positions, theta)
-        # padded positions never reach a valid query under the causal mask;
-        # in prefill mode ``pos`` carries the per-row valid lengths
-        _write_prefill_cache(cache["k"], k, window, pos)
-        _write_prefill_cache(cache["v"], v, window, pos)
+        if mode == "prefill":
+            # padded positions never reach a valid query under the causal
+            # mask; in prefill mode ``pos`` carries the per-row valid
+            # lengths.  Training writes no cache.
+            _write_prefill_cache(cache["k"], k, window, pos)
+            _write_prefill_cache(cache["v"], v, window, pos)
         out = attn_mod.prefill_attention(q, k, v, causal=True, window=window)
     else:
-        raise NotImplementedError(
-            f"mode {mode!r}: the training forward is not ported yet "
-            f"(ROADMAP Queue 1 item 14)")
+        raise ValueError(f"unknown mode {mode!r}")
     out = linear(out.reshape(b, s, cfg.n_heads * hd), p["wo"])
     return residual + out, cache
 
@@ -408,7 +408,12 @@ def apply_layer(cfg, kind: str, p: Params, x, *, mode: str, cache, pos,
     if cfg.d_ff > 0:
         xn = apply_rmsnorm(p["ffn_ln"], x, cfg.norm_eps)
         if cfg.family == "moe":
-            out, _ = moe_mod.apply_moe(cfg, p["moe"], xn)  # aux: training
+            if mode == "train":
+                raise NotImplementedError(
+                    "MoE training (K3's backward kernel and the router's "
+                    "auxiliary loss) is not ported yet (ROADMAP Queue 1 "
+                    "item 14b)")
+            out, _ = moe_mod.apply_moe(cfg, p["moe"], xn)
         else:
             out = apply_mlp(p["mlp"], xn)
         x = x + out
@@ -440,6 +445,64 @@ def _run_stack(cfg, params, x, *, mode: str, caches, pos, paged=None,
                            cache=caches["tail"][name], pos=pos,
                            paged=paged, live=live)
     return x, caches
+
+
+# K2's product, whose outputs the "dots" policy keeps
+_DOTS = ("repro_torch::matmul",)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    if getattr(op, "name", lambda: "")().split(".")[0] in _DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(cfg, fn):
+    """A layer group of the training forward under the config's
+    ``remat_policy`` (the reference's ``jax.checkpoint`` of the scanned
+    group): "full" keeps every activation (no recompute); "nothing" keeps
+    the group's input alone and recomputes the group in the backward;
+    "dots" keeps K2's outputs and recomputes the rest (the reference's
+    ``dots_with_no_batch_dims_saveable``: its attention products have
+    batch dimensions and are recomputed, as K1 is here).  Non-reentrant
+    and without the RNG state, so that a CUDA graph capture takes it."""
+    policy = cfg.remat_policy
+    if policy == "full":
+        return fn
+    if policy not in ("nothing", "dots"):
+        raise ValueError(f"remat_policy {policy!r}: nothing, dots or full")
+    from torch.utils import checkpoint as ckpt
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _dots_policy)
+
+    def remat(*args):
+        return ckpt.checkpoint(fn, *args, **kw)
+
+    return remat
+
+
+def _run_stack_train(cfg, params, x):
+    """The training forward's layers: each stacked group under
+    :func:`_maybe_remat`, then the tail, no cache.  Returns (x, aux), aux
+    0 for the dense family (MoE training raises in :func:`apply_layer`)."""
+    unit, n_groups, tail = split_layers(cfg)
+
+    def group(x, gp):
+        for i, kind in enumerate(unit):
+            x, _ = apply_layer(cfg, kind, gp[f"slot{i}"], x, mode="train",
+                               cache=None, pos=None)
+        return x
+
+    body = _maybe_remat(cfg, group)
+    for layer in range(n_groups):
+        x = body(x, _index(params["groups"], layer))
+    for i, kind in enumerate(tail):
+        x, _ = apply_layer(cfg, kind, params["tail"][f"tail{i}"], x,
+                           mode="train", cache=None, pos=None)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -484,12 +547,25 @@ def forward(cfg, params, tokens, *, prefix_embeds=None,
     programs pass ``lengths`` as a tensor on the tokens' device: anything
     else is copied there, which a CUDA graph capture refuses.
 
-    Returns (logits (B, S, V_padded), caches)."""
+    Returns (logits (B, S, V_padded), caches).
+
+    ``mode="train"`` is the training forward (``caches`` None): every
+    position at once through K1 (causal, the layer's window), no cache,
+    each layer group under the config's ``remat_policy``.  It returns the
+    reference's triple (logits, None, aux), aux a 0-dim fp32 zero for the
+    dense family (MoE, SSM and RG-LRU training raise: ROADMAP item 14b)."""
     check_supported(cfg)
+    if mode == "train":
+        if caches is not None or lengths is not None:
+            raise ValueError("the training forward takes no cache and no "
+                             "lengths")
+        x = embed_inputs(cfg, params, tokens, prefix_embeds)
+        x, aux = _run_stack_train(cfg, params, x)
+        return logits_from_hidden(cfg, params, x), None, aux
     if mode != "prefill" or caches is None:
-        raise NotImplementedError(
-            "forward runs in prefill mode with a cache; the training forward "
-            "is not ported yet (ROADMAP Queue 1 item 14)")
+        raise ValueError(
+            f"forward runs in prefill mode with a cache, or in train mode "
+            f"without one; got mode {mode!r}")
     x = embed_inputs(cfg, params, tokens, prefix_embeds)
     b, s = x.shape[0], x.shape[1]
     if lengths is None:

@@ -1,8 +1,11 @@
-"""Serving step functions: the programs the Syscore hot-loads
-(port of the serving part of ``repro/steps.py``, dense and paged
-caches; every decoder-only family shares it, and the encoder-decoder
-family takes the encdec branches of :func:`make_prefill_step` and
-:func:`make_serve_step`, bound by :func:`encdec_program_specs`).
+"""Step functions: the programs the Syscore hot-loads (port of
+``repro/steps.py``).  The serving programs take dense and paged caches;
+every decoder-only family shares them, and the encoder-decoder family
+takes the encdec branches of :func:`make_prefill_step` and
+:func:`make_serve_step`, bound by :func:`encdec_program_specs`.  The
+training step (:func:`make_train_step`, :func:`train_program_spec`) runs
+the dense decoder-only family: its gradients come from K1's backward
+kernel and K2's products.
 
 Each program works on the live cache tree in place and returns it, so the
 engine's call sites read as the reference's: ``caches, out = prog(...)``.
@@ -11,12 +14,15 @@ each as a CUDA graph.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
+from torch.utils import checkpoint as ckpt
 
-from repro_torch.core.program_store import ProgramSpec
+from repro_torch.core.program_store import ProgramSpec, leaves, unflatten
 from repro_torch.models import encdec, transformer
+from repro_torch.models.layers import softmax_xent, torch_dtype
+from repro_torch.optim import AdamWConfig, adamw_init, adamw_update_
 
 
 def _index(value, device) -> torch.Tensor:
@@ -359,3 +365,204 @@ def serve_program_specs(cfg, config, params, caches
             resident=(params, caches), inputs=(token, budget),
             context=context + "|" + config.horizon_context())
     return specs
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+def model_module(cfg):
+    return encdec if cfg.is_encdec else transformer
+
+
+def train_unsupported(cfg) -> Optional[str]:
+    """Why the port cannot train ``cfg`` yet, or None: the training step
+    covers the dense decoder-only family ("G" and "L" layers with the
+    SwiGLU MLP, a frontend's prefix included); MoE, SSM, RG-LRU and
+    encoder-decoder training wait for ROADMAP Queue 1 item 14b."""
+    unit, _, tail = transformer.split_layers(cfg)
+    kinds = sorted(set(unit + tail) - set(transformer.ATTN_KINDS))
+    what = ("an encoder-decoder model" if cfg.is_encdec
+            else "a mixture of experts (K3's backward, the router's "
+                 "auxiliary loss)" if cfg.n_experts
+            else f"layer kinds {', '.join(kinds)} (K4's or K5's backward)"
+            if kinds else None)
+    if what is None:
+        return None
+    return (f"{cfg.name}: training {what} is not ported yet (ROADMAP "
+            f"Queue 1 item 14b)")
+
+
+def lm_loss(cfg, logits, labels, aux):
+    """Mean cross-entropy over the positions whose label is >= 0 (a
+    frontend's prefix positions carry -1), plus the MoE auxiliary term
+    (``repro/steps.py:_lm_loss``)."""
+    losses = softmax_xent(logits, torch.clamp(labels, min=0),
+                          cfg.vocab_size)
+    mask = (labels >= 0).float()
+    loss = torch.sum(losses * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    if cfg.n_experts:
+        loss = loss + cfg.router_aux_coef * aux / max(cfg.n_layers, 1)
+    return loss
+
+
+def make_train_step(cfg, opt_cfg: AdamWConfig, accum: int = 1,
+                    grad_constraint: bool = False,
+                    grad_of_scan: bool = False):
+    """train_step(state, batch) -> (state, metrics), the reference's
+    ``make_train_step`` with the state updated in place.
+
+    state = {"params": ..., "opt": {"m", "v", "step"}}; batch =
+    {"tokens" (B, S_tok), "labels" (B, S)[, "prefix_embeds" (B, P, d)]}.
+    The gradients are ``torch.autograd.grad`` of the loss over the
+    parameter leaves (K2's gradient products and K1's backward kernel on
+    the card); AdamW then writes the parameters, moments and step in
+    place (:func:`repro_torch.optim.adamw_update_`).  metrics = {"loss",
+    "grad_norm", "lr"}, 0-dim device tensors.  Nothing waits for the host,
+    so on the card the Syscore captures the step as one CUDA graph.
+
+    ``accum`` > 1 splits the batch into microbatches and sums their
+    gradients in fp32 (then divides by ``accum``).  With ``grad_of_scan``
+    the parameters are upcast to fp32 once and the loss of every
+    microbatch, each under a checkpoint that keeps nothing, is summed
+    before one backward: the gradients come out fp32, as the reference's
+    cotangent accumulated through its scan.  ``grad_constraint`` pins
+    gradients to the parameters' sharding, which needs tensor parallelism
+    (ROADMAP Queue 1 item 13)."""
+    if grad_constraint:
+        raise NotImplementedError(
+            "grad_constraint pins gradients to a sharding: tensor "
+            "parallelism is not ported yet (ROADMAP Queue 1 item 13)")
+    why = train_unsupported(cfg)
+    if why is not None:
+        raise NotImplementedError(why)
+
+    def loss_fn(params, batch):
+        if cfg.is_encdec:
+            logits, _, aux = encdec.forward(cfg, params, batch["frames"],
+                                            batch["tokens"], mode="train")
+        else:
+            logits, _, aux = transformer.forward(
+                cfg, params, batch["tokens"],
+                prefix_embeds=batch.get("prefix_embeds"), mode="train")
+        return lm_loss(cfg, logits, batch["labels"], aux)
+
+    def grads_of(params, flat, batch):
+        req = [p.detach().requires_grad_() for p in flat]
+        with torch.enable_grad():
+            loss = loss_fn(unflatten(params, req), batch)
+            grads = torch.autograd.grad(loss, req)
+        return loss.detach(), list(grads)
+
+    def split(batch):
+        out = []
+        for i in range(accum):
+            mb = {}
+            for k, x in batch.items():
+                b = x.shape[0]
+                if b % accum:
+                    raise ValueError(f"batch {b} does not split into "
+                                     f"{accum} microbatches")
+                n = b // accum
+                mb[k] = x[i * n:(i + 1) * n]
+            out.append(mb)
+        return out
+
+    def grads_grad_of_scan(params, flat, batch):
+        p32 = [p.detach().float().requires_grad_() for p in flat]
+
+        def body(mb, *p32s):
+            return loss_fn(unflatten(params, [
+                q.to(p.dtype) for q, p in zip(p32s, flat)]), mb)
+
+        with torch.enable_grad():
+            total = None
+            for mb in split(batch):
+                li = ckpt.checkpoint(body, mb, *p32, use_reentrant=False,
+                                     preserve_rng_state=False)
+                total = li if total is None else total + li
+            loss = total / accum
+            grads = torch.autograd.grad(loss, p32)
+        return loss.detach(), list(grads)
+
+    def train_step(state, batch):
+        params = state["params"]
+        flat = list(leaves(params))
+        if accum <= 1:
+            loss, grads = grads_of(params, flat, batch)
+        elif grad_of_scan:
+            loss, grads = grads_grad_of_scan(params, flat, batch)
+        else:
+            gsum = [torch.zeros(p.shape, dtype=torch.float32,
+                                device=p.device) for p in flat]
+            lsum = None
+            for mb in split(batch):
+                li, gi = grads_of(params, flat, mb)
+                gsum = [a + b.float() for a, b in zip(gsum, gi)]
+                lsum = li if lsum is None else lsum + li
+            grads = [g / accum for g in gsum]
+            loss = lsum / accum
+        metrics = adamw_update_(opt_cfg, grads, state["opt"], params)
+        metrics["loss"] = loss
+        return state, metrics
+
+    return train_step
+
+
+def batch_keys(cfg) -> tuple:
+    """The order in which the train program takes the batch's tensors."""
+    if cfg.is_encdec:
+        return ("frames", "tokens", "labels")
+    return ("tokens", "labels") + (("prefix_embeds",)
+                                   if cfg.frontend_tokens else ())
+
+
+def batch_templates(cfg, global_batch: int, seq_len: int,
+                    device) -> Dict[str, torch.Tensor]:
+    """Zero tensors of a train batch's shapes and dtypes (the program's
+    input templates; labels 0, a valid label)."""
+    from repro_torch.data.pipeline import DataConfig, make_batch_specs
+    specs = make_batch_specs(cfg, DataConfig(global_batch, seq_len))
+    dtype = torch_dtype(cfg.dtype)
+    return {k: torch.zeros(leaf.shape, dtype=leaf.dtype or dtype,
+                           device=device) for k, leaf in specs.items()}
+
+
+def make_train_program(cfg, opt_cfg: AdamWConfig, accum: int = 1,
+                       step_fn=None):
+    """train(state, *batch) -> (state, metrics): the train step over the
+    batch's tensors in :func:`batch_keys` order, the form a program
+    takes its per-call inputs in."""
+    step = step_fn if step_fn is not None else make_train_step(
+        cfg, opt_cfg, accum=accum)
+    keys = batch_keys(cfg)
+
+    def train(state, *batch):
+        return step(state, dict(zip(keys, batch)))
+
+    return train
+
+
+def train_program_spec(cfg, opt_cfg: AdamWConfig, state, batch, *,
+                       accum: int = 1, fn=None) -> ProgramSpec:
+    """The train program as a :class:`ProgramSpec` bound to the resident
+    ``state`` (written in place by every call), its inputs the tensors of
+    ``batch`` (templates: shapes, dtypes, device) in :func:`batch_keys`
+    order.  ``fn`` overrides the program (e.g. a telemetry-wrapping
+    closure); it still fingerprints under the (cfg, opt_cfg, accum)
+    context."""
+    if fn is None:
+        fn = make_train_program(cfg, opt_cfg, accum=accum)
+    inputs = tuple(batch[k] for k in batch_keys(cfg))
+    return ProgramSpec("train", fn, resident=(state,), inputs=inputs,
+                       context="|".join((repr(cfg), repr(opt_cfg),
+                                         repr(accum))))
+
+
+def init_train_state(cfg, seed: int = 0, *, device="cpu",
+                     params: Optional[dict] = None) -> dict:
+    """{"params": random weights from ``seed`` (or ``params``), "opt":
+    fp32 zero moments and step 0}, on ``device``."""
+    if params is None:
+        params = model_module(cfg).init_params(cfg, seed, device=device)
+    return {"params": params, "opt": adamw_init(params)}

@@ -19,6 +19,8 @@ from repro.models import registry as jregistry
 from repro_torch.bench import roofline
 
 ROOT = Path(__file__).resolve().parent.parent
+DENSE = {"qwen3-0.6b", "llama3.2-3b", "gemma3-4b", "gemma3-12b",
+         "internvl2-26b"}
 
 
 @pytest.fixture(scope="module")
@@ -31,8 +33,12 @@ def test_every_cell_is_counted_or_waits(record):
     waiting = {(w["arch"], w["shape"]) for w in record["waiting"]}
     matrix = set(jregistry.all_cells())
     assert cells | waiting == matrix and not cells & waiting
-    assert waiting == {(a, s) for a, s in matrix if s == "train_4k"}
-    assert all("item 14" in w["waits_for"] for w in record["waiting"])
+    # the dense family's training cells are counted, the others wait
+    assert waiting == {(a, s) for a, s in matrix if s == "train_4k"
+                       and a not in DENSE}
+    assert all("item 14b" in w["waits_for"] for w in record["waiting"])
+    assert {(c["arch"], c["kind"]) for c in record["cells"]
+            if c["shape"] == "train_4k"} == {(a, "train") for a in DENSE}
     skipped = {(s["arch"], s["shape"]) for s in record["skipped"]}
     assert skipped == set(jregistry.all_cells(include_skipped=True)) - matrix
     for c in record["cells"]:
@@ -52,6 +58,20 @@ def test_decode_count_equals_the_reference(record):
     cell, = [c for c in record["cells"]
              if (c["arch"], c["shape"]) == ("qwen3-0.6b", "decode_32k")]
     assert cell["flops"] == want
+
+
+def test_train_cells_count_the_train_program(record):
+    """A train cell counts its train program at the reduced cell size (4 x
+    64 tokens): more FLOPs than the same arch's prefill cell of the same
+    size (forward only), less than four times them (forward, dX, dW and
+    the recompute of remat "nothing"; AdamW and K1's backward add a
+    little), and its resident bytes are the train state's (parameters and
+    two fp32 moments: more than the prefill cell's parameters)."""
+    cells = {(c["arch"], c["shape"]): c for c in record["cells"]}
+    for arch in DENSE:
+        train, prefill = cells[arch, "train_4k"], cells[arch, "prefill_32k"]
+        assert 3 * prefill["flops"] < train["flops"] < 4.5 * prefill["flops"]
+        assert train["model_flops"] == 3 * prefill["model_flops"]
 
 
 def test_command_line_smoke(tmp_path):

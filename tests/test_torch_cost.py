@@ -185,6 +185,50 @@ def test_kernel_formulas_and_bytes():
     assert cost.flops == 2 * 2 * 7 * 40
     assert cost.bytes_ideal == _nbytes(ra, rb, hh, hfin)
 
+    # K1's gradient: five products over every (query, key) pair
+    o, do = _meta(8, 40, 128), _meta(8, 40, 128)
+    kk, vv = _meta(4, 40, 128), _meta(4, 40, 128)
+    cost, grads = count(lambda *a: ops.flash_attention_bwd(*a, causal=True,
+                                                           window=8),
+                        o, kk, vv, o, do)
+    assert cost.flops == 10 * 8 * 40 * 40 * 128
+    assert cost.bytes_ideal == _nbytes(o, kk, vv, o, do, *grads)
+    assert set(cost.by_op) == {"repro_torch::flash_attention_bwd"}
+
+
+@pytest.mark.parametrize("remat,recomputed,fa_recomputed", [
+    ("full", 0, 0), ("nothing", 1, 1), ("dots", 0, 1)])
+def test_train_cell_counts_three_times_the_forward_products(
+        remat, recomputed, fa_recomputed):
+    """A dense train cell counts K2's FLOPs at 3x the training forward's
+    (forward, dX, dW), plus one more forward of every layer group that
+    its remat policy recomputes (``nothing``; ``dots`` keeps K2's outputs
+    and recomputes K1); K1 counts its forward (and recompute) and one
+    backward a layer at 10/4 of a forward's FLOPs."""
+    spec = registry.cell_spec(ARCH, "train_4k", reduced=True, remat=remat)
+    cfg = spec.cfg
+    state, tokens = spec.abstract_args[0], spec.abstract_args[1]
+    cost, _ = count(registry.build_step_fn(spec), *spec.abstract_args)
+
+    def forward(params, tokens):
+        return transformer.forward(cfg, params, tokens, mode="train")[0]
+
+    with torch.no_grad():
+        fwd, _ = count(forward, state["params"], tokens)
+    mm, fa = "repro_torch::matmul", "repro_torch::flash_attention"
+    d, v = cfg.d_model, cfg.padded_vocab
+    head = 2 * tokens.numel() * d * v
+    layers_mm = fwd.by_op[mm]["flops"] - head
+    assert cost.by_op[mm]["flops"] == 3 * head + (3 + recomputed) * layers_mm
+    assert cost.by_op[mm]["calls"] == (3 + recomputed) * (
+        fwd.by_op[mm]["calls"] - 1) + 3
+    assert cost.by_op[fa]["flops"] == \
+        (1 + fa_recomputed) * fwd.by_op[fa]["flops"]
+    assert cost.by_op["repro_torch::flash_attention_bwd"]["flops"] == \
+        2.5 * fwd.by_op[fa]["flops"]
+    assert spec.kind == "train" and spec.donate_argnums == (0,)
+    assert (spec.seq_len, spec.global_batch) == (64, 4)
+
 
 def test_bytes_of_writes_gathers_and_elementwise_ops():
     cache, upd = _meta(4, 32, 16), _meta(4, 2, 16)
@@ -258,14 +302,17 @@ def test_param_counts_and_model_flops_equal_the_reference(arch):
 
 def test_cell_spec_builds_every_cell_on_meta():
     """Every cell of the matrix at full width, nothing allocated; the
-    training cells wait for item 14."""
+    training cells of the dense family hold the train state and the batch,
+    the other families' wait for item 14b."""
     for arch, shape in registry.all_cells():
-        if registry.SHAPES[shape][2] == "train":
-            with pytest.raises(NotImplementedError, match="item 14"):
+        if registry.SHAPES[shape][2] == "train" and \
+                steps.train_unsupported(registry.get_config(arch)):
+            with pytest.raises(NotImplementedError, match="item 14b"):
                 registry.cell_spec(arch, shape)
             continue
         spec = registry.cell_spec(arch, shape)
-        args = input_specs(arch, shape)
+        args = spec.abstract_args if spec.kind == "train" else \
+            input_specs(arch, shape)
         leaves = []
 
         def walk(t):

@@ -1,5 +1,7 @@
 """The port's examples (``repro_torch.examples``) on the CPU at reduced
-size: the expert-paging example prints what the reference's
+size: the quickstart hot-loads a train program and re-executes it with a
+step report a call; the fault-tolerant trainer survives its two injected
+failures and learns; the expert-paging example prints what the reference's
 ``examples/moe_expert_paging.py`` prints (the same draws, page loads,
 hits, evictions and hot set); the batched-serving example's streams
 equal the batch-of-1 reference plain, paged and booted warm from a
@@ -15,11 +17,13 @@ from pathlib import Path
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.models import registry as jregistry
 from repro.models import transformer as jtf
 from repro_torch import bridge
-from repro_torch.examples import moe_expert_paging, serve_batched
+from repro_torch.examples import (moe_expert_paging, quickstart,
+                                  serve_batched, train_fault_tolerant)
 from repro_torch.models import registry as tregistry
 
 REPO = Path(__file__).resolve().parent.parent
@@ -121,3 +125,31 @@ def test_serve_batched_prints_what_the_reference_prints(capsys, monkeypatch,
     assert "batch-of-1 reference matches: True" in lines
     if mode[-1:] == ["0.25"]:
         assert stats["preemptions"] > 0 and stats["page_faults"] > 0
+
+
+@pytest.fixture
+def one_torch_thread():
+    """Training runs are thousands of small CPU ops: one intra-op thread
+    does not oversubscribe the cores that the other test workers share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_quickstart_reexecutes_a_train_program(capsys, one_torch_thread):
+    assert quickstart.main(["--device", "cpu", "--steps", "3"]) == 0
+    out = capsys.readouterr().out
+    assert "re-execute x3" in out
+    assert "telemetry points via hostcall: 3" in out
+    assert "'executions': 3" in out and "usrmem" in out
+
+
+def test_train_fault_tolerant_survives_two_failures(capsys, tmp_path,
+                                                    one_torch_thread):
+    assert train_fault_tolerant.main(
+        ["--device", "cpu", "--steps", "12", "--seq", "16",
+         "--ckpt-every", "2", "--ckpt-dir", str(tmp_path)]) == 0
+    out = capsys.readouterr().out
+    assert "injecting node failures at [4, 8]" in out
+    assert "restarts: 2" in out and "converged" in out

@@ -275,8 +275,12 @@ def test_unported_paths_raise():
     cfg = tregistry.get_config(ARCH, reduced=True)
     params = ttf.init_params(cfg, 0)
     tok = torch.zeros((1, 1), dtype=torch.int32)
+    # the dense training forward is ported; the SSM family's waits
+    logits, caches, aux = ttf.forward(cfg, params, tok, mode="train")
+    assert logits.shape == (1, 1, cfg.padded_vocab) and caches is None
+    ssm = tregistry.get_config("mamba2-130m", reduced=True)
     with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        ttf.forward(cfg, params, tok, mode="train")
+        ttf.forward(ssm, ttf.init_params(ssm, 0), tok, mode="train")
     ttf.check_supported(cfg.replace(frontend="vision", frontend_tokens=4))
     for change in ({"frontend": "audio"}, {"n_enc_layers": 2}):
         with pytest.raises(NotImplementedError, match="models.encdec"):

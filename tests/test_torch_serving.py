@@ -136,7 +136,10 @@ def test_port_imports_neither_jax_nor_the_reference_package():
         "          'cluster.router', 'cluster.journal', 'runtime.fault',\n"
         "          'runtime.elastic', 'bench.cluster', 'bench.elastic',\n"
         "          'launch.cost', 'launch.roofline', 'launch.dryrun',\n"
-        "          'runtime.autotune', 'bench.autotune', 'bench.roofline'):\n"
+        "          'runtime.autotune', 'bench.autotune', 'bench.roofline',\n"
+        "          'optim.adamw', 'data.pipeline', 'checkpoint.checkpoint',\n"
+        "          'launch.train', 'examples.quickstart',\n"
+        "          'examples.train_fault_tolerant'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print('ok', len([n for n in sys.modules if n.startswith('repro_torch')]))\n")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(src))
