@@ -13,9 +13,11 @@ and the script exits non-zero:
 2. build    compiles the CUDA kernels from ``kernels/csrc`` with nvcc, one
             process per source, all started together; prints the
             registers, shared memory and spills (``-Xptxas -v``) of K2's
-            kernels, of K1's, K3's and K4's wgmma kernels and of K5, and
-            fails unless each of those bf16 kernels' SASS holds HGMMA
-            (``cuobjdump``) and the wgmma ones spill nothing;
+            kernels, of K1's (forward and backward), K3's and K4's wgmma
+            kernels and of K5, and fails unless each of those bf16
+            kernels' SASS holds HGMMA (``cuobjdump``), the wgmma ones
+            spill nothing and each takes the shared memory its wrapper's
+            Python mirror says;
 3. matmul   K2 against ``matmul_ref`` at the shapes of the served paths
             (qwen3-0.6b, olmoe-1b-7b, mamba2-130m and recurrentgemma-2b),
             bf16 and f32, with kernel, plain, library (``torch.matmul``, a
@@ -353,10 +355,13 @@ and the script exits non-zero:
             runs the phase alone).
 
 30. train   training in a process of its own (``chip_smoke.py --train``
-            runs it alone): K1's backward kernel against its plain version
-            at qwen3-0.6b's training shape (bf16, B 4, S 1024, D 128,
-            causal), a gemma3 "L" layer (D 256, window 512) and in fp32,
-            the same bits on two runs, timed beside SDPA's backward; K2's
+            runs it alone): K1's backward against its plain version at
+            qwen3-0.6b's training shape (bf16, B 4, S 1024, D 128,
+            causal), a gemma3 "L" layer (D 256, window 512) and a ragged
+            call (Sq 200 over Sk 456) on the wgmma route, and in fp32 on
+            the CUDA-core route, each case's route read from the
+            counters, the same bits on two runs, timed beside SDPA's
+            backward; K2's
             gradient (dX, dW) at M 4,096 for wq, w_gate, w_down and the
             tied head beside ``torch.matmul``; card == CPU for 3 fp32
             train steps at reduced size; then qwen3-0.6b at full width in
@@ -1747,23 +1752,99 @@ def visible_pairs(sq, sk, causal, window):
     return total
 
 
-def k1_backward_case(torch, name, dname, b, h, hk, s, d, causal, window):
-    """K1's backward kernel against ``flash_attention_bwd_ref`` on one
-    shape: max |err| of dq, dk and dv, the same bits on two runs, and the
-    kernel's, the plain version's and SDPA's backward times (SDPA forward
-    plus backward minus its forward; a yardstick only) beside the bound."""
+# phase 30 (a)'s cases: (name, dtype, B, H, Hk, S, D, causal, window, Sk)
+# and the route each must take
+K1_BACKWARD_CASES = (
+    ("qwen3-0.6b", "bfloat16", 4, 16, 8, 1024, 128, True, 0, None),
+    ("gemma3 L", "bfloat16", 2, 8, 4, 1024, 256, True, 512, None),
+    ("ragged", "bfloat16", 1, 4, 2, 200, 128, True, 0, 456),
+    ("qwen3-0.6b fp32", "float32", 1, 16, 8, 512, 128, True, 0, None))
+K1_BACKWARD_ROUTES = [["bwd_wgmma"]] * 3 + [["bwd_simt"]]
+
+
+def k1_backward_smem(lib, fn):
+    """(the C entry's, the Python mirror's) dynamic shared memory of one
+    of K1's backward wgmma kernels, by its mangled name."""
+    from repro_torch.kernels import flash_attention as k1_mod
+    d = 256 if "ILi256E" in fn else 128
+    kernel = next(k for k in k1_mod.BWD_WGMMA_PASSES if f"{k}_wgmma" in fn)
+    return (lib.repro_flash_attention_bwd_wgmma_smem(
+        d, k1_mod.BWD_WGMMA_PASSES.index(kernel)),
+        k1_mod.bwd_wgmma_smem_bytes(d, kernel))
+
+
+def k1_backward_cases(torch, smi):
+    """Phase 30 (a): every case of K1_BACKWARD_CASES, printed; raises
+    unless each is within FLASH_TOL, takes its route and keeps its
+    bits."""
+    k1 = [k1_backward_case(torch, name, dname, b, h, hk, s, d, causal,
+                           window, sk=sk)
+          for name, dname, b, h, hk, s, d, causal, window, sk
+          in K1_BACKWARD_CASES]
+    for c in k1:
+        print(f"K1 backward {c['case']} {c['dtype']} (route {c['route']}): "
+              f"err {c['max_abs_err']}, same bits "
+              f"{c['same_bits_two_runs']}, B1 bits in batch "
+              f"{c['bits_equal_B1_in_batch']}, {c['ms']:.3f} ms (passes "
+              f"{c['pass_ms_profiled']}, plain "
+              f"{c['plain_ms']:.3f}, SDPA backward {c['library_ms']:.3f}, "
+              f"bound {c['bound_ms']:.4f}) on {smi}", flush=True)
+        if max(c["violation"].values()) > 0 or \
+                not c["same_bits_two_runs"] or \
+                c["bits_equal_B1_in_batch"] is False or \
+                c["route"] != [c["want_route"]]:
+            raise AssertionError(f"K1 backward {c}")
+    if [c["route"] for c in k1] != K1_BACKWARD_ROUTES:
+        raise AssertionError(f"K1 backward routes: {k1}")
+    return k1
+
+
+def k1_backward_passes(torch, call, iters=5):
+    """Device ms of each of K1's backward passes in one call of ``call``
+    (the mean of ``iters``), from the profiler's kernel names: the wgmma
+    route's ``{stats,dkdv,dq}_wgmma``, the CUDA cores' ``bwd_{...}``."""
+    from torch.profiler import ProfilerActivity, profile
+    out = {"stats": 0.0, "dkdv": 0.0, "dq": 0.0}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            call()
+        torch.cuda.synchronize()
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0.0)
+        for key in out:
+            if f"{key}_wgmma" in e.key or f"bwd_{key}<" in e.key:
+                out[key] += t / 1e3 / iters          # us -> ms
+    return out
+
+
+def k1_backward_case(torch, name, dname, b, h, hk, s, d, causal, window,
+                     sk=None):
+    """K1's backward against ``flash_attention_bwd_ref`` on one shape (s
+    queries, right-aligned over sk keys, s by default): max |err| of dq,
+    dk and dv, the route the call took (from the counters), the same bits
+    on two runs, batch element 0's gradients alone equal to the same
+    heads' in the batch (bf16, B > 1), and the kernel's, the plain
+    version's and SDPA's backward times (SDPA forward plus backward minus
+    its forward; a yardstick only) beside the bound."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops
-    from repro_torch.kernels.flash_attention import flash_attention_bwd_ref
+    from repro_torch.kernels.flash_attention import (bwd_route,
+                                                     flash_attention_bwd_ref)
     dev = torch.device("cuda")
     dt = {"bfloat16": torch.bfloat16, "float32": torch.float32}[dname]
+    sk = s if sk is None else sk
     g = torch.Generator(dev).manual_seed(0)
 
     def rand(*shape):
         return torch.randn(shape, generator=g, device=dev).to(dt)
 
-    q, k, v = rand(b * h, s, d), rand(b * hk, s, d), rand(b * hk, s, d)
+    q, k, v = rand(b * h, s, d), rand(b * hk, sk, d), rand(b * hk, sk, d)
     o = ops.flash_attention(q, k, v, causal=causal, window=window)
     do = rand(b * h, s, d)
 
@@ -1771,7 +1852,11 @@ def k1_backward_case(torch, name, dname, b, h, hk, s, d, causal, window):
         return ops.flash_attention_bwd(q, k, v, o, do, causal=causal,
                                        window=window)
 
-    got, again = kernel(), kernel()
+    before = ops.route_counts()["flash_attention"]
+    got = kernel()
+    took = [r for r, n in ops.route_counts()["flash_attention"].items()
+            if n != before[r]]
+    again = kernel()
     want = flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
                                    window=window)
     tol = FLASH_TOL[dname]
@@ -1779,15 +1864,27 @@ def k1_backward_case(torch, name, dname, b, h, hk, s, d, causal, window):
     for key, a, w in zip(("dq", "dk", "dv"), got, want):
         viols[key], errs[key] = max_violation(a, w, tol)
     same_bits = all(torch.equal(a, c) for a, c in zip(got, again))
+    batch_bits = None
+    if dt == torch.bfloat16 and b > 1:
+        one = ops.flash_attention_bwd(q[:h], k[:hk], v[:hk], o[:h], do[:h],
+                                      causal=causal, window=window)
+        batch_bits = all(torch.equal(a, c[:len(a)])
+                         for a, c in zip(one, got))
     ms = cuda_ms(torch, kernel)
+    pass_ms = k1_backward_passes(torch, kernel)
     plain_ms = cuda_ms(torch, lambda: flash_attention_bwd_ref(
         q, k, v, o, do, causal=causal, window=window), iters=3)
-    qs, ks, vs, dos = (t.view(b, -1, s, d) for t in (q, k, v, do))
+    qs, dos = (t.view(b, -1, s, d) for t in (q, do))
+    ks, vs = (t.view(b, -1, sk, d) for t in (k, v))
     mask = None
-    if window > 0:
-        pos = torch.arange(s, device=dev)
-        mask = (pos[:, None] >= pos[None, :]) & \
-            (pos[:, None] - pos[None, :] < window)
+    if window > 0 or sk != s:
+        q_pos = torch.arange(s, device=dev)[:, None] + sk - s
+        k_pos = torch.arange(sk, device=dev)[None, :]
+        mask = torch.ones((s, sk), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= q_pos >= k_pos
+        if window > 0:
+            mask &= q_pos - k_pos < window
     qr, kr, vr = (t.detach().requires_grad_() for t in (qs, ks, vs))
 
     def sdpa(x, y, z):
@@ -1804,12 +1901,15 @@ def k1_backward_case(torch, name, dname, b, h, hk, s, d, causal, window):
     itemsize = q.element_size()
     nbytes = itemsize * (3 * q.numel() + 2 * k.numel()     # q, o, do; k, v
                          + q.numel() + 2 * k.numel())      # dq; dk, dv
-    flops = 10.0 * b * h * visible_pairs(s, s, causal, window) * d
+    flops = 10.0 * b * h * visible_pairs(s, sk, causal, window) * d
     bms, by = bound_ms(nbytes, flops, dname)
     return {"case": name, "dtype": dname, "B": b, "H": h, "Hk": hk, "S": s,
-            "D": d, "causal": causal, "window": window, "tol": tol,
+            "Sk": sk, "D": d, "causal": causal, "window": window,
+            "tol": tol, "route": took, "want_route": bwd_route(dt, d),
             "max_abs_err": errs, "violation": viols,
-            "same_bits_two_runs": same_bits, "ms": ms, "plain_ms": plain_ms,
+            "same_bits_two_runs": same_bits,
+            "bits_equal_B1_in_batch": batch_bits, "ms": ms,
+            "pass_ms_profiled": pass_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "library": "scaled_dot_product_"
             "attention backward (forward + backward - forward)",
             "bound_ms": bms, "bound_by": by, "bound_share": bms / ms}
@@ -1914,12 +2014,16 @@ def train_phase():
     script in a process of its own so that phases 8-29's engines hold
     none of its memory):
 
-    a. K1's backward kernel against its plain version at qwen3-0.6b's
-       training shape (bf16, B 4, S 1024, 16 query heads over 8, D 128,
-       causal), at a gemma3 "L" layer (bf16, D 256, 8 over 4 heads,
-       window 512 at S 1024) and in fp32 (qwen3's heads, S 512): dq, dk
-       and dv within FLASH_TOL, the same bits on two runs, timed beside
-       the plain version, SDPA's backward and the bound;
+    a. K1's backward against its plain version at qwen3-0.6b's training
+       shape (bf16, B 4, S 1024, 16 query heads over 8, D 128, causal),
+       at a gemma3 "L" layer (bf16, D 256, 8 over 4 heads, window 512 at
+       S 1024) and a ragged call (bf16, B 1, 4 over 2 heads, D 128, Sq
+       200 right-aligned over Sk 456, causal), all three on the wgmma
+       route, and in fp32 (qwen3's heads, S 512) on the CUDA-core route:
+       dq, dk and dv within FLASH_TOL, the route each case took as
+       ``bwd_route`` says, the same bits on two runs and batch element
+       0's bits equal in the batch, timed beside the plain version,
+       SDPA's backward and the bound;
     b. K2's gradient at M 4,096 for qwen3's wq, w_gate, w_down and the
        tied head (1024 x 151,936 padded to 153,600): dX and dW within
        MATMUL_TOL of ``matmul_ref``, each timed beside ``torch.matmul``;
@@ -1962,21 +2066,7 @@ def train_phase():
     rec = {"nvidia_smi": smi}
 
     # a. K1's backward
-    k1 = [k1_backward_case(torch, "qwen3-0.6b", "bfloat16", 4, 16, 8,
-                           1024, 128, True, 0),
-          k1_backward_case(torch, "gemma3 L", "bfloat16", 2, 8, 4, 1024,
-                           256, True, 512),
-          k1_backward_case(torch, "qwen3-0.6b fp32", "float32", 1, 16, 8,
-                           512, 128, True, 0)]
-    for c in k1:
-        print(f"K1 backward {c['case']} {c['dtype']}: err {c['max_abs_err']}"
-              f", same bits {c['same_bits_two_runs']}, {c['ms']:.3f} ms "
-              f"(plain {c['plain_ms']:.3f}, SDPA backward "
-              f"{c['library_ms']:.3f}, bound {c['bound_ms']:.4f}) on {smi}",
-              flush=True)
-        if max(c["violation"].values()) > 0 or not c["same_bits_two_runs"]:
-            raise AssertionError(f"K1 backward {c}")
-    rec["k1_backward"] = k1
+    rec["k1_backward"] = k1_backward_cases(torch, smi)
 
     # b. K2's gradient
     cfg = registry.get_config("qwen3-0.6b")
@@ -2119,8 +2209,9 @@ def train_phase():
                          f"{per_step['launches'].get(name)}, want {want} "
                          f"x {n})")
     fa_routes = per_step["routes"].get("flash_attention", {})
-    if fa_routes != {"wgmma": 2 * cfg.n_layers, "bwd": cfg.n_layers} or \
-            routes["flash_attention"]["bwd"] != cfg.n_layers * n:
+    if fa_routes != {"wgmma": 2 * cfg.n_layers,
+                     "bwd_wgmma": cfg.n_layers} or \
+            routes["flash_attention"]["bwd_wgmma"] != cfg.n_layers * n:
         fails.append(f"K1 routes {fa_routes}, {routes['flash_attention']}")
     if fails:
         raise AssertionError(f"phase 30 full width: {fails}: {full}")
@@ -2224,6 +2315,8 @@ def main():
 
         tc_build = {}
         for stem, name, smem in (("flash_attention", "K1", k1_smem),
+                                 ("flash_attention_bwd", "K1 backward",
+                                  lambda fn: k1_backward_smem(lib, fn)),
                                  ("moe_ffn", "K3", k3_smem),
                                  ("ssd_scan", "K4", k4_smem)):
             rows = []
@@ -2245,7 +2338,7 @@ def main():
                       f"{r.get('spill_stores')} B spill stores, "
                       f"{r.get('spill_loads')} B spill loads, "
                       f"{r['hgmma']} HGMMA", flush=True)
-            want = {"K1": 2, "K3": 10, "K4": 2}[name]
+            want = {"K1": 2, "K1 backward": 6, "K3": 10, "K4": 2}[name]
             if len(rows) != want or not all(
                     r["hgmma"] > 0 and r.get("spill_stores") == 0 and
                     r.get("spill_loads") == 0 for r in rows):
@@ -2254,6 +2347,7 @@ def main():
                                      f"and no spills: {rows}")
             tc_build[name] = rows
         out["k1_kernels"], out["k3_kernels"] = tc_build["K1"], tc_build["K3"]
+        out["k1_backward_kernels"] = tc_build["K1 backward"]
         out["k4_kernels"] = tc_build["K4"]
         # K5 runs on CUDA cores: its registers and spills, for the record
         out["k5_kernels"] = _build.ptxas_report("rglru_scan")
@@ -5664,7 +5758,7 @@ def main():
 
     def by_route(name):
         return {r: sum(path[name].get(r, 0) for path in path_routes.values())
-                for r in ("wgmma", "simt", "bwd")}
+                for r in ("wgmma", "simt", "bwd_wgmma", "bwd_simt")}
 
     # phase 30's backward records: K1's backward kernel at qwen3's
     # training shape (its other cases beside it), K2's gradient products
@@ -5672,11 +5766,17 @@ def main():
     k1_bwd = trained["k1_backward"]
     k1_backward = {
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-        "launches": trained["launches_by_route"]["flash_attention"]["bwd"],
+        "route": k1_bwd[0]["route"],
+        "launches": trained["launches_by_route"]["flash_attention"]
+        ["bwd_wgmma"],
+        "launches_by_route": {
+            r: trained["launches_by_route"]["flash_attention"][r]
+            for r in ("bwd_wgmma", "bwd_simt")},
         "max_abs_err": max(max(c["max_abs_err"].values()) for c in k1_bwd),
         **{key: k1_bwd[0][key] for key in ("ms", "plain_ms", "bound_ms",
                                            "bound_by", "library_ms")},
         "per": "one call: bf16 causal, B 4, S 1024, H 16, Hk 8, D 128",
+        "build": RECORD["phases"][1].get("k1_backward_kernels"),
         "cases": k1_bwd}
     k2_grad = trained["k2_gradient"]
     k2_backward = {

@@ -186,6 +186,12 @@ def _bind(cdll: ctypes.CDLL):
     cdll.repro_flash_attention_bwd.restype = i
     cdll.repro_flash_attention_bwd_smem.argtypes = [i]
     cdll.repro_flash_attention_bwd_smem.restype = i
+    cdll.repro_flash_attention_bwd_wgmma.argtypes = [p, p, p, p, p, p, p, p,
+                                                     p, p, i, i, i, i, i, i,
+                                                     i, p]
+    cdll.repro_flash_attention_bwd_wgmma.restype = i
+    cdll.repro_flash_attention_bwd_wgmma_smem.argtypes = [i, i]
+    cdll.repro_flash_attention_bwd_wgmma_smem.restype = i
     cdll.repro_moe_ffn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
     cdll.repro_moe_ffn.restype = i
     cdll.repro_moe_ffn_wgmma.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i,

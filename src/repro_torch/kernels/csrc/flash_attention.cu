@@ -493,15 +493,6 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-// a (rows, D) bf16 slab per head, heads outermost: boxes of 64 x 64
-bool map_heads(CUtensorMap* out, const void* ptr, int heads, int rows,
-               int D) {
-  const uint64_t dims[3] = {(uint64_t)D, (uint64_t)rows, (uint64_t)heads};
-  const uint64_t strides[2] = {(uint64_t)D * 2, (uint64_t)rows * D * 2};
-  const uint32_t box[3] = {64, BKV, 1};
-  return tensor_map(out, ptr, 3, dims, strides, box);
-}
-
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int BH, int BHk, int Sq, int Sk, int causal, int window,

@@ -282,6 +282,22 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
     wgmma_m64n128k16<TRANS_A>(d, da, db, scale_d);
 }
 
+// hand registers from one warpgroup to another (sm_90a): a warp-specialised
+// kernel launched with more threads than its consumers' registers allow
+// lowers its producer warpgroup's budget and raises its consumers'.  Every
+// warp of the warpgroup executes it, and the branches that follow must not
+// reconverge, or ptxas ignores it (warning C7508)
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  static_assert(N >= 24 && N <= 256 && N % 8 == 0, "a multiple of 8");
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  static_assert(N >= 24 && N <= 256 && N % 8 == 0, "a multiple of 8");
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
 // why this thread's last call of a tensor-core route refused its operands
 // ("" if it did not): each C entry clears it, repro_refusal() reads it
 inline const char*& refusal() {
@@ -404,6 +420,17 @@ inline bool tensor_map(CUtensorMap* out, const void* ptr, int rank,
   cache.emplace(key, map);
   *out = map.m;
   return true;
+}
+
+// K1's operands: a (rows, D) bf16 slab per head, heads outermost, read
+// in boxes of 64 rows x 64 columns, so a box never crosses a head and rows
+// past ``rows`` read as zero
+inline bool map_heads(CUtensorMap* out, const void* ptr, int heads, int rows,
+                      int D) {
+  const uint64_t dims[3] = {(uint64_t)D, (uint64_t)rows, (uint64_t)heads};
+  const uint64_t strides[2] = {(uint64_t)D * 2, (uint64_t)rows * D * 2};
+  const uint32_t box[3] = {64, 64, 1};
+  return tensor_map(out, ptr, 3, dims, strides, box);
 }
 
 }  // namespace hopper

@@ -19,12 +19,16 @@ the wgmma + TMA kernel, everything else the CUDA-core kernel.
 ``flash_attention.launches_by_route`` the same by route.
 
 The operator has a gradient: :func:`flash_attention_bwd`, the
-``repro_torch::flash_attention_bwd`` operator, whose CUDA kernel is
-``csrc/flash_attention_bwd.cu`` (its header gives the design) and whose
-CPU kernel is the closed form :func:`flash_attention_bwd_ref`.  A call
-launches the kernel's three passes and counts once, in ``launches`` and
-under the route ``"bwd"``.  Training never passes ``q_start``: the
-gradient of a call that did raises.
+``repro_torch::flash_attention_bwd`` operator, whose CUDA kernels are in
+``csrc/flash_attention_bwd.cu`` (its header gives the design and what
+bounds each route) and whose CPU kernel is the closed form
+:func:`flash_attention_bwd_ref`.  :func:`bwd_route` picks its route as
+:func:`route` does the forward's: bf16 at head dim 128 or 256 (every
+training call of the dense family) runs three wgmma + TMA passes on the
+tensor cores ("bwd_wgmma"), everything else (fp32, the small head dims)
+three passes on the CUDA cores ("bwd_simt").  A call launches its route's
+three passes and counts once, in ``launches`` and under its route.
+Training never passes ``q_start``: the gradient of a call that did raises.
 """
 from __future__ import annotations
 
@@ -40,10 +44,14 @@ HEAD_DIMS = (16, 32, 64, 128, 256)
 BQ, BK = 16, 32    # SIMT route's query and key tile rows
 SMEM_LIMIT = 232448
 ROUTES = ("wgmma", "simt")
-# the counters' keys: the forward's routes and the backward's kernel
-COUNTED = ROUTES + ("bwd",)
-# the backward kernel's tiles (csrc/flash_attention_bwd.cu, namespace fa_bwd)
+BWD_ROUTES = ("bwd_wgmma", "bwd_simt")
+# the counters' keys: the forward's routes and the backward's
+COUNTED = ROUTES + BWD_ROUTES
+# the backward's CUDA-core tiles (csrc/flash_attention_bwd.cu, namespace
+# fa_bwd) and its wgmma route's (namespace fa_bwd::tc: 64-row tiles, a
+# ring of 2 stages; passes stats, dK/dV and dQ)
 BWD_TILE = 32
+BWD_WGMMA_PASSES = ("stats", "dkdv", "dq")
 # the wgmma route (csrc/flash_attention.cu, namespace fa_tc): 64 query rows
 # a block, K/V tiles of 64 keys in a ring of 2 stages
 WGMMA_HEAD_DIMS = (128, 256)
@@ -57,6 +65,14 @@ def route(dtype: torch.dtype, d: int) -> str:
     if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS:
         return "wgmma"
     return "simt"
+
+
+def bwd_route(dtype: torch.dtype, d: int) -> str:
+    """The kernels a CUDA call of the backward launches: "bwd_wgmma" for
+    bf16 at head dim 128 or 256, else "bwd_simt" (CUDA cores)."""
+    if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS:
+        return "bwd_wgmma"
+    return "bwd_simt"
 
 
 def smem_bytes(d: int) -> int:
@@ -81,6 +97,25 @@ def bwd_smem_bytes(d: int) -> int:
     per-query statistics."""
     t = BWD_TILE
     return 4 * (4 * t * (d + 1) + 2 * t * (t + 1) + 2 * t)
+
+
+def bwd_wgmma_smem_bytes(d: int, kernel: str = "dkdv") -> int:
+    """Dynamic shared memory of one block of the backward's wgmma pass
+    ``kernel`` at head dim ``d`` (``fa_bwd::tc::{stats,dkdv,dq}_smem``;
+    "dkdv", the default, is the largest): 64-row bf16 tiles (the stats
+    pass: Q and 2 K stages; dK/dV: K, V and 2 stages of (Q, dO) with the
+    64 rows' L and D in fp32; dQ: Q, dO and 2 stages of (K, V)), 8 bytes
+    a barrier (1 + 2 a stage), and 1024 bytes to align the swizzled
+    tiles."""
+    if kernel not in BWD_WGMMA_PASSES:
+        raise ValueError(f"kernel is one of {BWD_WGMMA_PASSES}, got "
+                         f"{kernel!r}")
+    tile = WGMMA_TILE * d * 2
+    barriers = 8 * (1 + 2 * WGMMA_STAGES)
+    if kernel == "stats":
+        return (1 + WGMMA_STAGES) * tile + barriers + 1024
+    stats = WGMMA_STAGES * 2 * WGMMA_TILE * 4 if kernel == "dkdv" else 0
+    return (2 + 2 * WGMMA_STAGES) * tile + stats + barriers + 1024
 
 
 def _check_start(q_start: torch.Tensor, q: torch.Tensor):
@@ -262,8 +297,8 @@ def _flash_attention_bwd_op(q: torch.Tensor, k: torch.Tensor,
                             dout: torch.Tensor, causal: bool, window: int
                             ) -> Tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
-    """The CUDA implementation: launch the backward's three passes on the
-    current stream."""
+    """The CUDA implementation: launch the three passes of the backward's
+    route on the current stream."""
     bh, sq, d = q.shape
     bhk, sk, _ = k.shape
     if d not in HEAD_DIMS:
@@ -276,18 +311,34 @@ def _flash_attention_bwd_op(q: torch.Tensor, k: torch.Tensor,
         raise ValueError("flash_attention_bwd kernel needs contiguous q, k, "
                          "v, out and dout")
     lib = _build.library()
+    kind = bwd_route(q.dtype, d)
+    if kind == "bwd_wgmma":
+        # TMA reads from 16-byte aligned bases: copy a view that is not
+        q, k, v, out, dout = (
+            t if tma_error(t.shape[1:], t.stride()[1:], t.element_size(),
+                           t.data_ptr()) is None else t.clone()
+            for t in (q, k, v, out, dout))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
         torch.empty_like(v)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
     delta = torch.empty_like(lse)
-    err = lib.repro_flash_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), bh, bhk, sq, sk, d, int(causal),
-        int(window), _build.DTYPE_CODES[q.dtype], _build.stream_handle())
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), bh, bhk, sq, sk, d,
+            int(causal), int(window))
+    if kind == "bwd_wgmma":
+        err = lib.repro_flash_attention_bwd_wgmma(*ptrs,
+                                                  _build.stream_handle())
+        why = lib.repro_refusal().decode() if err else ""
+        if why:
+            raise ValueError(f"flash_attention_bwd refused (BH={bh}, "
+                             f"BHk={bhk}, Sq={sq}, Sk={sk}, D={d}): {why}")
+    else:
+        err = lib.repro_flash_attention_bwd(
+            *ptrs, _build.DTYPE_CODES[q.dtype], _build.stream_handle())
     _build.check(err, "flash_attention_bwd")
     flash_attention.launches += 1
-    flash_attention.launches_by_route["bwd"] += 1
+    flash_attention.launches_by_route[kind] += 1
     return dq, dk, dv
 
 

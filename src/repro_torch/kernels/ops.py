@@ -4,7 +4,7 @@ There is no implementation switch: the device of the tensors decides.  A
 CPU tensor takes the kernel's plain PyTorch version; a CUDA tensor launches
 the hand-written Hopper kernel or raises.  Every TPU kernel of the
 reference has its counterpart here (K1-K5), and K1 and K2 have gradients
-(K1's backward kernel counts under K1, route "bwd").
+(K1's backward counts under K1, routes "bwd_wgmma" and "bwd_simt").
 """
 from __future__ import annotations
 

@@ -170,12 +170,13 @@ def test_k3_wgmma_shared_memory_fits_one_block(gate_up, nt):
 def test_route_counts_start_at_zero_and_reset():
     ops.reset_launch_counts()
     assert ops.route_counts() == {
-        "flash_attention": {"wgmma": 0, "simt": 0, "bwd": 0},
+        "flash_attention": {"wgmma": 0, "simt": 0, "bwd_wgmma": 0,
+                            "bwd_simt": 0},
         "moe_ffn": {"wgmma": 0, "simt": 0},
         "ssd_scan": {"wgmma": 0, "simt": 0}}
     # CPU tensors take the plain versions and launch nothing
     q = torch.zeros((2, 4, 128), dtype=torch.bfloat16)
     ops.flash_attention(q, q[:1], q[:1])
-    assert ops.route_counts()["flash_attention"] == {"wgmma": 0, "simt": 0,
-                                                     "bwd": 0}
+    assert ops.route_counts()["flash_attention"] == {
+        "wgmma": 0, "simt": 0, "bwd_wgmma": 0, "bwd_simt": 0}
     assert ops.launch_counts()["flash_attention"] == 0

@@ -17,7 +17,8 @@ import torch
 
 from repro.models import attention as jattn
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attention import (bwd_smem_bytes,
+from repro_torch.kernels.flash_attention import (bwd_route, bwd_smem_bytes,
+                                                 bwd_wgmma_smem_bytes,
                                                  flash_attention_ref)
 
 FLASH = dict(rtol=3e-4, atol=3e-4)
@@ -186,3 +187,109 @@ def test_backward_shared_memory_fits_the_card():
         assert got == 4 * (4 * 32 * (d + 1) + 2 * 32 * 33 + 64)
         assert got <= 232448
     assert bwd_smem_bytes(256) > 48 * 1024       # needs the opt-in
+
+
+# ---------------------------------------------------------------------------
+# K1's backward: the route and the wgmma route's tiles, as the card runs them
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+def test_backward_route_takes_the_tensor_cores_at_bf16_128_and_256(dtype, d):
+    want = "bwd_wgmma" if dtype == torch.bfloat16 and d in (128, 256) \
+        else "bwd_simt"
+    assert bwd_route(dtype, d) == want
+
+
+@pytest.mark.parametrize("d", [128, 256])
+def test_backward_wgmma_shared_memory_fits_one_block(d):
+    """Each wgmma pass's tiles, its pass-2 rows of L and D, its barriers
+    and the swizzle's alignment fit one block (227 KB) at both head dims;
+    the C entry ``repro_flash_attention_bwd_wgmma_smem`` returns the same
+    figures on the card (chip_smoke.py phase 2)."""
+    tile = 64 * d * 2
+    want = {"stats": 3 * tile + 40 + 1024,
+            "dkdv": 6 * tile + 2 * 2 * 64 * 4 + 40 + 1024,
+            "dq": 6 * tile + 40 + 1024}
+    for kernel, n in want.items():
+        assert bwd_wgmma_smem_bytes(d, kernel) == n
+        assert n <= 232448
+    assert bwd_wgmma_smem_bytes(d) == want["dkdv"] == max(want.values())
+    with pytest.raises(ValueError, match="kernel"):
+        bwd_wgmma_smem_bytes(d, "dv")
+
+
+def _key_tiles(qt: int, sq: int, sk: int, causal: bool, window: int,
+               tile: int) -> range:
+    """The key tiles query tile ``qt`` sees (``fa_bwd::tc::key_tiles``)."""
+    off = sk - sq
+    q_lo, q_hi = off + qt * tile, off + min(qt * tile + tile, sq) - 1
+    lo, hi = 0, sk
+    if causal:
+        hi = min(sk, q_hi + 1)
+    if window > 0:
+        lo = max(0, q_lo - window + 1)
+    return range(lo // tile, -(-hi // tile) if lo < hi else lo // tile)
+
+
+def _query_tiles(kt: int, sq: int, sk: int, causal: bool, window: int,
+                 tile: int) -> range:
+    """The query tiles that see any key of key tile ``kt``
+    (``fa_bwd::tc::query_tiles``)."""
+    off = sk - sq
+    k0, k_hi = kt * tile, min(kt * tile + tile, sk) - 1
+    lo, hi = 0, sq
+    if causal:
+        lo = max(0, k0 - off)
+    if window > 0:
+        hi = min(sq, k_hi + window - off)
+    return range(lo // tile, -(-hi // tile) if lo < hi else lo // tile)
+
+
+def bwd_tile_pairs(sq: int, sk: int, causal: bool, window: int,
+                   tile: int = 64) -> dict:
+    """The (query tile, key tile) pairs each pass of the backward's wgmma
+    route visits for one query head, in its order: blocks by tile, then
+    each block's walk ("stats" and "dq": a query tile's key tiles,
+    ascending; "dkdv": a key tile's query tiles, ascending, which a block
+    walks once for each of its G query heads).  A copy of the kernels'
+    walk; on the card ``chip_smoke.py``'s phase 30 (a) holds the kernels
+    themselves on ragged and windowed calls."""
+    nq, nk = -(-sq // tile), -(-sk // tile)
+    by_query = [(qt, kt) for qt in range(nq)
+                for kt in _key_tiles(qt, sq, sk, causal, window, tile)]
+    by_key = [(qt, kt) for kt in range(nk)
+              for qt in _query_tiles(kt, sq, sk, causal, window, tile)]
+    return {"stats": by_query, "dkdv": by_key, "dq": list(by_query)}
+
+
+TILE_CASES = [  # (Sq, Sk, causal, window)
+    (256, 256, True, 0), (1024, 1024, True, 512), (200, 456, True, 0),
+    (200, 456, True, 100), (130, 130, True, 64), (1, 300, True, 0),
+    (65, 129, True, 30), (3, 500, True, 7), (77, 77, False, 0),
+    (100, 300, False, 0), (100, 200, False, 50)]
+
+
+@pytest.mark.parametrize("sq,sk,causal,window", TILE_CASES)
+def test_backward_tile_schedule_visits_each_visible_pair_once(sq, sk, causal,
+                                                              window):
+    """Each pass of the wgmma route visits every tile pair that holds a
+    visible (query, key) pair exactly once, and no tile pair the masks
+    cover whole: so every visible pair is summed once, in one tile pair.
+    Queries right-aligned against the keys, ragged edges and Sq < Sk."""
+    tile = 64
+    q_pos = np.arange(sq)[:, None] + sk - sq
+    k_pos = np.arange(sk)[None, :]
+    mask = np.ones((sq, sk), bool)
+    if causal:
+        mask &= q_pos >= k_pos
+    if window > 0:
+        mask &= q_pos - k_pos < window
+    qi, ki = np.nonzero(mask)
+    want = set(zip((qi // tile).tolist(), (ki // tile).tolist()))
+    pairs = bwd_tile_pairs(sq, sk, causal, window, tile)
+    for name, got in pairs.items():
+        assert len(got) == len(set(got)), name
+        assert set(got) == want, name
+    # blocks by tile, each walking its tiles in ascending order
+    assert pairs["stats"] == pairs["dq"] == sorted(want)
+    assert pairs["dkdv"] == sorted(want, key=lambda p: (p[1], p[0]))
