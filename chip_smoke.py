@@ -14,7 +14,7 @@ and the script exits non-zero:
             process per source, all started together; prints the
             registers, shared memory and spills (``-Xptxas -v``) of K2's
             kernels, of K1's (forward and backward), K3's and K4's wgmma
-            kernels and of K5, and fails unless each of those bf16
+            kernels and of K5 and K3's backward (CUDA cores), and fails unless each of those bf16
             kernels' SASS holds HGMMA (``cuobjdump``), the wgmma ones
             spill nothing and each takes the shared memory its wrapper's
             Python mirror says;
@@ -262,8 +262,10 @@ and the script exits non-zero:
             of a decode step and of a prefill, K2's time a step and a
             prefill beside its bound and ``torch.matmul``, memory;
 23. warm_boot  the program store (paper §3.3): for qwen3-0.6b, then
-            mamba2-130m, at full width (phase 8's geometry, seed 0), a cold
-            boot over a fresh ``ProgramStore`` in a temporary directory
+            mamba2-130m, at full width cut in depth (``STORE_LAYERS``: 4 of
+            qwen3's 28 layers, 4 of mamba2's 24; phase 8's geometry, seed
+            0), a cold boot over a fresh ``ProgramStore`` in a temporary
+            directory
             serves phase 8's 8 requests (streams equal
             ``reference_generate``, launches exact) and exports every
             program; ``repro_torch.bench.boot --warm`` in a fresh process
@@ -319,7 +321,8 @@ and the script exits non-zero:
             reports its speed ratios without asserting them, and launches
             K1 and K3 on the wgmma route only;
 28. serve_cluster  qwen3-0.6b's serving fleet (``repro_torch.cluster``)
-            at full width in a process of its own (``chip_smoke.py
+            at full width, at phase 23's depth (4 of 28 layers), in a
+            process of its own (``chip_smoke.py
             --serve-cluster``, so that its replicas' graph pools go with
             it), over one fresh ``ProgramStore`` that one cold boot
             exported (phase 23's qwen3 boot, copied before any other boot
@@ -372,9 +375,26 @@ and the script exits non-zero:
             tokens/s, peak memory, device ms by kernel family from one
             profiled replay, and Table 1's cold execute, hot load and
             re-execute of the train program.
+31. train_moe  MoE training in a process of its own (``chip_smoke.py
+            --train-moe`` runs it alone): K3's backward against its plain
+            version at olmoe-1b-7b's training shape (bf16, E 64, C 640, d
+            2048, f 1024, the counts of 4,096 routed tokens), at
+            qwen3-moe-30b-a3b's (E 128, C 320, f 768) and a ragged fp32
+            call with an empty expert, each case's route ("bwd_simt") read
+            from the counters, the same bits on two runs, timed beside the
+            plain version and a set of ``torch.bmm`` products; K3's forward
+            at C 640 against its plain version; card == CPU for 3 fp32
+            train steps of reduced olmoe-1b-7b; then olmoe-1b-7b at full
+            width cut to 4 of its 16 layers in bf16 through
+            ``repro_torch.launch.train`` (4 x 1,024 tokens a step, 16
+            steps, checkpoints every 8, one injected failure at 12): one
+            restart, the loss falling, telemetry points == steps run, the
+            program a CUDA graph, K1, K2, K3 and K3's backward launches
+            exact; step p50, tokens/s, peak memory and device ms by kernel
+            family from one profiled replay.
 
-Then a ``{"kernels": [...]}`` line (K1's and K2's entries with a
-``backward`` record from phase 30), and as the last line
+Then a ``{"kernels": [...]}`` line (K1's, K2's and K3's entries with a
+``backward`` record from phases 30 and 31), and as the last line
 ``{"ok": true, "device": {...}}``.  The full record is also written to
 ``results/chip_smoke.json``.  Without a card, or outside a checkout of
 the repository, the script exits non-zero and prints no result.
@@ -685,8 +705,8 @@ def time_calls(torch, call, steps):
 
 def profile_calls(torch, call, steps, timed):
     """``call`` ``steps`` times under torch.profiler, each ended by a
-    sync: device time by kernel family (K2, K1, K1's backward, K3, K4,
-    K5, PyTorch's own kernels) and kernels per call, beside ``timed`` (:func:`time_calls`,
+    sync: device time by kernel family (K2, K1, K1's backward, K3, K3's
+    backward, K4, K5, PyTorch's own kernels) and kernels per call, beside ``timed`` (:func:`time_calls`,
     measured before any profiler ran in the phase).  The idle share is one
     minus the profiled (or the events') device time over the unprofiled
     wall time of a step; under the profiler the wall time grows, so its
@@ -701,8 +721,8 @@ def profile_calls(torch, call, steps, timed):
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     fam = {"matmul_kernel": 0.0, "flash_attention_kernel": 0.0,
-           "fa_bwd": 0.0, "moe_ffn_kernel": 0.0, "ssd_scan_kernel": 0.0,
-           "rglru_scan_kernel": 0.0, "torch": 0.0}
+           "fa_bwd": 0.0, "moe_ffn_kernel": 0.0, "moe_bwd": 0.0,
+           "ssd_scan_kernel": 0.0, "rglru_scan_kernel": 0.0, "torch": 0.0}
     n_kernels = 0
     for e in prof.key_averages():
         if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
@@ -727,6 +747,7 @@ def profile_calls(torch, call, steps, timed):
                 flash_ms_per_step=fam["flash_attention_kernel"] / steps,
                 flash_bwd_ms_per_step=fam["fa_bwd"] / steps,
                 moe_ffn_ms_per_step=fam["moe_ffn_kernel"] / steps,
+                moe_bwd_ms_per_step=fam["moe_bwd"] / steps,
                 ssd_scan_ms_per_step=fam["ssd_scan_kernel"] / steps,
                 rglru_scan_ms_per_step=fam["rglru_scan_kernel"] / steps,
                 torch_ms_per_step=fam["torch"] / steps,
@@ -1115,6 +1136,10 @@ def serve_qwen3_moe():
 
 # phase 28: qwen3-0.6b's fleet (``chip_smoke.py --serve-cluster``)
 CLUSTER_ARCH = "qwen3-0.6b"
+# phases 23 and 28 serve at full width cut in depth, for the script's
+# time: their boots export and load programs whose size grows with the
+# layers (phase 28 boots from phase 23's qwen3 store)
+STORE_LAYERS = {"qwen3-0.6b": 4, "mamba2-130m": 4}
 # sub-run A: replica 1 killed at its engine step 12 (mid-decode of phase
 # 8's requests); sub-run C: replica 0's ticks from its C_SLOW_AFTER-th of
 # C on sleep C_SLEEP_S, ~6x a decode tick.  A's fleet flags a tick over 3x
@@ -1220,8 +1245,10 @@ def fleet_record(torch, sup, boots, window, launches, routes, wall_s,
 def serve_cluster(store_dir=None):
     """Phase 28's body (``chip_smoke.py --serve-cluster [STORE_DIR]``,
     started by phase 28 in a fresh process, so that its replicas' graph
-    pools go with it): qwen3-0.6b at full width in bf16 (batch 4, max_len
-    512, prefill_len 256, weights from seed 0 drawn on the card), fleets
+    pools go with it): qwen3-0.6b at full width cut to
+    ``STORE_LAYERS`` layers (phase 23's store's depth) in bf16 (batch 4,
+    max_len 512, prefill_len 256, weights from seed 0 drawn on the card),
+    fleets
     of :class:`repro_torch.cluster.Supervisor` over one fresh
     ``ProgramStore`` that one cold boot exported: phase 23's qwen3 boot
     (``STORE_DIR``, a copy made before any other boot read it), or, run
@@ -1274,9 +1301,11 @@ def serve_cluster(store_dir=None):
     cfg = registry.get_config(CLUSTER_ARCH)
     assert (cfg.n_layers, cfg.d_model, cfg.padded_vocab) == \
         (28, 1024, 153_600), cfg
+    # full width, cut in depth as phase 23's store (which it boots from)
+    cfg = cfg.replace(n_layers=STORE_LAYERS[CLUSTER_ARCH])
     ecfg = EngineConfig(reduced=False, batch=BATCH, max_len=MAX_LEN,
                         prefill_len=PREFILL_LEN, clock="step", seed=0,
-                        device="cuda")
+                        device="cuda", n_layers=cfg.n_layers)
     # K2 once a product (7 a layer) and the tied head; K1 a layer an
     # admission
     per_pass = {"decode": {"matmul": 7 * cfg.n_layers + 1},
@@ -1964,9 +1993,9 @@ def k2_gradient_case(torch, name, k_dim, n_dim, m, tied=False):
     return out
 
 
-def train_parity(torch):
-    """qwen3-0.6b's reduced config in fp32: PARITY_STEPS train steps on
-    the card (K1, K1's backward and K2 launched) and on the CPU (their
+def train_parity(torch, arch="qwen3-0.6b"):
+    """``arch``'s reduced config in fp32: PARITY_STEPS train steps on the
+    card (its kernels and their gradients launched) and on the CPU (their
     plain versions) from one state drawn on the CPU, on the same
     batches."""
     from repro_torch import steps as steps_lib
@@ -1974,7 +2003,7 @@ def train_parity(torch):
     from repro_torch.models import registry
     from repro_torch.optim import AdamWConfig
     dev = torch.device("cuda")
-    cfg = registry.get_config("qwen3-0.6b", reduced=True)
+    cfg = registry.get_config(arch, reduced=True)
     assert cfg.dtype == "float32", cfg.dtype
     opt = AdamWConfig(lr=PARITY_LR, warmup_steps=1, total_steps=10)
     cpu = steps_lib.init_train_state(cfg, 0, device="cpu")
@@ -1996,7 +2025,7 @@ def train_parity(torch):
                    (r["loss"] for r in rows))
     gnorm_err = max(abs(c - g) / abs(c) for c, g in
                     (r["grad_norm"] for r in rows))
-    rec = {"arch": "qwen3-0.6b (reduced, fp32)", "steps": rows,
+    rec = {"arch": f"{arch} (reduced, fp32)", "steps": rows,
            "loss_rel_err": loss_err, "grad_norm_rel_err": gnorm_err,
            "param_max_abs_err": param_err, "param_max_moved": moved,
            "tol": {"loss_rtol": PARITY_LOSS_RTOL,
@@ -2220,6 +2249,396 @@ def train_phase():
     return 0
 
 
+# phase 31: MoE training.  The full-width run: olmoe-1b-7b at its published
+# width cut to MOE_TRAIN_LAYERS of its 16 layers (its whole state, ~83 GB,
+# does not fit the card), 4 x 1,024 tokens a step, a checkpoint every 8
+# steps, one failure injected before step 12 (the restart resumes from step
+# 8, so 19 steps run)
+MOE_TRAIN_ARCH = "olmoe-1b-7b"
+MOE_TRAIN_LAYERS = 4
+MOE_TRAIN_STEPS, MOE_TRAIN_CKPT_EVERY, MOE_TRAIN_FAIL_AT = 16, 8, 12
+# phase 31 (a)'s cases: (name, dtype, arch whose (E, d, f) and capacity at
+# 4,096 routed tokens give the shape, or an explicit (E, C, d, f) with its
+# counts)
+K3_BACKWARD_CASES = (
+    ("olmoe-1b-7b", "bfloat16", MOE_TRAIN_ARCH, None),
+    ("qwen3-moe-30b-a3b", "bfloat16", "qwen3-moe-30b-a3b", None),
+    ("ragged", "float32", (5, 100, 200, 136), [100, 0, 37, 64, 99]))
+K3_ROUTED_TOKENS = TRAIN_BATCH * TRAIN_SEQ
+
+
+def k3_routed_counts(torch, arch, tokens):
+    """(E, C, d, f, counts) of ``arch``'s MoE layer for ``tokens`` tokens:
+    C its capacity, counts the kept rows of each expert when bf16 tokens
+    drawn on the card are routed through a random router as the layer
+    routes them (top-k of the softmax, token order, capacity drops)."""
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import registry
+    cfg = registry.get_config(arch)
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    c = moe_mod._capacity(cfg, tokens)
+    g = torch.Generator("cuda").manual_seed(2)
+    x = torch.randn((tokens, d), generator=g, device="cuda")
+    router = torch.randn((d, e), generator=g, device="cuda") * d ** -0.5
+    probs = torch.softmax(x.bfloat16().float() @ router.bfloat16().float(),
+                          dim=-1)
+    _, top = moe_mod.top_k(probs, cfg.experts_per_token)
+    hits = torch.bincount(top.flatten(), minlength=e)
+    return e, c, d, f, torch.clamp(hits, max=c).to(torch.int32)
+
+
+def k3_operands(torch, dt, e, c, d, f, counts):
+    """buf (rows past each count zero, as the dispatch leaves them), w1,
+    w3, w2 scaled as the model draws them, and dy, from seed 3."""
+    g = torch.Generator("cuda").manual_seed(3)
+
+    def rand(shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda")
+                * scale).to(dt)
+
+    live = torch.arange(c, device="cuda")[None, :] < counts[:, None]
+    buf = rand((e, c, d)) * live[..., None].to(dt)
+    return (buf, rand((e, d, f), d ** -0.5), rand((e, d, f), d ** -0.5),
+            rand((e, f, d), f ** -0.5), rand((e, c, d)))
+
+
+def k3_backward_passes(torch, call, iters=3):
+    """Device ms of each of K3's backward passes in one call of ``call``
+    (the mean of ``iters``), from the profiler's kernel names."""
+    from torch.profiler import ProfilerActivity, profile
+    out = {"hidden": 0.0, "dx": 0.0, "dw": 0.0}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            call()
+        torch.cuda.synchronize()
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = getattr(e, "self_cuda_time_total", 0.0)
+        for key in out:
+            if f"moe_bwd::{key}_kernel" in e.key:
+                out[key] += t / 1e3 / iters          # us -> ms
+    return out
+
+
+def k3_backward_case(torch, name, dname, shape, counts):
+    """K3's backward against ``moe_ffn_bwd_ref`` on one shape: max |err|
+    of dbuf, dw1, dw3 and dw2, the route the call took (from the
+    counters), the same bits on two runs, its time and its passes' beside
+    the plain version, the same backward as a set of ``torch.bmm``
+    products (a yardstick: no single PyTorch call computes it) and the
+    bound (operations and bytes of the live rows and live experts)."""
+    from repro_torch.kernels import ops
+    dt = {"bfloat16": torch.bfloat16, "float32": torch.float32}[dname]
+    if isinstance(shape, str):
+        e, c, d, f, n = k3_routed_counts(torch, shape, K3_ROUTED_TOKENS)
+    else:
+        (e, c, d, f), n = shape, torch.tensor(counts, dtype=torch.int32,
+                                              device="cuda")
+    buf, w1, w3, w2, dy = k3_operands(torch, dt, e, c, d, f, n)
+
+    def kernel():
+        return ops.moe_ffn_bwd(buf, w1, w3, w2, dy, n)
+
+    before = ops.route_counts()["moe_ffn"]
+    got = kernel()
+    took = [r for r, k in ops.route_counts()["moe_ffn"].items()
+            if k != before[r]]
+    again = kernel()
+    want = ops.moe_ffn_bwd_ref(buf, w1, w3, w2, dy, n)
+    tol = MOE_TOL[dname]
+    errs, viols = {}, {}
+    for key, a, w in zip(("dbuf", "dw1", "dw3", "dw2"), got, want):
+        viols[key], errs[key] = max_violation(a, w, tol)
+    same_bits = all(torch.equal(a, b) for a, b in zip(got, again))
+    del got, again, want
+    ms = cuda_ms(torch, kernel, iters=5, warmup=1)
+    pass_ms = k3_backward_passes(torch, kernel)
+    plain_ms = cuda_ms(torch, lambda: ops.moe_ffn_bwd_ref(
+        buf, w1, w3, w2, dy, n), iters=3, warmup=1)
+
+    def bmm_set():
+        g, u = torch.bmm(buf, w1).float(), torch.bmm(buf, w3).float()
+        dh = torch.bmm(dy, w2.transpose(1, 2)).float()
+        s = torch.sigmoid(g)
+        h = (g * s * u).to(dt)
+        dg = (dh * u * (s * (1 + g * (1 - s)))).to(dt)
+        du = (dh * g * s).to(dt)
+        xt = buf.transpose(1, 2)
+        return (torch.bmm(dg, w1.transpose(1, 2))
+                + torch.bmm(du, w3.transpose(1, 2)), torch.bmm(xt, dg),
+                torch.bmm(xt, du), torch.bmm(h.transpose(1, 2), dy))
+
+    bmm_ms = cuda_ms(torch, bmm_set, iters=5, warmup=1)
+    live = int(n.sum())
+    live_experts = int((n > 0).sum())
+    itemsize = buf.element_size()
+    nbytes = itemsize * (2 * live * d + e * c * d         # buf, dy; dx
+                         + 3 * live_experts * d * f       # the weights
+                         + 3 * e * d * f) + 4 * e         # dW; counts
+    flops = 16.0 * live * d * f
+    bms, by = bound_ms(nbytes, flops, dname)
+    return {"case": name, "dtype": dname, "E": e, "C": c, "d": d, "f": f,
+            "live_rows": live, "live_experts": live_experts,
+            "empty_experts": e - live_experts, "tol": tol, "route": took,
+            "max_abs_err": errs, "violation": viols,
+            "same_bits_two_runs": same_bits, "ms": ms,
+            "pass_ms_profiled": pass_ms, "plain_ms": plain_ms,
+            "library_ms": None,
+            "library": "none: no single PyTorch call computes it",
+            "yardstick_bmm_ms": bmm_ms,
+            "yardstick": "8 torch.bmm and the elementwise gradient over "
+                         "all C rows",
+            "bound_ms": bms, "bound_by": by, "bound_share": bms / ms}
+
+
+def k3_backward_cases(torch, smi):
+    """Phase 31 (a): every case of K3_BACKWARD_CASES, printed; raises
+    unless each is within MOE_TOL, on the "bwd_simt" route and keeps its
+    bits."""
+    cases = [k3_backward_case(torch, *c) for c in K3_BACKWARD_CASES]
+    for c in cases:
+        print(f"K3 backward {c['case']} {c['dtype']} (E {c['E']}, C "
+              f"{c['C']}, d {c['d']}, f {c['f']}, {c['live_rows']} live "
+              f"rows, route {c['route']}): err {c['max_abs_err']}, same "
+              f"bits {c['same_bits_two_runs']}, {c['ms']:.3f} ms (passes "
+              f"{c['pass_ms_profiled']}, plain {c['plain_ms']:.3f}, bmm set "
+              f"{c['yardstick_bmm_ms']:.3f}, bound {c['bound_ms']:.4f} by "
+              f"{c['bound_by']}) on {smi}", flush=True)
+        if max(c["violation"].values()) > 0 or \
+                not c["same_bits_two_runs"] or c["route"] != ["bwd_simt"]:
+            raise AssertionError(f"K3 backward {c}")
+    return cases
+
+
+def k3_forward_at_training_capacity(torch, smi):
+    """Phase 31 (a): K3's forward at olmoe's training capacity (C 640, the
+    counts of 4,096 routed tokens) against ``moe_ffn_ref``: within
+    MOE_TOL, on the wgmma route, the same bits twice, timed."""
+    from repro_torch.kernels import ops
+    e, c, d, f, n = k3_routed_counts(torch, MOE_TRAIN_ARCH, K3_ROUTED_TOKENS)
+    buf, w1, w3, w2, _ = k3_operands(torch, torch.bfloat16, e, c, d, f, n)
+    before = ops.route_counts()["moe_ffn"]
+    got = ops.moe_ffn(buf, w1, w3, w2, n)
+    took = [r for r, k in ops.route_counts()["moe_ffn"].items()
+            if k != before[r]]
+    same = torch.equal(got, ops.moe_ffn(buf, w1, w3, w2, n))
+    viol, err = max_violation(got, ops.moe_ffn_ref(buf, w1, w3, w2, n),
+                              MOE_TOL["bfloat16"])
+    rec = {"E": e, "C": c, "d": d, "f": f, "live_rows": int(n.sum()),
+           "route": took, "max_abs_err": err, "violation": viol,
+           "same_bits_two_runs": same,
+           "ms": cuda_ms(torch, lambda: ops.moe_ffn(buf, w1, w3, w2, n))}
+    print(f"K3 forward at C {c} (olmoe, {rec['live_rows']} live rows, route "
+          f"{took}): err {err}, same bits {same}, {rec['ms']:.3f} ms on "
+          f"{smi}", flush=True)
+    if viol > 0 or not same or took != ["wgmma"]:
+        raise AssertionError(f"K3 forward at C {c}: {rec}")
+    return rec
+
+
+def train_moe_phase():
+    """Phase 31's body (``chip_smoke.py --train-moe``, started by the whole
+    script in a process of its own, as phase 30's):
+
+    a. K3's backward against its plain version at olmoe-1b-7b's training
+       shape (bf16, E 64, C 640, d 2048, f 1024, the counts of 4,096
+       routed tokens), at qwen3-moe-30b-a3b's (E 128, C 320, f 768) and a
+       ragged fp32 call (d 200 and f 136, one expert without rows): dbuf
+       and the three weight gradients within MOE_TOL, the route each took
+       ("bwd_simt") read from the counters, the same bits on two runs,
+       timed beside the plain version, a set of ``torch.bmm`` products
+       and the bound; then K3's forward at C 640 against ``moe_ffn_ref``;
+    b. card == CPU for PARITY_STEPS fp32 train steps of reduced
+       olmoe-1b-7b (phase 30's tolerances);
+    c. olmoe-1b-7b at its published width (d 2048, 64 experts of f 1024,
+       top-8, 16/16 heads of 128, untied head over vocab 50,304) cut to
+       MOE_TRAIN_LAYERS layers, bf16, weights from seed 0, through
+       ``repro_torch.launch.train.train``: 4 x 1,024 tokens a step,
+       MOE_TRAIN_STEPS steps, a checkpoint every MOE_TRAIN_CKPT_EVERY,
+       one failure injected at step MOE_TRAIN_FAIL_AT.  Before training,
+       on the hot-loaded program, its replay timed and one replay
+       profiled by kernel family.  Gates: one restart, the final step
+       reached, every loss finite and the last five below the first five,
+       telemetry points equal to the steps run, the program a CUDA graph,
+       and the launches exactly the captured per-step counts times the
+       steps run: K2 20 a layer (attention's four products and the
+       router's, each forward, recomputed under ``remat_policy``
+       "nothing", dX and dW) + 3 for the head, K1 3 a layer (forward,
+       recompute, backward), K3 3 a layer (forward and recompute on the
+       wgmma route, its backward on "bwd_simt": every MoE layer's
+       gradient by K3's backward kernel).
+
+    Prints the record as its last line."""
+    import shutil
+    import tempfile
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke --train-moe: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, SRC)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import _build, ops
+    from repro_torch.launch.train import train
+    from repro_torch.models import registry
+    t_start = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    rec = {"nvidia_smi": smi}
+    # run alone, the process builds the library: its ptxas lines for K3's
+    # backward kernels (empty where the whole script's phase 2 built it)
+    _build.library()
+    rec["k3_backward_build"] = _build.ptxas_report("moe_ffn_bwd")
+
+    # a. K3's backward, and its forward at the training capacity
+    rec["k3_backward"] = k3_backward_cases(torch, smi)
+    rec["k3_forward_c640"] = k3_forward_at_training_capacity(torch, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # b. card == CPU, reduced, fp32
+    rec["parity"] = train_parity(torch, MOE_TRAIN_ARCH)
+    print(f"train parity (reduced olmoe fp32, {PARITY_STEPS} steps): loss "
+          f"rel {rec['parity']['loss_rel_err']:.2e}, grad norm rel "
+          f"{rec['parity']['grad_norm_rel_err']:.2e}, params "
+          f"{rec['parity']['param_max_abs_err']:.2e}", flush=True)
+
+    # c. full width, cut in depth, through the trainer
+    cfg = registry.get_config(MOE_TRAIN_ARCH).replace(
+        n_layers=MOE_TRAIN_LAYERS)
+    assert (cfg.d_model, cfg.n_experts, cfg.d_ff, cfg.experts_per_token,
+            cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+            cfg.vocab_size, cfg.tie_embeddings, cfg.dtype) == \
+        (2048, 64, 1024, 8, 16, 16, 128, 50304, False, "bfloat16"), cfg
+    per_step = {}
+
+    def hook(handle, state, pipeline):
+        prog = handle.program
+        per_step.update(launches=dict(prog.launches),
+                        routes={k: dict(v) for k, v in prog.routes.items()},
+                        source=prog.source, lower_s=prog.stats.lower_s,
+                        compile_s=prog.stats.compile_s,
+                        graph_bytes=prog.stats.graph_bytes)
+        batch = pipeline.device_batch(0)
+        args = [batch[k] for k in ("tokens", "labels")]
+
+        def call():
+            handle(state, *args)
+
+        timed = time_calls(torch, call, 3)
+        prof = profile_calls(torch, call, 1, timed)
+        per_step["replay"] = timed
+        per_step["profile"] = None if "device_ms_per_step" not in prof \
+            else {"K3_ms": prof["moe_ffn_ms_per_step"],
+                  "K3_backward_ms": prof["moe_bwd_ms_per_step"],
+                  "K2_ms": prof["matmul_ms_per_step"],
+                  "K1_forward_ms": prof["flash_ms_per_step"],
+                  "K1_backward_ms": prof["flash_bwd_ms_per_step"],
+                  "torch_ms": prof["torch_ms_per_step"],
+                  "device_ms": prof["device_ms_per_step"],
+                  "kernels": prof["kernels_per_step"],
+                  "idle_share": prof["idle_share"]}
+        ops.reset_launch_counts()
+
+    # the checkpoints (~19 GB a save: bf16 weights, fp32 moments) go to the
+    # process's temporary directory, and are removed after the run
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_train_moe_")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        res = train(MOE_TRAIN_ARCH, config=cfg, steps=MOE_TRAIN_STEPS,
+                    global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                    ckpt_dir=ckpt, ckpt_every=MOE_TRAIN_CKPT_EVERY,
+                    fail_at=[MOE_TRAIN_FAIL_AT], lr=TRAIN_LR, log_every=4,
+                    device="cuda", on_program=hook)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    train_s = time.perf_counter() - t0
+    launches, routes = ops.launch_counts(), ops.route_counts()
+    n = res["steps_run"]
+    losses = res["losses"]
+    layers = cfg.n_layers
+    want_steps = (MOE_TRAIN_STEPS + MOE_TRAIN_FAIL_AT - MOE_TRAIN_CKPT_EVERY
+                  - 1)
+    want = {"matmul": 20 * layers + 3, "flash_attention": 3 * layers,
+            "moe_ffn": 3 * layers, "ssd_scan": 0, "rglru_scan": 0}
+    want_routes = {"flash_attention": {"wgmma": 2 * layers, "simt": 0,
+                                       "bwd_wgmma": layers, "bwd_simt": 0},
+                   "moe_ffn": {"wgmma": 2 * layers, "simt": 0,
+                               "bwd_simt": layers}}
+    p50 = res["straggler"]["median_s"]
+    full = {"arch": MOE_TRAIN_ARCH, "n_layers": layers, "dtype": cfg.dtype,
+            "params": registry.param_counts(cfg),
+            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "steps": MOE_TRAIN_STEPS, "steps_run": n,
+            "restarts": res["restarts"], "final_step": res["final_step"],
+            "first_loss": res["first_loss"], "final_loss": res["final_loss"],
+            "losses": losses, "grad_norms": res["grad_norms"],
+            "telemetry_points": res["telemetry_points"],
+            "telemetry_errors": res["telemetry_errors"],
+            "source": per_step["source"],
+            "per_step_launches": per_step["launches"],
+            "per_step_routes": per_step["routes"],
+            "launches": launches, "launches_by_route": routes,
+            "step_p50_s": p50, "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / p50,
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "graph_bytes": per_step["graph_bytes"],
+            "checkpoint_save_s": res["checkpoint_save_s"],
+            "checkpoint_restore_s": res["checkpoint_restore_s"],
+            "lower_s": per_step["lower_s"],
+            "compile_s": per_step["compile_s"],
+            "replay": per_step["replay"], "profile": per_step["profile"],
+            "train_wall_s": train_s}
+    rec["full"] = full
+    rec["launches"], rec["launches_by_route"] = launches, routes
+    print(f"train {MOE_TRAIN_ARCH} full width, {layers} of 16 layers, bf16: "
+          f"{n} steps run, restarts {res['restarts']}, loss "
+          f"{losses[0]:.3f} -> {losses[-1]:.3f}, step p50 {p50 * 1e3:.1f} "
+          f"ms, {full['tokens_per_s']:.0f} tok/s, peak "
+          f"{full['peak_memory_gib']:.1f} GiB, capture "
+          f"{per_step['compile_s']:.2f} s, checkpoint saves "
+          f"{[round(x, 2) for x in res['checkpoint_save_s']]} s, restore "
+          f"{[round(x, 2) for x in res['checkpoint_restore_s']]} s, by "
+          f"family {per_step['profile']} on {smi}", flush=True)
+    fails = []
+    if res["restarts"] != 1 or res["final_step"] != MOE_TRAIN_STEPS - 1:
+        fails.append("restarts or final step")
+    if n != want_steps or not all(math.isfinite(x) for x in losses):
+        fails.append(f"{n} steps run (want {want_steps}) or a loss not "
+                     f"finite")
+    if not sum(losses[-5:]) < sum(losses[:5]):
+        fails.append("the loss did not fall")
+    if res["telemetry_points"] != n or res["telemetry_errors"]:
+        fails.append("telemetry points != steps run")
+    if per_step["source"] != "cuda_graph":
+        fails.append(f"source {per_step['source']}")
+    for name, k in want.items():
+        if per_step["launches"].get(name, 0) != k or launches[name] != k * n:
+            fails.append(f"{name} launches {launches[name]} (per step "
+                         f"{per_step['launches'].get(name)}, want {k} x "
+                         f"{n})")
+    for name, by_route in want_routes.items():
+        got = per_step["routes"].get(name, {})
+        if {r: got.get(r, 0) for r in by_route} != by_route or \
+                routes[name] != {r: k * n for r, k in by_route.items()}:
+            fails.append(f"{name} routes {got} a step, {routes[name]} in "
+                         f"all (want {by_route} a step)")
+    if fails:
+        raise AssertionError(f"phase 31 full width: {fails}: {full}")
+    rec["seconds"] = time.perf_counter() - t_start
+    emit(rec)
+    return 0
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2349,13 +2768,18 @@ def main():
         out["k1_kernels"], out["k3_kernels"] = tc_build["K1"], tc_build["K3"]
         out["k1_backward_kernels"] = tc_build["K1 backward"]
         out["k4_kernels"] = tc_build["K4"]
-        # K5 runs on CUDA cores: its registers and spills, for the record
+        # K5 and K3's backward run on CUDA cores: their registers and
+        # spills, for the record
         out["k5_kernels"] = _build.ptxas_report("rglru_scan")
-        for r in out["k5_kernels"]:
-            print(f"K5 fp32 CUDA cores: {r['function']}: "
-                  f"{r.get('registers')} registers, {r.get('static_smem')} B "
-                  f"static shared memory, {r.get('spill_stores')} B spill "
-                  f"stores, {r.get('spill_loads')} B spill loads", flush=True)
+        out["k3_backward_kernels"] = _build.ptxas_report("moe_ffn_bwd")
+        for name, rows in (("K5", out["k5_kernels"]),
+                           ("K3 backward", out["k3_backward_kernels"])):
+            for r in rows:
+                print(f"{name} CUDA cores: {r['function']}: "
+                      f"{r.get('registers')} registers, "
+                      f"{r.get('static_smem')} B static shared memory, "
+                      f"{r.get('spill_stores')} B spill stores, "
+                      f"{r.get('spill_loads')} B spill loads", flush=True)
 
     gen = torch.Generator(device="cpu").manual_seed(0)
 
@@ -3529,12 +3953,12 @@ def main():
                 pos = torch.randint(1, MAX_LEN, (BATCH,), generator=gen,
                                     dtype=torch.int32).to(dev)
                 c4 = {k: v.clone() for k, v in cache.items()}
-                y4, _ = transformer.apply_layer(rg, lkind, p, x,
-                                                mode="decode", cache=c4,
-                                                pos=pos)
+                y4, _, _ = transformer.apply_layer(rg, lkind, p, x,
+                                                   mode="decode", cache=c4,
+                                                   pos=pos)
                 for i in range(BATCH):
                     c1 = {k: v[i:i + 1].clone() for k, v in cache.items()}
-                    y1, _ = transformer.apply_layer(
+                    y1, _, _ = transformer.apply_layer(
                         rg, lkind, p, x[i:i + 1], mode="decode", cache=c1,
                         pos=pos[i:i + 1])
                     differ += not (torch.equal(y4[i:i + 1], y1) and all(
@@ -5312,7 +5736,7 @@ def main():
     env = dict(os.environ, PYTHONPATH=SRC)
 
     def warm_boot(out, arch, plens, arrivals, per_pass, keep_store=None,
-                  torn=True):
+                  torn=True, n_layers=None):
         """A cold boot over a fresh ProgramStore serves phase 8's requests
         (streams equal ``reference_generate``, launches ``per_pass``) and
         exports every program; ``repro_torch.bench.boot --warm`` in a
@@ -5323,13 +5747,14 @@ def main():
         (a miss), heals the entry, and its streams stay exact (with
         ``torn`` only: the script's time).  With ``keep_store``, the store
         as the cold boot left it is copied there first (phase 28's fleet
-        boots from it)."""
+        boots from it).  ``n_layers`` cuts the model's depth, its width
+        kept (every boot of the path)."""
         gc.collect()
         torch.cuda.empty_cache()
         store_dir = tempfile.mkdtemp(prefix="repro_store_")
         kw = dict(full=True, device="cuda", batch=BATCH, max_len=MAX_LEN,
                   prefill_len=PREFILL_LEN, seed=0, prompt_lens=plens,
-                  arrivals=arrivals, max_new=MAX_NEW)
+                  arrivals=arrivals, max_new=MAX_NEW, n_layers=n_layers)
         try:
             eng, cold = boot_bench.run_boot(arch, store_dir, **kw)
             names = sorted(cold["programs"])
@@ -5362,6 +5787,8 @@ def main():
                    str(PREFILL_LEN), "--prompt-lens",
                    ",".join(map(str, plens)), "--arrivals",
                    ",".join(map(str, arrivals)), "--max-new", str(MAX_NEW)]
+            if n_layers is not None:
+                cmd += ["--layers", str(n_layers)]
             t0 = time.perf_counter()
             res = subprocess.run(cmd, capture_output=True, text=True,
                                  env=env, timeout=600, cwd=ROOT)
@@ -5450,17 +5877,23 @@ def main():
     # same programs: phase 8's geometry), before any other boot used it
     cluster_store = tempfile.mkdtemp(prefix="repro_cluster_store_")
     with phase("warm_boot") as out:
+        # full width, cut in depth (STORE_LAYERS): K2 7 a layer and the
+        # head, K1 a layer an admission; mamba2 K2 2 a layer and the head,
+        # K4 a layer an admission
+        lq, lm = STORE_LAYERS["qwen3-0.6b"], STORE_LAYERS["mamba2-130m"]
+        q_step = lq * sum(c for _, c in per_layer) + 1
+        m_step = lm * sum(c for _, c in ssm_layer) + 1
         warm_boot(out, "qwen3-0.6b", phase8_plens, phase8_arrivals,
-                  {"matmul": (per_step, per_step),
-                   "flash_attention": (0, n_layers), "moe_ffn": (0, 0),
+                  {"matmul": (q_step, q_step),
+                   "flash_attention": (0, lq), "moe_ffn": (0, 0),
                    "ssd_scan": (0, 0), "rglru_scan": (0, 0)},
-                  keep_store=cluster_store)
+                  keep_store=cluster_store, n_layers=lq)
         # the torn entry on qwen3 alone: the script's time
         warm_boot(out, "mamba2-130m", phase8_plens, phase8_arrivals,
-                  {"matmul": (ssm_per_step, ssm_per_step),
+                  {"matmul": (m_step, m_step),
                    "flash_attention": (0, 0), "moe_ffn": (0, 0),
-                   "ssd_scan": (0, ssm.n_layers), "rglru_scan": (0, 0)},
-                  torn=False)
+                   "ssd_scan": (0, lm), "rglru_scan": (0, 0)},
+                  torn=False, n_layers=lm)
 
     # -- 24. Table 1 ---------------------------------------------------------
     with phase("table1") as out:
@@ -5750,6 +6183,26 @@ def main():
         print(f"train: {trained['seconds']:.1f} s in its process ({smi})",
               flush=True)
 
+    # -- 31. MoE training, in a process of its own -----------------------
+    with phase("train_moe") as out:
+        gc.collect()
+        torch.cuda.empty_cache()
+        res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--train-moe"], capture_output=True,
+                             text=True, env=env, timeout=600, cwd=ROOT)
+        lines = res.stdout.strip().splitlines()
+        for line in lines[:-1]:
+            print(line, flush=True)
+        if res.returncode != 0 or not lines:
+            raise AssertionError(f"phase 31's process failed "
+                                 f"({res.returncode}): {res.stderr[-4000:]}")
+        trained_moe = json.loads(lines[-1])
+        out.update(trained_moe)
+        path_launches["olmoe-1b-7b/train"] = trained_moe["launches"]
+        path_routes["olmoe-1b-7b/train"] = trained_moe["launches_by_route"]
+        print(f"train_moe: {trained_moe['seconds']:.1f} s in its process "
+              f"({smi})", flush=True)
+
     def total(name):
         return sum(path[name] for path in path_launches.values())
 
@@ -5778,6 +6231,26 @@ def main():
         "per": "one call: bf16 causal, B 4, S 1024, H 16, Hk 8, D 128",
         "build": RECORD["phases"][1].get("k1_backward_kernels"),
         "cases": k1_bwd}
+    # phase 31's backward record: K3's backward kernel at olmoe's training
+    # shape (its other cases beside it)
+    k3_bwd = trained_moe["k3_backward"]
+    k3_backward = {
+        "source": "src/repro_torch/kernels/csrc/moe_ffn_bwd.cu",
+        "route": k3_bwd[0]["route"],
+        "launches": trained_moe["launches_by_route"]["moe_ffn"]["bwd_simt"],
+        "launches_by_route": {
+            "bwd_simt": trained_moe["launches_by_route"]["moe_ffn"]
+            ["bwd_simt"]},
+        "max_abs_err": max(max(c["max_abs_err"].values()) for c in k3_bwd),
+        **{key: k3_bwd[0][key] for key in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms",
+                                           "yardstick_bmm_ms")},
+        "per": f"one call: bf16 E {k3_bwd[0]['E']}, C {k3_bwd[0]['C']}, d "
+               f"{k3_bwd[0]['d']}, f {k3_bwd[0]['f']} ({k3_bwd[0]['live_rows']}"
+               f" live rows: 4,096 tokens routed top-8)",
+        "build": RECORD["phases"][1].get("k3_backward_kernels"),
+        "forward_at_training_capacity": trained_moe["k3_forward_c640"],
+        "cases": k3_bwd}
     k2_grad = trained["k2_gradient"]
     k2_backward = {
         "launches": trained["launches"]["matmul"],
@@ -5879,7 +6352,7 @@ def main():
          "admission": k3["admission"], "bits_equal_to_C4": k3_bits,
          "qwen3_moe_30b_a3b": moe30["k3_timed"],
          "table2_call": table2["k3_call"],
-         "build": k3_build},
+         "build": k3_build, "backward": k3_backward},
         {"name": "ssd_scan", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:65",
@@ -5926,6 +6399,8 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:] == ["--train"]:
         sys.exit(train_phase())
+    if sys.argv[1:] == ["--train-moe"]:
+        sys.exit(train_moe_phase())
     if sys.argv[1:] == ["--serve-qwen3-moe"]:
         sys.exit(serve_qwen3_moe())
     if sys.argv[1:] == ["--serve-autotune"]:

@@ -15,7 +15,7 @@ Run from the repository root (``PYTHONPATH=src``)::
 
     python -m repro_torch.bench.boot --store-dir DIR [--arch qwen3-0.6b]
         [--full] [--device cuda] [--prompt-lens 16,200,57]
-        [--arrivals 0,0,0] [--max-new 32]
+        [--arrivals 0,0,0] [--max-new 32] [--layers N]
 
 boots cold over ``DIR`` in this process, then runs itself with ``--warm``
 in a fresh one, and prints one JSON line: ``{"cold": {...}, "warm":
@@ -104,12 +104,15 @@ def run_boot(arch: str, store_dir, *, full: bool = False,
              device: str = "cuda", batch: int = 4, max_len: int = 512,
              prefill_len: Optional[int] = None, seed: int = 0,
              prompt_lens: Sequence[int] = (16, 200, 57, 120),
-             arrivals: Optional[Sequence[float]] = None, max_new: int = 8
+             arrivals: Optional[Sequence[float]] = None, max_new: int = 8,
+             n_layers: Optional[int] = None
              ) -> Tuple[ServingEngine, Dict[str, object]]:
     """Boot an engine over the store at ``store_dir``, serve the workload
-    and return the engine and the boot's record."""
+    and return the engine and the boot's record; ``n_layers`` cuts the
+    model's depth (``EngineConfig.n_layers``)."""
     config = EngineConfig(reduced=not full, batch=batch, max_len=max_len,
-                          prefill_len=prefill_len, clock="step", seed=seed)
+                          prefill_len=prefill_len, clock="step", seed=seed,
+                          n_layers=n_layers)
     arrivals = arrivals if arrivals is not None else [0] * len(prompt_lens)
     with EntryPointCounter() as counter:
         t0 = time.perf_counter()
@@ -130,7 +133,8 @@ def run_boot(arch: str, store_dir, *, full: bool = False,
                 for k, p in eng.syscore.report()["programs"].items()}
     for k, p in programs.items():
         p["export_s"] = eng.programs[k].stats.export_s
-    record = {"arch": arch, "full": full, "batch": batch,
+    record = {"arch": arch, "full": full, "n_layers": eng.cfg.n_layers,
+              "batch": batch,
               "max_len": max_len, "prefill_len": eng.prefill_len,
               "boot_s": boot_s, "programs": programs,
               "store": eng.syscore.store.report(),
@@ -164,6 +168,8 @@ def main(argv=None) -> int:
     ap.add_argument("--prompt-lens", default="16,200,57,120")
     ap.add_argument("--arrivals", default=None)
     ap.add_argument("--max-new", type=int, default=8)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the model to its first LAYERS layers")
     ap.add_argument("--warm", action="store_true",
                     help="boot warm from the store alone and print it")
     args = ap.parse_args(argv)
@@ -173,7 +179,7 @@ def main(argv=None) -> int:
               max_len=max_len, prefill_len=args.prefill_len, seed=args.seed,
               prompt_lens=prompt_lens,
               arrivals=_ints(args.arrivals) if args.arrivals else None,
-              max_new=args.max_new)
+              max_new=args.max_new, n_layers=args.layers)
     if args.warm:
         eng, record = run_boot(args.arch, args.store_dir, **kw)
         record["decode_replay_device_ms"] = decode_replay_ms(eng)

@@ -124,6 +124,10 @@ class EngineConfig:
         Tests ask for ``"cpu"``.
     store_dir: a :class:`~repro_torch.core.program_store.ProgramStore`
         directory the engine boots from and writes back into.
+    n_layers: the model cut to its first ``n_layers`` layers, its width
+        kept; ``None`` serves the config's own depth.  A depth cut is a
+        measurement's choice (a run's time on the card), never the
+        model's: the programs' fingerprints and the weights follow it.
     """
     reduced: bool = True
     batch: int = 4
@@ -140,8 +144,11 @@ class EngineConfig:
     prefix: Optional[PrefixConfig] = None
     spec: Optional[SpecConfig] = None
     horizon: Optional[HorizonConfig] = None
+    n_layers: Optional[int] = None
 
     def __post_init__(self):
+        if self.n_layers is not None and self.n_layers < 1:
+            raise ValueError(f"n_layers must be >= 1: {self.n_layers}")
         if self.clock not in ("wall", "step"):
             raise ValueError(f"clock must be 'wall' or 'step': {self.clock!r}")
         if not 0 < self.resolved_prefill_len < self.max_len:

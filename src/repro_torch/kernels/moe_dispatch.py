@@ -17,10 +17,18 @@ block's shared memory cannot hold the hidden: (32 + f) x 16 rows of fp32
 must fit in 227 KB, so f <= 3,600).  ``moe_ffn.launches`` counts calls
 that launched (one per call, whatever the route),
 ``moe_ffn.launches_by_route`` the same by route.
+
+The operator has a gradient: :func:`moe_ffn_bwd`, the
+``repro_torch::moe_ffn_bwd`` operator, whose CUDA kernel is in
+``csrc/moe_ffn_bwd.cu`` (its header gives the design and what bounds it)
+and whose CPU kernel is :func:`moe_ffn_bwd_ref`.  It recomputes the hidden
+from the forward's inputs (nothing else is saved) and runs three passes on
+the CUDA cores at any dtype, d and f (route "bwd_simt"); a call counts
+once, in ``launches`` and under its route.  ``counts`` takes no gradient.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -29,6 +37,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.matmul import tma_error
 
 ROUTES = ("wgmma", "simt")
+BWD_ROUTES = ("bwd_simt",)
+# the counters' keys: the forward's routes and the backward's
+COUNTED = ROUTES + BWD_ROUTES
 # the wgmma route (csrc/moe_ffn.cu, namespace moe_tc): 64 weight columns
 # and 64 of k a slab; token rows a block from TILE_ROWS; a ring of 4
 # (gate/up, two weight slabs a stage) or 6 (down) stages; epilogue staging
@@ -172,5 +183,116 @@ def _(buf, w1, w3, w2, counts):
     return buf.new_empty(buf.shape)
 
 
+def _live(counts: Optional[torch.Tensor], e: int, c: int, device):
+    """(E, C, 1) bool: the rows below each expert's count (all of them
+    without counts)."""
+    if counts is None:
+        return torch.ones((e, c, 1), dtype=torch.bool, device=device)
+    rows = torch.arange(c, device=device)
+    return (rows[None, :] < counts.to(device)[:, None])[..., None]
+
+
+def moe_ffn_bwd_ref(buf: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
+                    w2: torch.Tensor, dy: torch.Tensor,
+                    counts: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                               torch.Tensor]:
+    """Plain version of K3's gradient, with the kernel's rounding points:
+    G = X W1, U = X W3 and dH = dY W2^T as fp32 products of the operands;
+    H = silu(G) U, dG = dH U s (1 + G (1 - s)) (s = sigmoid(G)) and
+    dU = dH silu(G) computed in fp32 and rounded to buf's dtype; then
+    dX = dG W1^T + dU W3^T, dW1 = X^T dG, dW3 = X^T dU and dW2 = H^T dY as
+    fp32 products of those rounded values, each rounded to the dtype once.
+    Rows at or past ``counts[e]`` carry no gradient: their dX is zero and
+    they add nothing to the weight gradients.  Returns (dbuf, dw1, dw3,
+    dw2)."""
+    dt = buf.dtype
+    e, c, _ = buf.shape
+    live = _live(counts, e, c, buf.device)
+    x = torch.where(live, buf.float(), 0.0)
+    dyf = torch.where(live, dy.float(), 0.0)
+    w1f, w3f, w2f = w1.float(), w3.float(), w2.float()
+    g, u = torch.matmul(x, w1f), torch.matmul(x, w3f)
+    dh = torch.matmul(dyf, w2f.transpose(1, 2))
+    s = torch.sigmoid(g)
+    silu = g * s
+    h = (silu * u).to(dt).float()
+    dg = (dh * u * (s * (1 + g * (1 - s)))).to(dt).float()
+    du = (dh * silu).to(dt).float()
+    dx = torch.matmul(dg, w1f.transpose(1, 2)) + \
+        torch.matmul(du, w3f.transpose(1, 2))
+    dx = torch.where(live, dx, 0.0)
+    dw1 = torch.matmul(x.transpose(1, 2), dg)
+    dw3 = torch.matmul(x.transpose(1, 2), du)
+    dw2 = torch.matmul(h.transpose(1, 2), dyf)
+    return dx.to(dt), dw1.to(dt), dw3.to(dt), dw2.to(dt)
+
+
+def moe_ffn_bwd(buf: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
+                w2: torch.Tensor, dy: torch.Tensor,
+                counts: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                           torch.Tensor]:
+    """(dbuf, dw1, dw3, dw2) of ``moe_ffn(buf, w1, w3, w2, counts)`` for
+    the output gradient ``dy`` (shaped as buf), through the
+    ``repro_torch::moe_ffn_bwd`` operator."""
+    _check(buf, w1, w3, w2, counts)
+    if dy.shape != buf.shape or dy.dtype != buf.dtype or \
+            dy.device != buf.device or not dy.is_contiguous():
+        raise ValueError(f"moe_ffn_bwd takes a contiguous dy of buf's shape "
+                         f"{tuple(buf.shape)}, dtype and device; got "
+                         f"{tuple(dy.shape)} {dy.dtype} on {dy.device}")
+    return _moe_ffn_bwd_op(buf, w1, w3, w2, dy, counts)
+
+
+@torch.library.custom_op("repro_torch::moe_ffn_bwd", mutates_args=(),
+                         device_types="cuda")
+def _moe_ffn_bwd_op(buf: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
+                    w2: torch.Tensor, dy: torch.Tensor,
+                    counts: Optional[torch.Tensor]
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                               torch.Tensor]:
+    """The CUDA implementation: launch the backward's three passes on the
+    current stream, over (E, C, f) scratch for H, dG and dU."""
+    e, c, d = buf.shape
+    f = w1.shape[2]
+    lib = _build.library()
+    h, dg, du = (torch.empty((e, c, f), dtype=buf.dtype, device=buf.device)
+                 for _ in range(3))
+    dx, dw1, dw3, dw2 = (torch.empty_like(t) for t in (buf, w1, w3, w2))
+    err = lib.repro_moe_ffn_bwd(
+        buf.data_ptr(), w1.data_ptr(), w3.data_ptr(), w2.data_ptr(),
+        counts.data_ptr() if counts is not None else None, dy.data_ptr(),
+        h.data_ptr(), dg.data_ptr(), du.data_ptr(), dx.data_ptr(),
+        dw1.data_ptr(), dw3.data_ptr(), dw2.data_ptr(), e, c, d, f,
+        _build.DTYPE_CODES[buf.dtype], _build.stream_handle())
+    _build.check(err, "moe_ffn_bwd")
+    moe_ffn.launches += 1
+    moe_ffn.launches_by_route["bwd_simt"] += 1
+    return dx, dw1, dw3, dw2
+
+
+@_moe_ffn_bwd_op.register_kernel("cpu")
+def _(buf, w1, w3, w2, dy, counts):
+    return tuple(t.contiguous() for t in moe_ffn_bwd_ref(buf, w1, w3, w2, dy,
+                                                         counts))
+
+
+@_moe_ffn_bwd_op.register_fake
+def _(buf, w1, w3, w2, dy, counts):
+    return tuple(t.new_empty(t.shape) for t in (buf, w1, w3, w2))
+
+
+def _setup_context(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _backward(ctx, dy):
+    buf, w1, w3, w2, counts = ctx.saved_tensors
+    return (*moe_ffn_bwd(buf, w1, w3, w2, dy.contiguous(), counts), None)
+
+
+_moe_ffn_op.register_autograd(_backward, setup_context=_setup_context)
+
 moe_ffn.launches = 0
-moe_ffn.launches_by_route = dict.fromkeys(ROUTES, 0)
+moe_ffn.launches_by_route = dict.fromkeys(COUNTED, 0)

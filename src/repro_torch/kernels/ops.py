@@ -3,8 +3,9 @@
 There is no implementation switch: the device of the tensors decides.  A
 CPU tensor takes the kernel's plain PyTorch version; a CUDA tensor launches
 the hand-written Hopper kernel or raises.  Every TPU kernel of the
-reference has its counterpart here (K1-K5), and K1 and K2 have gradients
-(K1's backward counts under K1, routes "bwd_wgmma" and "bwd_simt").
+reference has its counterpart here (K1-K5), and K1, K2 and K3 have
+gradients (K1's backward counts under K1, routes "bwd_wgmma" and
+"bwd_simt"; K3's under K3, route "bwd_simt").
 """
 from __future__ import annotations
 
@@ -15,7 +16,8 @@ from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_bwd_ref,
                                                  flash_attention_ref)
 from repro_torch.kernels.matmul import matmul, matmul_ref
-from repro_torch.kernels.moe_dispatch import moe_ffn, moe_ffn_ref
+from repro_torch.kernels.moe_dispatch import (moe_ffn, moe_ffn_bwd,
+                                              moe_ffn_bwd_ref, moe_ffn_ref)
 from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_ref
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
 
@@ -25,7 +27,8 @@ KERNELS = {"matmul": matmul, "flash_attention": flash_attention,
 
 __all__ = ["matmul", "matmul_ref", "flash_attention", "flash_attention_ref",
            "flash_attention_bwd", "flash_attention_bwd_ref",
-           "moe_ffn", "moe_ffn_ref", "ssd_scan", "ssd_scan_ref",
+           "moe_ffn", "moe_ffn_ref", "moe_ffn_bwd", "moe_ffn_bwd_ref",
+           "ssd_scan", "ssd_scan_ref",
            "rglru_scan", "rglru_scan_ref", "KERNELS", "launch_counts",
            "route_counts", "reset_launch_counts", "add_launch_counts"]
 

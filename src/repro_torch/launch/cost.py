@@ -7,9 +7,9 @@ function the Syscore captures.  So :func:`count` runs the function once
 on ``meta`` tensors (shapes and dtypes, no storage) under a
 ``TorchDispatchMode`` that sees every ATen operator and every one of the
 five kernels' custom operators (``repro_torch::{matmul,flash_attention,
-moe_ffn,ssd_scan,rglru_scan}``, and K1's gradient
-``flash_attention_bwd``), and adds up what each costs.  On
-``meta`` the kernels' registered fakes run, never their CUDA
+moe_ffn,ssd_scan,rglru_scan}``, and K1's and K3's gradients
+``flash_attention_bwd`` and ``moe_ffn_bwd``), and adds up what each
+costs.  On ``meta`` the kernels' registered fakes run, never their CUDA
 implementations: counting launches nothing, moves no launch counter and
 allocates no device memory.
 
@@ -30,6 +30,9 @@ FLOPs:
 - K3 ``moe_ffn`` buf (E, C, d), w1/w3 (E, d, f): 6·E·C·d·f over the whole
   capacity buffer.  On ``meta`` no routing is known, so rows the router
   leaves empty are counted as if full: an upper bound of the work;
+- K3's gradient ``moe_ffn_bwd``: 16·E·C·d·f over the whole buffer, as
+  above: the recompute of the gate and up products (4), dH = dY·W2ᵀ (2),
+  dX through w1 and w3 (4) and the three weight gradients (6);
 - K4 ``ssd_scan`` x (B, S, H, P), b/c (B, S, N), chunks of Q: per batch row,
   head and chunk 2·Q²·(N + P) (the decay-masked C·Bᵀ and its product with
   x) + 4·Q·N·P (the inter-chunk output and the state update), as the
@@ -136,6 +139,12 @@ def _moe(args):
     return 6.0 * e * c * d * w1.shape[2]
 
 
+def _moe_bwd(args):
+    buf, w1 = args[0], args[1]
+    e, c, d = buf.shape
+    return 16.0 * e * c * d * w1.shape[2]
+
+
 def _ssd(args):
     x, b, chunk = args[0], args[3], args[6]
     bsz, s, h, p = x.shape
@@ -157,6 +166,7 @@ _PRODUCTS: Dict[str, Callable] = {
     "repro_torch::flash_attention": _flash,
     "repro_torch::flash_attention_bwd": _flash_bwd,
     "repro_torch::moe_ffn": _moe,
+    "repro_torch::moe_ffn_bwd": _moe_bwd,
     "repro_torch::ssd_scan": _ssd,
     "repro_torch::rglru_scan": _rglru,
 }

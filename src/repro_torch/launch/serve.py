@@ -199,6 +199,8 @@ class ServingEngine:
         self.trace = trace
         self.reduced = config.reduced
         self.cfg = registry.get_config(arch, reduced=config.reduced)
+        if config.n_layers is not None:
+            self.cfg = self.cfg.replace(n_layers=config.n_layers)
         if self.cfg.is_encdec:
             # as the reference's engine (repro/launch/serve.py) asserts
             raise ValueError(

@@ -15,6 +15,15 @@ the combine adds each token's expert outputs one after another in
 ascending expert id, mirroring the reference's expert-major scatter-add.
 No step syncs with the host.
 
+The layer trains: K3's gradient is its backward kernel
+(``kernels.ops.moe_ffn_bwd``), the router's goes through K2's, and the
+softmax, top-k, renormalisation, combine and the Switch auxiliary loss
+(through ``probs.mean(0)``, as in the reference) differentiate through
+PyTorch's autograd.  The dispatch's gradient is written as a gather
+(:class:`_Dispatch`): each token's kept slots in ascending expert id,
+summed in fp32 one after another as the combine is, so that no scatter-add
+decides the order of a token's sum.
+
 The reference's expert-parallel ``shard_map`` path (experts sharded over a
 ``model`` mesh axis) comes with tensor-parallel serving (ROADMAP Queue 1
 item 13); until then the port runs all experts in one shard.
@@ -56,6 +65,28 @@ def top_k(probs: torch.Tensor, k: int
     return top_p[:, :k], top_i[:, :k]
 
 
+class _Dispatch(torch.autograd.Function):
+    """buf = xf[src] * occ: the routed token rows in the (E, C, d) buffer.
+    Its gradient is a gather: token t's dx is the sum of dbuf at its kept
+    slots (``experts``, ``rows``, ``kept``: (T, k), its choices in
+    ascending expert id), in fp32, one slot after another."""
+
+    @staticmethod
+    def forward(ctx, xf, src, occ, experts, rows, kept):
+        ctx.save_for_backward(experts, rows, kept)
+        return xf[src] * occ[..., None].to(xf.dtype)
+
+    @staticmethod
+    def backward(ctx, dbuf):
+        experts, rows, kept = ctx.saved_tensors
+        part = dbuf[experts, rows].float()                    # (T, k, d)
+        part = torch.where(kept[..., None], part, torch.zeros_like(part))
+        dx = part[:, 0]
+        for j in range(1, part.shape[1]):
+            dx = dx + part[:, j]
+        return dx.to(dbuf.dtype), None, None, None, None, None
+
+
 def _moe_local(cfg, x, router, w_gate, w_up, w_down, *,
                capacity: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The single-shard body.  x: (B, S, d) -> ((B, S, d), aux)."""
@@ -90,16 +121,18 @@ def _moe_local(cfg, x, router, w_gate, w_up, w_down, *,
     occ = torch.zeros((n_exp, capacity + 1), dtype=torch.bool,
                       device=x.device).scatter_(1, slot.t(), keep.t())
     src, occ = src[:, :capacity], occ[:, :capacity]
-    buf = xf[src] * occ[..., None].to(x.dtype)                # (E, C, d)
+    # each token's choices in ascending expert id: their slots and whether
+    # they were kept (the combine's order, and the dispatch gradient's)
+    experts, order = torch.sort(top_i, dim=-1)
+    kept = torch.gather(keep, 1, experts)
+    rows = torch.gather(slot, 1, experts).clamp(max=capacity - 1)
+    buf = _Dispatch.apply(xf, src, occ, experts, rows, kept)  # (E, C, d)
     counts = occ.sum(1, dtype=torch.int32)   # kept rows fill slots 0..n-1
     y = ops.moe_ffn(buf, w_gate, w_up, w_down, counts)        # (E, C, d)
 
     # combine: each token's kept choices in ascending expert id, y * gate
     # in the activation dtype, summed one after another in fp32
-    experts, order = torch.sort(top_i, dim=-1)
     gate = torch.gather(top_p, 1, order).to(y.dtype)          # (T, k)
-    kept = torch.gather(keep, 1, experts)
-    rows = torch.gather(slot, 1, experts).clamp(max=capacity - 1)
     part = (y[experts, rows] * gate[..., None]).float()       # (T, k, d)
     part = torch.where(kept[..., None], part, torch.zeros_like(part))
     out = part[:, 0]

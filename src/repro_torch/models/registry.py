@@ -93,7 +93,7 @@ def cell_spec(arch_id: str, shape_id: str, *, reduced: bool = False,
     generator to draw from), the caches, and the per-call inputs of
     :func:`build_step_fn`'s program; a ``train`` cell's are the train
     state (parameters, fp32 moments, step) and the batch, for the dense
-    family (the others raise: ROADMAP Queue 1 item 14b).  The
+    and MoE families (the others raise: ROADMAP Queue 1 item 14b).  The
     reference's ``attn_impl`` and ``cache_heads`` knobs are sharding
     switches (ROADMAP Queue 1 item 13); ``remat`` replaces the config's
     ``remat_policy`` (nothing, dots or full)."""

@@ -385,8 +385,10 @@ def _apply_attn(cfg, p: Params, x: torch.Tensor, *, mode: str, cache,
 
 def apply_layer(cfg, kind: str, p: Params, x, *, mode: str, cache, pos,
                 paged=None, live=None):
-    """One layer.  In decode mode ``live`` (B,) bool (``None``: every row)
-    freezes the other rows' cache: no KV write, no recurrent update."""
+    """One layer: (x, new cache, aux), aux the MoE layer's auxiliary loss
+    (None for the other layers).  In decode mode ``live`` (B,) bool
+    (``None``: every row) freezes the other rows' cache: no KV write, no
+    recurrent update."""
     if mode == "suffix" and kind not in ATTN_KINDS:
         raise ValueError(f"a suffix at an offset needs attention-only "
                          f"layers: a {kind!r} layer's state would have to "
@@ -405,19 +407,15 @@ def apply_layer(cfg, kind: str, p: Params, x, *, mode: str, cache, pos,
     else:
         raise NotImplementedError(f"layer kind {kind!r} is not one the port "
                                   f"carries ({', '.join(LAYER_KINDS)})")
+    aux = None
     if cfg.d_ff > 0:
         xn = apply_rmsnorm(p["ffn_ln"], x, cfg.norm_eps)
         if cfg.family == "moe":
-            if mode == "train":
-                raise NotImplementedError(
-                    "MoE training (K3's backward kernel and the router's "
-                    "auxiliary loss) is not ported yet (ROADMAP Queue 1 "
-                    "item 14b)")
-            out, _ = moe_mod.apply_moe(cfg, p["moe"], xn)
+            out, aux = moe_mod.apply_moe(cfg, p["moe"], xn)
         else:
             out = apply_mlp(p["mlp"], xn)
         x = x + out
-    return x, new_cache
+    return x, new_cache, aux
 
 
 def _index(tree, i: int):
@@ -436,14 +434,14 @@ def _run_stack(cfg, params, x, *, mode: str, caches, pos, paged=None,
         gc = _index(caches["groups"], layer)
         for i, kind in enumerate(unit):
             slot = f"slot{i}"
-            x, _ = apply_layer(cfg, kind, gp[slot], x, mode=mode,
-                               cache=gc[slot], pos=pos, paged=paged,
-                               live=live)
+            x, _, _ = apply_layer(cfg, kind, gp[slot], x, mode=mode,
+                                  cache=gc[slot], pos=pos, paged=paged,
+                                  live=live)
     for i, kind in enumerate(tail):
         name = f"tail{i}"
-        x, _ = apply_layer(cfg, kind, params["tail"][name], x, mode=mode,
-                           cache=caches["tail"][name], pos=pos,
-                           paged=paged, live=live)
+        x, _, _ = apply_layer(cfg, kind, params["tail"][name], x,
+                              mode=mode, cache=caches["tail"][name], pos=pos,
+                              paged=paged, live=live)
     return x, caches
 
 
@@ -484,25 +482,39 @@ def _maybe_remat(cfg, fn):
     return remat
 
 
+def _add_aux(total, aux):
+    if aux is None:
+        return total
+    return aux if total is None else total + aux
+
+
 def _run_stack_train(cfg, params, x):
     """The training forward's layers: each stacked group under
     :func:`_maybe_remat`, then the tail, no cache.  Returns (x, aux), aux
-    0 for the dense family (MoE training raises in :func:`apply_layer`)."""
+    the sum of the MoE layers' auxiliary losses in layer order, as the
+    reference's scan carries it (a 0-dim fp32 zero without MoE layers)."""
     unit, n_groups, tail = split_layers(cfg)
 
     def group(x, gp):
+        aux = None
         for i, kind in enumerate(unit):
-            x, _ = apply_layer(cfg, kind, gp[f"slot{i}"], x, mode="train",
-                               cache=None, pos=None)
-        return x
+            x, _, a = apply_layer(cfg, kind, gp[f"slot{i}"], x, mode="train",
+                                  cache=None, pos=None)
+            aux = _add_aux(aux, a)
+        return x, aux
 
     body = _maybe_remat(cfg, group)
+    aux = None
     for layer in range(n_groups):
-        x = body(x, _index(params["groups"], layer))
+        x, a = body(x, _index(params["groups"], layer))
+        aux = _add_aux(aux, a)
     for i, kind in enumerate(tail):
-        x, _ = apply_layer(cfg, kind, params["tail"][f"tail{i}"], x,
-                           mode="train", cache=None, pos=None)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+        x, _, a = apply_layer(cfg, kind, params["tail"][f"tail{i}"], x,
+                              mode="train", cache=None, pos=None)
+        aux = _add_aux(aux, a)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 @functools.lru_cache(maxsize=None)
@@ -552,8 +564,9 @@ def forward(cfg, params, tokens, *, prefix_embeds=None,
     ``mode="train"`` is the training forward (``caches`` None): every
     position at once through K1 (causal, the layer's window), no cache,
     each layer group under the config's ``remat_policy``.  It returns the
-    reference's triple (logits, None, aux), aux a 0-dim fp32 zero for the
-    dense family (MoE, SSM and RG-LRU training raise: ROADMAP item 14b)."""
+    reference's triple (logits, None, aux), aux the MoE layers' summed
+    auxiliary loss, a 0-dim fp32 zero for the dense family (SSM and
+    RG-LRU training raise: ROADMAP item 14b)."""
     check_supported(cfg)
     if mode == "train":
         if caches is not None or lengths is not None:

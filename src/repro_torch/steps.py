@@ -377,14 +377,14 @@ def model_module(cfg):
 
 def train_unsupported(cfg) -> Optional[str]:
     """Why the port cannot train ``cfg`` yet, or None: the training step
-    covers the dense decoder-only family ("G" and "L" layers with the
-    SwiGLU MLP, a frontend's prefix included); MoE, SSM, RG-LRU and
-    encoder-decoder training wait for ROADMAP Queue 1 item 14b."""
+    covers the decoder-only models of "G" and "L" layers, with the SwiGLU
+    MLP (the dense family, a frontend's prefix included) or a mixture of
+    experts (K3's backward kernel, the router's gradient and auxiliary
+    loss); SSM, RG-LRU and encoder-decoder training wait for ROADMAP
+    Queue 1 item 14b."""
     unit, _, tail = transformer.split_layers(cfg)
     kinds = sorted(set(unit + tail) - set(transformer.ATTN_KINDS))
     what = ("an encoder-decoder model" if cfg.is_encdec
-            else "a mixture of experts (K3's backward, the router's "
-                 "auxiliary loss)" if cfg.n_experts
             else f"layer kinds {', '.join(kinds)} (K4's or K5's backward)"
             if kinds else None)
     if what is None:
@@ -415,8 +415,8 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, accum: int = 1,
     state = {"params": ..., "opt": {"m", "v", "step"}}; batch =
     {"tokens" (B, S_tok), "labels" (B, S)[, "prefix_embeds" (B, P, d)]}.
     The gradients are ``torch.autograd.grad`` of the loss over the
-    parameter leaves (K2's gradient products and K1's backward kernel on
-    the card); AdamW then writes the parameters, moments and step in
+    parameter leaves (K2's gradient products and K1's and K3's backward
+    kernels on the card); AdamW then writes the parameters, moments and step in
     place (:func:`repro_torch.optim.adamw_update_`).  metrics = {"loss",
     "grad_norm", "lr"}, 0-dim device tensors.  Nothing waits for the host,
     so on the card the Syscore captures the step as one CUDA graph.

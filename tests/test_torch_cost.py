@@ -196,6 +196,34 @@ def test_kernel_formulas_and_bytes():
     assert set(cost.by_op) == {"repro_torch::flash_attention_bwd"}
 
 
+def test_moe_gradient_counts_sixteen_e_c_d_f():
+    """K3's gradient through its operator's fake: 16·E·C·d·f (the
+    recompute 4, dH 2, dX 4, the weight gradients 6), each input read and
+    each output written once."""
+    buf, w1, w3, w2, dy = (_meta(6, 4, 64), _meta(6, 64, 32),
+                           _meta(6, 64, 32), _meta(6, 32, 64),
+                           _meta(6, 4, 64))
+    cost, grads = count(ops.moe_ffn_bwd, buf, w1, w3, w2, dy)
+    assert cost.flops == 16 * 6 * 4 * 64 * 32
+    assert cost.bytes_ideal == _nbytes(buf, w1, w3, w2, dy, *grads)
+    assert set(cost.by_op) == {"repro_torch::moe_ffn_bwd"}
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "qwen3-moe-30b-a3b"])
+def test_moe_train_cell_counts_k3_and_its_gradient(arch):
+    """An MoE train cell is counted through its train program: under remat
+    "nothing" K3 runs twice a layer (forward and recompute) and its
+    gradient once, at 16/6 of a forward call's FLOPs."""
+    spec = registry.cell_spec(arch, "train_4k", reduced=True)
+    assert spec.kind == "train" and spec.cfg.remat_policy == "nothing"
+    cost, _ = count(registry.build_step_fn(spec), *spec.abstract_args)
+    fwd = cost.by_op["repro_torch::moe_ffn"]
+    bwd = cost.by_op["repro_torch::moe_ffn_bwd"]
+    n = spec.cfg.n_layers
+    assert (fwd["calls"], bwd["calls"]) == (2 * n, n)
+    assert bwd["flops"] * 6 == fwd["flops"] / 2 * 16
+
+
 @pytest.mark.parametrize("remat,recomputed,fa_recomputed", [
     ("full", 0, 0), ("nothing", 1, 1), ("dots", 0, 1)])
 def test_train_cell_counts_three_times_the_forward_products(

@@ -172,7 +172,7 @@ def test_route_counts_start_at_zero_and_reset():
     assert ops.route_counts() == {
         "flash_attention": {"wgmma": 0, "simt": 0, "bwd_wgmma": 0,
                             "bwd_simt": 0},
-        "moe_ffn": {"wgmma": 0, "simt": 0},
+        "moe_ffn": {"wgmma": 0, "simt": 0, "bwd_simt": 0},
         "ssd_scan": {"wgmma": 0, "simt": 0}}
     # CPU tensors take the plain versions and launch nothing
     q = torch.zeros((2, 4, 128), dtype=torch.bfloat16)
