@@ -13,8 +13,9 @@ and the script exits non-zero:
 2. build    compiles the CUDA kernels from ``kernels/csrc`` with nvcc, one
             process per source, all started together; prints the
             registers, shared memory and spills (``-Xptxas -v``) of K2's
-            kernels, of K1's (forward and backward), K3's and K4's wgmma
-            kernels and of K5 and K3's backward (CUDA cores), and fails unless each of those bf16
+            kernels, of K1's and K3's (forward and backward) and K4's
+            wgmma kernels and of K5 and K3's backward route "bwd_simt"
+            (CUDA cores), and fails unless each of those bf16
             kernels' SASS holds HGMMA (``cuobjdump``), the wgmma ones
             spill nothing and each takes the shared memory its wrapper's
             Python mirror says;
@@ -379,9 +380,11 @@ and the script exits non-zero:
             --train-moe`` runs it alone): K3's backward against its plain
             version at olmoe-1b-7b's training shape (bf16, E 64, C 640, d
             2048, f 1024, the counts of 4,096 routed tokens), at
-            qwen3-moe-30b-a3b's (E 128, C 320, f 768) and a ragged fp32
-            call with an empty expert, each case's route ("bwd_simt") read
-            from the counters, the same bits on two runs, timed beside the
+            qwen3-moe-30b-a3b's (E 128, C 320, f 768) and a bf16 call with
+            NaN in buf and dy past every count (route "bwd_wgmma"), and a
+            ragged call with an empty expert in fp32 and in bf16 (route
+            "bwd_simt"), each case's route read from the counters, the same
+            bits on two runs, dbuf 0 past the counts, timed beside the
             plain version and a set of ``torch.bmm`` products; K3's forward
             at C 640 against its plain version; card == CPU for 3 fp32
             train steps of reduced olmoe-1b-7b; then olmoe-1b-7b at full
@@ -2259,11 +2262,20 @@ MOE_TRAIN_LAYERS = 4
 MOE_TRAIN_STEPS, MOE_TRAIN_CKPT_EVERY, MOE_TRAIN_FAIL_AT = 16, 8, 12
 # phase 31 (a)'s cases: (name, dtype, arch whose (E, d, f) and capacity at
 # 4,096 routed tokens give the shape, or an explicit (E, C, d, f) with its
-# counts)
+# counts, the route the call must take, and whether buf and dy hold NaN in
+# every row past each count).  The poisoned case's counts are not
+# multiples of 16 and one expert has no rows; the ragged shape keeps a
+# check of each dtype on the CUDA cores.
 K3_BACKWARD_CASES = (
-    ("olmoe-1b-7b", "bfloat16", MOE_TRAIN_ARCH, None),
-    ("qwen3-moe-30b-a3b", "bfloat16", "qwen3-moe-30b-a3b", None),
-    ("ragged", "float32", (5, 100, 200, 136), [100, 0, 37, 64, 99]))
+    ("olmoe-1b-7b", "bfloat16", MOE_TRAIN_ARCH, None, "bwd_wgmma", False),
+    ("qwen3-moe-30b-a3b", "bfloat16", "qwen3-moe-30b-a3b", None,
+     "bwd_wgmma", False),
+    ("poisoned", "bfloat16", (4, 192, 256, 192), [192, 0, 37, 101],
+     "bwd_wgmma", True),
+    ("ragged", "float32", (5, 100, 200, 136), [100, 0, 37, 64, 99],
+     "bwd_simt", False),
+    ("ragged", "bfloat16", (5, 100, 200, 136), [100, 0, 37, 64, 99],
+     "bwd_simt", False))
 K3_ROUTED_TOKENS = TRAIN_BATCH * TRAIN_SEQ
 
 
@@ -2304,7 +2316,9 @@ def k3_operands(torch, dt, e, c, d, f, counts):
 
 def k3_backward_passes(torch, call, iters=3):
     """Device ms of each of K3's backward passes in one call of ``call``
-    (the mean of ``iters``), from the profiler's kernel names."""
+    (the mean of ``iters``), from the profiler's kernel names
+    (``moe_bwd::hidden_kernel`` and ``moe_bwd::hidden_kernel_wgmma`` are
+    both pass 1, and so on)."""
     from torch.profiler import ProfilerActivity, profile
     out = {"hidden": 0.0, "dx": 0.0, "dw": 0.0}
     with profile(activities=[ProfilerActivity.CPU,
@@ -2324,13 +2338,156 @@ def k3_backward_passes(torch, call, iters=3):
     return out
 
 
-def k3_backward_case(torch, name, dname, shape, counts):
+# K3's wgmma backward against ``moe_ffn_bwd_ref``.  The route rounds H, dG
+# and dU to bf16 once, as the plain version does, but after fp32 sums taken
+# in the tensor cores' order, not cuBLAS's: a few of them land on the other
+# bf16 neighbour of the plain version's value (or, where a sum cancels to
+# near zero, lie a little further off), and one such step of a large dG,
+# times X, summed over hundreds of rows, moves a dW element near zero by
+# ~0.1, past MOE_TOL's 5e-2 + 5%, while the rest of dW stays within a bf16
+# unit.  So dX is held to MOE_TOL, each weight gradient normwise, and the
+# intermediates by the share of them that differ.  The control, the plain
+# version with dH rounded to bf16 before the SwiGLU gradient (a kernel
+# that rounds where the contract does not), must fail these limits.  Read
+# on an H100 at olmoe's, qwen3-moe's and the poisoned shape: the kernel
+# 3.5e-4 to 4.2e-4 normwise (1e-4 poisoned) and at most 0.32% off (dG);
+# the control 3.56e-3 on dW1 and dW3 (dW2 0: H does not see dH) and 26% of
+# dG and dU off.  Each limit lies near the geometric mean of the two.
+K3_DW_NORMWISE = 1.2e-3
+K3_SHARE_OFF = 0.02
+# G, U and dH are fp32 sums of ~2,048 products; two summation orders differ
+# by ~1e-5 where the sum cancels to near zero (there the sign may differ,
+# many bf16 steps apart).
+K3_INTERMEDIATE_ATOL = 1e-4
+
+
+def bf16_steps(torch, got, want, mask):
+    """(the largest distance in bf16 steps between ``got`` and ``want``,
+    bf16 tensors, where ``mask`` holds: 0 equal, 1 neighbours; the
+    largest |got - want| among the elements more than one step apart)."""
+    def ordered(t):
+        i = t.view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    steps = torch.where(mask, (ordered(got) - ordered(want)).abs(), 0)
+    far = (got.float() - want.float()).abs() * (steps > 1)
+    return int(steps.max()), float(far.max())
+
+
+def k3_plain_parts(torch, buf, w1, w3, w2, dy, n, dh_bf16=False):
+    """``moe_ffn_bwd_ref``'s function spelled out: ((H, dG, dU) rounded to
+    buf's dtype, (dbuf, dw1, dw3, dw2)).  With ``dh_bf16``, dH is rounded
+    to bf16 before the SwiGLU gradient: the control."""
+    dt = buf.dtype
+    c = buf.shape[1]
+    live = (torch.arange(c, device=buf.device)[None, :]
+            < n[:, None])[..., None]
+    x = torch.where(live, buf.float(), 0.0)
+    dyf = torch.where(live, dy.float(), 0.0)
+    w1f, w3f = w1.float(), w3.float()
+    g, u = torch.matmul(x, w1f), torch.matmul(x, w3f)
+    dh = torch.matmul(dyf, w2.float().transpose(1, 2))
+    if dh_bf16:
+        dh = dh.to(torch.bfloat16).float()
+    s = torch.sigmoid(g)
+    silu = g * s
+    mids = ((silu * u).to(dt), (dh * u * (s * (1 + g * (1 - s)))).to(dt),
+            (dh * silu).to(dt))
+    del g, u, dh, s, silu
+    h, dg, du = (m.float() for m in mids)
+    dx = torch.matmul(dg, w1f.transpose(1, 2)) + \
+        torch.matmul(du, w3f.transpose(1, 2))
+    xt = x.transpose(1, 2)
+    return mids, (torch.where(live, dx, 0.0).to(dt),
+                  torch.matmul(xt, dg).to(dt), torch.matmul(xt, du).to(dt),
+                  torch.matmul(h.transpose(1, 2), dyf).to(dt))
+
+
+def k3_backward_verdict(grads, mids, want, want_mids, live):
+    """One bf16 backward's (dbuf, dw1, dw3, dw2) and (H, dG, dU) against
+    the plain version's: dbuf's MOE_TOL violation, each weight gradient's
+    normwise error ||dW - want|| / ||want||, the share of the live rows'
+    H, dG and dU that differ from the plain version's, and the largest
+    |difference| among those more than one bf16 step apart; ``ok`` when
+    each is within its limit."""
+    import torch
+    viol, _ = max_violation(grads[0], want[0], MOE_TOL["bfloat16"])
+    normwise = {k: float((a.float() - w.float()).norm() / w.float().norm())
+                for k, a, w in zip(("dw1", "dw3", "dw2"), grads[1:], want[1:])}
+    mask = live.expand_as(mids[0])
+    n_live = int(mask.sum())
+    share, far = {}, {}
+    for k, a, w in zip(("H", "dG", "dU"), mids, want_mids):
+        share[k] = int(((a != w) & mask).sum()) / n_live
+        far[k] = bf16_steps(torch, a, w, mask)[1]
+    ok = viol <= 0 and max(normwise.values()) <= K3_DW_NORMWISE and \
+        max(share.values()) <= K3_SHARE_OFF and \
+        max(far.values()) <= K3_INTERMEDIATE_ATOL
+    return {"dbuf_violation": viol, "dw_normwise": normwise,
+            "intermediate_share_off": share,
+            "intermediate_max_abs_diff_past_one_step": far, "ok": ok}
+
+
+def k3_backward_contract(torch, buf, w1, w3, w2, dy, n, got, want, tol):
+    """K3's wgmma backward held to its contract on one call's operands, and
+    the control held to the same limits.  The C entry, called with scratch
+    of this check's own, gives ``got``'s four gradients bit for bit and
+    with them the H, dG and dU behind them; ``k3_backward_verdict`` reads
+    those against the plain version's; and dW1, dW3 and dW2 are within
+    ``tol`` of fp32 products of the kernel's own H, dG and dU (pass 3
+    element by element)."""
+    from repro_torch.kernels import _build
+    lib = _build.library()
+    e, c, d = buf.shape
+    f = w1.shape[2]
+    mine = [torch.zeros((e, c, f), dtype=buf.dtype, device="cuda")
+            for _ in range(3)]
+    outs = [torch.empty_like(t) for t in (buf, w1, w3, w2)]
+    err = lib.repro_moe_ffn_bwd_wgmma(
+        buf.data_ptr(), w1.data_ptr(), w3.data_ptr(), w2.data_ptr(),
+        n.data_ptr(), dy.data_ptr(), *[t.data_ptr() for t in mine],
+        *[t.data_ptr() for t in outs], e, c, d, f, _build.stream_handle())
+    torch.cuda.synchronize()
+    if err:
+        raise AssertionError(f"repro_moe_ffn_bwd_wgmma: {err} "
+                             f"{lib.repro_refusal()}")
+    live = (torch.arange(c, device="cuda")[None, :] < n[:, None])[..., None]
+    want_mids, plain = k3_plain_parts(torch, buf, w1, w3, w2, dy, n)
+    spelled_out = all(torch.equal(a, b) for a, b in zip(plain, want))
+    del plain
+    kernel = k3_backward_verdict(got, mine, want, want_mids, live)
+    control_mids, control_grads = k3_plain_parts(torch, buf, w1, w3, w2,
+                                                 dy, n, dh_bf16=True)
+    control = k3_backward_verdict(control_grads, control_mids, want,
+                                  want_mids, live)
+    del control_mids, control_grads
+    del want_mids
+    x = torch.where(live, buf.float(), 0.0)
+    xt = x.transpose(1, 2)
+    dyf = torch.where(live, dy.float(), 0.0)
+    h, dg, du = (torch.where(live, t.float(), 0.0) for t in mine)
+    own = {}
+    for key, o, w in (("dw1", outs[1], lambda: torch.matmul(xt, dg)),
+                      ("dw3", outs[2], lambda: torch.matmul(xt, du)),
+                      ("dw2", outs[3], lambda: torch.matmul(
+                          h.transpose(1, 2), dyf))):
+        own[key] = max_violation(o, w(), tol)[0]
+    return {"same_as_wrapper": all(torch.equal(a, b)
+                                   for a, b in zip(outs, got)),
+            "plain_spelled_out": spelled_out, "kernel": kernel,
+            "control": control, "dw_violation_vs_own_intermediates": own}
+
+
+def k3_backward_case(torch, name, dname, shape, counts, want_route,
+                     poison):
     """K3's backward against ``moe_ffn_bwd_ref`` on one shape: max |err|
     of dbuf, dw1, dw3 and dw2, the route the call took (from the
-    counters), the same bits on two runs, its time and its passes' beside
-    the plain version, the same backward as a set of ``torch.bmm``
-    products (a yardstick: no single PyTorch call computes it) and the
-    bound (operations and bytes of the live rows and live experts)."""
+    counters; ``want_route`` the one it must take), the same bits on two
+    runs, its time and its passes' beside the plain version, the same
+    backward as a set of ``torch.bmm`` products (a yardstick: no single
+    PyTorch call computes it) and the bound (operations and bytes of the
+    live rows and live experts).  With ``poison``, buf and dy hold NaN in
+    every row past each count, and dbuf must be exactly 0 there and an
+    empty expert's weight gradients 0."""
     from repro_torch.kernels import ops
     dt = {"bfloat16": torch.bfloat16, "float32": torch.float32}[dname]
     if isinstance(shape, str):
@@ -2339,6 +2496,10 @@ def k3_backward_case(torch, name, dname, shape, counts):
         (e, c, d, f), n = shape, torch.tensor(counts, dtype=torch.int32,
                                               device="cuda")
     buf, w1, w3, w2, dy = k3_operands(torch, dt, e, c, d, f, n)
+    past = torch.arange(c, device="cuda")[None, :] >= n[:, None]
+    if poison:
+        buf[past] = float("nan")
+        dy[past] = float("nan")
 
     def kernel():
         return ops.moe_ffn_bwd(buf, w1, w3, w2, dy, n)
@@ -2354,7 +2515,14 @@ def k3_backward_case(torch, name, dname, shape, counts):
     for key, a, w in zip(("dbuf", "dw1", "dw3", "dw2"), got, want):
         viols[key], errs[key] = max_violation(a, w, tol)
     same_bits = all(torch.equal(a, b) for a, b in zip(got, again))
-    del got, again, want
+    zeros_past_count = bool((got[0][past] == 0).all())
+    empty = (n == 0).nonzero().flatten().tolist()
+    empty_experts_zero = all(not t[empty].any() for t in got[1:])
+    del again
+    contract = k3_backward_contract(torch, buf, w1, w3, w2, dy, n, got,
+                                    want, tol) \
+        if want_route == "bwd_wgmma" else None
+    del got, want
     ms = cuda_ms(torch, kernel, iters=5, warmup=1)
     pass_ms = k3_backward_passes(torch, kernel)
     plain_ms = cuda_ms(torch, lambda: ops.moe_ffn_bwd_ref(
@@ -2373,6 +2541,29 @@ def k3_backward_case(torch, name, dname, shape, counts):
                 torch.bmm(xt, du), torch.bmm(h.transpose(1, 2), dy))
 
     bmm_ms = cuda_ms(torch, bmm_set, iters=5, warmup=1)
+
+    # the bmm set by the kernel's passes: the recompute with the SwiGLU
+    # gradient; dX; the weight gradients (the last two from the hidden
+    # pass's rounded H, dG and dU, made outside their timing)
+    def bmm_hidden():
+        g, u = torch.bmm(buf, w1).float(), torch.bmm(buf, w3).float()
+        dh = torch.bmm(dy, w2.transpose(1, 2)).float()
+        s = torch.sigmoid(g)
+        return ((g * s * u).to(dt),
+                (dh * u * (s * (1 + g * (1 - s)))).to(dt),
+                (dh * g * s).to(dt))
+
+    h, dg, du = bmm_hidden()
+    xt = buf.transpose(1, 2)
+    bmm_pass_ms = {
+        "hidden": cuda_ms(torch, bmm_hidden, iters=5, warmup=1),
+        "dx": cuda_ms(torch, lambda: torch.bmm(dg, w1.transpose(1, 2))
+                      + torch.bmm(du, w3.transpose(1, 2)), iters=5,
+                      warmup=1),
+        "dw": cuda_ms(torch, lambda: (torch.bmm(xt, dg), torch.bmm(xt, du),
+                                      torch.bmm(h.transpose(1, 2), dy)),
+                      iters=5, warmup=1)}
+    del h, dg, du
     live = int(n.sum())
     live_experts = int((n > 0).sum())
     itemsize = buf.element_size()
@@ -2384,12 +2575,17 @@ def k3_backward_case(torch, name, dname, shape, counts):
     return {"case": name, "dtype": dname, "E": e, "C": c, "d": d, "f": f,
             "live_rows": live, "live_experts": live_experts,
             "empty_experts": e - live_experts, "tol": tol, "route": took,
+            "want_route": [want_route], "poisoned": poison,
             "max_abs_err": errs, "violation": viols,
-            "same_bits_two_runs": same_bits, "ms": ms,
+            "same_bits_two_runs": same_bits,
+            "dbuf_zero_past_counts": zeros_past_count,
+            "empty_experts_zero": empty_experts_zero, "contract": contract,
+            "ms": ms,
             "pass_ms_profiled": pass_ms, "plain_ms": plain_ms,
             "library_ms": None,
             "library": "none: no single PyTorch call computes it",
             "yardstick_bmm_ms": bmm_ms,
+            "yardstick_bmm_pass_ms": bmm_pass_ms,
             "yardstick": "8 torch.bmm and the elementwise gradient over "
                          "all C rows",
             "bound_ms": bms, "bound_by": by, "bound_share": bms / ms}
@@ -2397,19 +2593,53 @@ def k3_backward_case(torch, name, dname, shape, counts):
 
 def k3_backward_cases(torch, smi):
     """Phase 31 (a): every case of K3_BACKWARD_CASES, printed; raises
-    unless each is within MOE_TOL, on the "bwd_simt" route and keeps its
-    bits."""
+    unless each takes its route, keeps its bits, gives dbuf 0 past the
+    counts (the poisoned case's NaN rows included) and an empty expert's
+    weight gradients 0, and is within MOE_TOL of ``moe_ffn_bwd_ref``:
+    all four gradients on "bwd_simt"; on "bwd_wgmma", ``k3_backward_contract``
+    (dbuf within MOE_TOL, dW within K3_DW_NORMWISE normwise, at most
+    K3_SHARE_OFF of H, dG and dU off the plain version's, pass 3 equal to
+    products of them), which must also refuse the control."""
     cases = [k3_backward_case(torch, *c) for c in K3_BACKWARD_CASES]
     for c in cases:
+        k = c["contract"]
+        if k is not None:
+            for who in ("kernel", "control"):
+                v = k[who]
+                print(f"K3 backward {c['case']} {who}: dW normwise "
+                      f"{v['dw_normwise']} (limit {K3_DW_NORMWISE}), H, dG, "
+                      f"dU off the plain version's "
+                      f"{v['intermediate_share_off']} (limit {K3_SHARE_OFF})"
+                      f", past one bf16 step at most "
+                      f"{v['intermediate_max_abs_diff_past_one_step']} "
+                      f"(limit {K3_INTERMEDIATE_ATOL}), dbuf violation "
+                      f"{v['dbuf_violation']:.4f}: ok {v['ok']}", flush=True)
+            print(f"K3 backward {c['case']} pass 3 against products of its "
+                  f"own H, dG, dU: violation "
+                  f"{k['dw_violation_vs_own_intermediates']}; same bits as "
+                  f"the wrapper {k['same_as_wrapper']}", flush=True)
+            bad = not (k["kernel"]["ok"] and k["same_as_wrapper"]
+                       and k["plain_spelled_out"]) or \
+                max(k["dw_violation_vs_own_intermediates"].values()) > 0
+            if k["control"]["ok"]:
+                raise AssertionError(f"K3 backward {c['case']}: the control "
+                                     f"(dH rounded to bf16) passes: {k}")
+        else:
+            bad = max(c["violation"].values()) > 0
         print(f"K3 backward {c['case']} {c['dtype']} (E {c['E']}, C "
               f"{c['C']}, d {c['d']}, f {c['f']}, {c['live_rows']} live "
-              f"rows, route {c['route']}): err {c['max_abs_err']}, same "
-              f"bits {c['same_bits_two_runs']}, {c['ms']:.3f} ms (passes "
-              f"{c['pass_ms_profiled']}, plain {c['plain_ms']:.3f}, bmm set "
-              f"{c['yardstick_bmm_ms']:.3f}, bound {c['bound_ms']:.4f} by "
-              f"{c['bound_by']}) on {smi}", flush=True)
-        if max(c["violation"].values()) > 0 or \
-                not c["same_bits_two_runs"] or c["route"] != ["bwd_simt"]:
+              f"rows, route {c['route']}, poisoned {c['poisoned']}): err "
+              f"{c['max_abs_err']}, same bits {c['same_bits_two_runs']}, "
+              f"zeros past counts {c['dbuf_zero_past_counts']}, "
+              f"{c['ms']:.3f} ms (passes {c['pass_ms_profiled']}, plain "
+              f"{c['plain_ms']:.3f}, bmm set {c['yardstick_bmm_ms']:.3f} "
+              f"{c['yardstick_bmm_pass_ms']}, "
+              f"bound {c['bound_ms']:.4f} by {c['bound_by']}, share "
+              f"{c['bound_share']:.3f}) on {smi}", flush=True)
+        if bad or not c["same_bits_two_runs"] or \
+                c["route"] != c["want_route"] or \
+                not c["dbuf_zero_past_counts"] or \
+                not c["empty_experts_zero"]:
             raise AssertionError(f"K3 backward {c}")
     return cases
 
@@ -2446,12 +2676,16 @@ def train_moe_phase():
 
     a. K3's backward against its plain version at olmoe-1b-7b's training
        shape (bf16, E 64, C 640, d 2048, f 1024, the counts of 4,096
-       routed tokens), at qwen3-moe-30b-a3b's (E 128, C 320, f 768) and a
-       ragged fp32 call (d 200 and f 136, one expert without rows): dbuf
-       and the three weight gradients within MOE_TOL, the route each took
-       ("bwd_simt") read from the counters, the same bits on two runs,
-       timed beside the plain version, a set of ``torch.bmm`` products
-       and the bound; then K3's forward at C 640 against ``moe_ffn_ref``;
+       routed tokens), at qwen3-moe-30b-a3b's (E 128, C 320, f 768), a
+       poisoned bf16 call (E 4, C 192, d 256, f 192, counts 192, 0, 37,
+       101, NaN in buf and dy past each count), all on "bwd_wgmma", and a
+       ragged call in fp32 and in bf16 (d 200 and f 136, one expert
+       without rows) on "bwd_simt": dbuf and the three weight gradients
+       within MOE_TOL, the route each took read from the counters, the
+       same bits on two runs, dbuf 0 past the counts and an empty
+       expert's weight gradients 0, timed beside the plain version, a set
+       of ``torch.bmm`` products and the bound; then K3's forward at C 640
+       against ``moe_ffn_ref``;
     b. card == CPU for PARITY_STEPS fp32 train steps of reduced
        olmoe-1b-7b (phase 30's tolerances);
     c. olmoe-1b-7b at its published width (d 2048, 64 experts of f 1024,
@@ -2469,8 +2703,8 @@ def train_moe_phase():
        router's, each forward, recomputed under ``remat_policy``
        "nothing", dX and dW) + 3 for the head, K1 3 a layer (forward,
        recompute, backward), K3 3 a layer (forward and recompute on the
-       wgmma route, its backward on "bwd_simt": every MoE layer's
-       gradient by K3's backward kernel).
+       wgmma route, its backward on "bwd_wgmma": every MoE layer's
+       gradient by K3's backward kernels on the tensor cores).
 
     Prints the record as its last line."""
     import shutil
@@ -2574,7 +2808,7 @@ def train_moe_phase():
     want_routes = {"flash_attention": {"wgmma": 2 * layers, "simt": 0,
                                        "bwd_wgmma": layers, "bwd_simt": 0},
                    "moe_ffn": {"wgmma": 2 * layers, "simt": 0,
-                               "bwd_simt": layers}}
+                               "bwd_wgmma": layers, "bwd_simt": 0}}
     p50 = res["straggler"]["median_s"]
     full = {"arch": MOE_TRAIN_ARCH, "n_layers": layers, "dtype": cfg.dtype,
             "params": registry.param_counts(cfg),
@@ -2732,11 +2966,20 @@ def main():
             return (lib.repro_ssd_scan_wgmma_smem(n),
                     k4_mod.wgmma_smem_bytes(n))
 
+        def k3_backward_smem(fn):
+            kernel = next(k for k in k3_mod.BWD_WGMMA_PASSES
+                          if f"{k}_kernel_wgmma" in fn)
+            return (lib.repro_moe_ffn_bwd_wgmma_smem(
+                k3_mod.BWD_WGMMA_PASSES.index(kernel)),
+                k3_mod.bwd_wgmma_smem_bytes(kernel))
+
         tc_build = {}
         for stem, name, smem in (("flash_attention", "K1", k1_smem),
                                  ("flash_attention_bwd", "K1 backward",
                                   lambda fn: k1_backward_smem(lib, fn)),
                                  ("moe_ffn", "K3", k3_smem),
+                                 ("moe_ffn_bwd", "K3 backward",
+                                  k3_backward_smem),
                                  ("ssd_scan", "K4", k4_smem)):
             rows = []
             for r in _build.ptxas_report(stem):
@@ -2757,7 +3000,8 @@ def main():
                       f"{r.get('spill_stores')} B spill stores, "
                       f"{r.get('spill_loads')} B spill loads, "
                       f"{r['hgmma']} HGMMA", flush=True)
-            want = {"K1": 2, "K1 backward": 6, "K3": 10, "K4": 2}[name]
+            want = {"K1": 2, "K1 backward": 6, "K3": 10, "K3 backward": 3,
+                    "K4": 2}[name]
             if len(rows) != want or not all(
                     r["hgmma"] > 0 and r.get("spill_stores") == 0 and
                     r.get("spill_loads") == 0 for r in rows):
@@ -2767,13 +3011,16 @@ def main():
             tc_build[name] = rows
         out["k1_kernels"], out["k3_kernels"] = tc_build["K1"], tc_build["K3"]
         out["k1_backward_kernels"] = tc_build["K1 backward"]
+        out["k3_backward_kernels"] = tc_build["K3 backward"]
         out["k4_kernels"] = tc_build["K4"]
-        # K5 and K3's backward run on CUDA cores: their registers and
-        # spills, for the record
+        # K5 and K3's backward route "bwd_simt" run on CUDA cores: their
+        # registers and spills, for the record
         out["k5_kernels"] = _build.ptxas_report("rglru_scan")
-        out["k3_backward_kernels"] = _build.ptxas_report("moe_ffn_bwd")
+        out["k3_backward_simt_kernels"] = [
+            r for r in _build.ptxas_report("moe_ffn_bwd")
+            if "wgmma" not in r["function"]]
         for name, rows in (("K5", out["k5_kernels"]),
-                           ("K3 backward", out["k3_backward_kernels"])):
+                           ("K3 backward", out["k3_backward_simt_kernels"])):
             for r in rows:
                 print(f"{name} CUDA cores: {r['function']}: "
                       f"{r.get('registers')} registers, "
@@ -6237,10 +6484,11 @@ def main():
     k3_backward = {
         "source": "src/repro_torch/kernels/csrc/moe_ffn_bwd.cu",
         "route": k3_bwd[0]["route"],
-        "launches": trained_moe["launches_by_route"]["moe_ffn"]["bwd_simt"],
+        "launches": trained_moe["launches_by_route"]["moe_ffn"]
+        ["bwd_wgmma"],
         "launches_by_route": {
-            "bwd_simt": trained_moe["launches_by_route"]["moe_ffn"]
-            ["bwd_simt"]},
+            r: trained_moe["launches_by_route"]["moe_ffn"][r]
+            for r in ("bwd_wgmma", "bwd_simt")},
         "max_abs_err": max(max(c["max_abs_err"].values()) for c in k3_bwd),
         **{key: k3_bwd[0][key] for key in ("ms", "plain_ms", "bound_ms",
                                            "bound_by", "library_ms",
@@ -6249,6 +6497,7 @@ def main():
                f"{k3_bwd[0]['d']}, f {k3_bwd[0]['f']} ({k3_bwd[0]['live_rows']}"
                f" live rows: 4,096 tokens routed top-8)",
         "build": RECORD["phases"][1].get("k3_backward_kernels"),
+        "build_simt": RECORD["phases"][1].get("k3_backward_simt_kernels"),
         "forward_at_training_capacity": trained_moe["k3_forward_c640"],
         "cases": k3_bwd}
     k2_grad = trained["k2_gradient"]

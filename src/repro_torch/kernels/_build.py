@@ -202,6 +202,11 @@ def _bind(cdll: ctypes.CDLL):
     cdll.repro_moe_ffn_bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, p, p, p,
                                        i, i, i, i, i, p]
     cdll.repro_moe_ffn_bwd.restype = i
+    cdll.repro_moe_ffn_bwd_wgmma.argtypes = [p, p, p, p, p, p, p, p, p, p, p,
+                                             p, p, i, i, i, i, p]
+    cdll.repro_moe_ffn_bwd_wgmma.restype = i
+    cdll.repro_moe_ffn_bwd_wgmma_smem.argtypes = [i]
+    cdll.repro_moe_ffn_bwd_wgmma_smem.restype = i
     cdll.repro_ssd_scan.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i,
                                     ll, ll, ll, ll, ll, ll, ll, ll, ll, i, p]
     cdll.repro_ssd_scan.restype = i

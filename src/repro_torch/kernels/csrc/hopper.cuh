@@ -120,36 +120,38 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 }
 
 // d (64 x n, fp32) += A (64 x 16, from a descriptor) . B (16 x n, from a
-// descriptor, K-major); TRANS_A 1: A is MN-major in shared memory; scale_d
-// 0 overwrites d.  Accumulator fragment: value 4c + r of thread (warp w,
-// lane l) is row w*16 + l/4 (+8 for r >= 2) and column 8c + 2(l%4) (+1 for
-// odd r)
-template <int TRANS_A>
+// descriptor); TRANS_A 1: A is MN-major in shared memory; TRANS_B 1: B is
+// MN-major (n contiguous; bf16 takes either); scale_d 0 overwrites d.
+// Accumulator fragment: value 4c + r of thread (warp w, lane l) is row
+// w*16 + l/4 (+8 for r >= 2) and column 8c + 2(l%4) (+1 for odd r)
+template <int TRANS_A, int TRANS_B = 0>
 __device__ __forceinline__ void wgmma_m64n8k16(float (&d)[4], uint64_t da,
                                                uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3"
-      "}, %4, %5, p, 1, 1, %7, 0;\n}\n"
+      "}, %4, %5, p, 1, 1, %7, %8;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A),
+        "n"(TRANS_B));
 }
 
-template <int TRANS_A>
+template <int TRANS_A, int TRANS_B = 0>
 __device__ __forceinline__ void wgmma_m64n16k16(float (&d)[8], uint64_t da,
                                                 uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, %8, %9, p, 1, 1, %11, 0;\n}\n"
+      "}, %8, %9, p, 1, 1, %11, %12;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A),
+        "n"(TRANS_B));
 }
 
-template <int TRANS_A>
+template <int TRANS_A, int TRANS_B = 0>
 __device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], uint64_t da,
                                                 uint64_t db, int scale_d) {
   asm volatile(
@@ -157,15 +159,16 @@ __device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], uint64_t da,
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, "
       "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, %19, 0;\n}\n"
+      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A),
+        "n"(TRANS_B));
 }
 
-template <int TRANS_A>
+template <int TRANS_A, int TRANS_B = 0>
 __device__ __forceinline__ void wgmma_m64n48k16(float (&d)[24], uint64_t da,
                                                 uint64_t db, int scale_d) {
   asm volatile(
@@ -174,17 +177,18 @@ __device__ __forceinline__ void wgmma_m64n48k16(float (&d)[24], uint64_t da,
       "%0, %1, %2, %3, %4, %5, %6, %7, "
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23"
-      "}, %24, %25, p, 1, 1, %27, 0;\n}\n"
+      "}, %24, %25, p, 1, 1, %27, %28;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A),
+        "n"(TRANS_B));
 }
 
-template <int TRANS_A>
+template <int TRANS_A, int TRANS_B = 0>
 __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
                                                 uint64_t db, int scale_d) {
   asm volatile(
@@ -194,7 +198,7 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, %35, 0;\n}\n"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -203,10 +207,11 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A),
+        "n"(TRANS_B));
 }
 
-template <int TRANS_A>
+template <int TRANS_A, int TRANS_B = 0>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
                                                  uint64_t db, int scale_d) {
   asm volatile(
@@ -220,7 +225,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, %67, 0;\n}\n"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -237,7 +242,8 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_A),
+        "n"(TRANS_B));
 }
 
 template <int TRANS_B>
@@ -265,21 +271,21 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
 }
 
 // the same with N a template argument (8, 16, 32, 48, 64, 128)
-template <int N, int TRANS_A>
+template <int N, int TRANS_A, int TRANS_B = 0>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
                                          uint64_t db, int scale_d) {
   if constexpr (N == 8)
-    wgmma_m64n8k16<TRANS_A>(d, da, db, scale_d);
+    wgmma_m64n8k16<TRANS_A, TRANS_B>(d, da, db, scale_d);
   else if constexpr (N == 16)
-    wgmma_m64n16k16<TRANS_A>(d, da, db, scale_d);
+    wgmma_m64n16k16<TRANS_A, TRANS_B>(d, da, db, scale_d);
   else if constexpr (N == 32)
-    wgmma_m64n32k16<TRANS_A>(d, da, db, scale_d);
+    wgmma_m64n32k16<TRANS_A, TRANS_B>(d, da, db, scale_d);
   else if constexpr (N == 48)
-    wgmma_m64n48k16<TRANS_A>(d, da, db, scale_d);
+    wgmma_m64n48k16<TRANS_A, TRANS_B>(d, da, db, scale_d);
   else if constexpr (N == 64)
-    wgmma_m64n64k16<TRANS_A>(d, da, db, scale_d);
+    wgmma_m64n64k16<TRANS_A, TRANS_B>(d, da, db, scale_d);
   else
-    wgmma_m64n128k16<TRANS_A>(d, da, db, scale_d);
+    wgmma_m64n128k16<TRANS_A, TRANS_B>(d, da, db, scale_d);
 }
 
 // hand registers from one warpgroup to another (sm_90a): a warp-specialised
@@ -431,6 +437,35 @@ inline bool map_heads(CUtensorMap* out, const void* ptr, int heads, int rows,
   const uint64_t strides[2] = {(uint64_t)D * 2, (uint64_t)rows * D * 2};
   const uint32_t box[3] = {64, 64, 1};
   return tensor_map(out, ptr, 3, dims, strides, box);
+}
+
+// K3's operands: a bf16 (E, rows, cols) stack, experts outermost, in
+// boxes of box_rows x 64, so a box never crosses an expert and rows past
+// ``rows`` read as zero
+inline bool map_stack(CUtensorMap* out, const void* ptr, int E, int rows,
+                      int cols, int box_rows) {
+  const uint64_t dims[3] = {(uint64_t)cols, (uint64_t)rows, (uint64_t)E};
+  const uint64_t strides[2] = {(uint64_t)cols * 2,
+                               (uint64_t)rows * cols * 2};
+  const uint32_t box[3] = {64, (uint32_t)box_rows, 1};
+  return tensor_map(out, ptr, 3, dims, strides, box);
+}
+
+// the opt-in above 48 KB of dynamic shared memory for ``kern``, once per
+// device (``ready``: one flag a device, kept by the caller per kernel)
+inline cudaError_t opt_in_smem(const void* kern, uint32_t smem,
+                               bool (&ready)[64]) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device >= 64) return cudaErrorInvalidDevice;
+  if (!ready[device]) {
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    ready[device] = true;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace hopper

@@ -440,15 +440,6 @@ __global__ void __launch_bounds__(THREADS)
         reinterpret_cast<const uint4*>(stg_p + (i / 8) * STG)[i % 8];
 }
 
-// a bf16 (E, rows, cols) stack, experts outermost: boxes of box_rows x 64
-bool map_stack(CUtensorMap* out, const void* ptr, int E, int rows, int cols,
-               int box_rows) {
-  const uint64_t dims[3] = {(uint64_t)cols, (uint64_t)rows, (uint64_t)E};
-  const uint64_t strides[2] = {(uint64_t)cols * 2, (uint64_t)rows * cols * 2};
-  const uint32_t box[3] = {64, (uint32_t)box_rows, 1};
-  return tensor_map(out, ptr, 3, dims, strides, box);
-}
-
 template <bool GATE_UP, int NT>
 cudaError_t launch_pass(const CUtensorMap& wa, const CUtensorMap& wb,
                         const CUtensorMap& x, const int* counts, void* out,
@@ -456,19 +447,10 @@ cudaError_t launch_pass(const CUtensorMap& wa, const CUtensorMap& wb,
                         cudaStream_t stream) {
   constexpr uint32_t smem = smem_bytes<GATE_UP, NT>();
   static_assert(smem <= 232448, "ring fits one block's shared memory");
-  // the opt-in above 48 KB of shared memory, once per device
   static bool ready[64] = {};
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
+  const cudaError_t err = opt_in_smem(
+      (const void*)moe_ffn_kernel_wgmma<GATE_UP, NT>, smem, ready);
   if (err != cudaSuccess) return err;
-  if (device >= 64) return cudaErrorInvalidDevice;
-  if (!ready[device]) {
-    err = cudaFuncSetAttribute(moe_ffn_kernel_wgmma<GATE_UP, NT>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return err;
-    ready[device] = true;
-  }
   const dim3 grid(n_out / BT, E, (C + NT - 1) / NT);
   moe_ffn_kernel_wgmma<GATE_UP, NT><<<grid, THREADS, smem, stream>>>(
       wa, wb, x, counts, static_cast<__nv_bfloat16*>(out), C, n_out, slabs);

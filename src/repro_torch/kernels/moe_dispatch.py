@@ -19,12 +19,16 @@ that launched (one per call, whatever the route),
 ``moe_ffn.launches_by_route`` the same by route.
 
 The operator has a gradient: :func:`moe_ffn_bwd`, the
-``repro_torch::moe_ffn_bwd`` operator, whose CUDA kernel is in
+``repro_torch::moe_ffn_bwd`` operator, whose CUDA kernels are in
 ``csrc/moe_ffn_bwd.cu`` (its header gives the design and what bounds it)
 and whose CPU kernel is :func:`moe_ffn_bwd_ref`.  It recomputes the hidden
-from the forward's inputs (nothing else is saved) and runs three passes on
-the CUDA cores at any dtype, d and f (route "bwd_simt"); a call counts
-once, in ``launches`` and under its route.  ``counts`` takes no gradient.
+from the forward's inputs (nothing else is saved) and runs three passes,
+no atomics, on the route :func:`bwd_route` picks before launch: bf16 with
+d and f multiples of 64 and weights TMA can read (every olmoe-1b-7b and
+qwen3-moe-30b-a3b training call) on the tensor cores, wgmma fed by TMA
+("bwd_wgmma"); everything else on the CUDA cores in fp32 ("bwd_simt").  A
+call counts once, in ``launches`` and under its route.  ``counts`` takes
+no gradient.
 """
 from __future__ import annotations
 
@@ -37,7 +41,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.matmul import tma_error
 
 ROUTES = ("wgmma", "simt")
-BWD_ROUTES = ("bwd_simt",)
+BWD_ROUTES = ("bwd_wgmma", "bwd_simt")
 # the counters' keys: the forward's routes and the backward's
 COUNTED = ROUTES + BWD_ROUTES
 # the wgmma route (csrc/moe_ffn.cu, namespace moe_tc): 64 weight columns
@@ -48,6 +52,10 @@ TILE = 64
 TILE_ROWS = (8, 16, 32, 48, 64)
 STAGES = {"gate_up": 4, "down": 6}
 STAGING_ROW = TILE + 8
+# the backward's wgmma route (csrc/moe_ffn_bwd.cu, namespace moe_bwd::tc):
+# its three passes, a ring of 3 stages each
+BWD_WGMMA_PASSES = ("hidden", "dx", "dw")
+BWD_STAGES = 3
 
 
 def tile_rows(c: int) -> int:
@@ -69,6 +77,32 @@ def route(dtype: torch.dtype, d: int, f: int,
     if any(tma_error((d, f), (f, 1), 2, a) for a in addresses):
         return "simt"
     return "wgmma"
+
+
+def bwd_route(dtype: torch.dtype, d: int, f: int,
+              addresses: Sequence[int] = ()) -> str:
+    """The kernels a CUDA call of the backward launches: "bwd_wgmma" for
+    bf16 with d and f multiples of 64 and weight ``addresses`` TMA can read
+    (``matmul.tma_error``: 16-byte aligned), as :func:`route`, else
+    "bwd_simt" (CUDA cores)."""
+    if route(dtype, d, f, addresses) == "wgmma":
+        return "bwd_wgmma"
+    return "bwd_simt"
+
+
+def bwd_wgmma_smem_bytes(kernel: str) -> int:
+    """Dynamic shared memory of one block of the backward's wgmma pass
+    ``kernel`` (``moe_bwd::tc::smem_bytes``): a ring of BWD_STAGES stages
+    of 64 x 64 bf16 boxes (8 KB), seven a stage in "hidden" (the W1, W3
+    and W2 slabs and 128 rows of X and dY) and eight in "dx" (128 rows of
+    W1, W3, dG and dU) and "dw" (64 rows of X and dY, and of H, dG and dU
+    at 128 hidden columns), 16 bytes of barriers a stage, and 1024 bytes to
+    align the swizzled ring.  The epilogues reuse the ring."""
+    if kernel not in BWD_WGMMA_PASSES:
+        raise ValueError(f"kernel is one of {BWD_WGMMA_PASSES}, got "
+                         f"{kernel!r}")
+    boxes = 7 if kernel == "hidden" else 8
+    return BWD_STAGES * boxes * TILE * TILE * 2 + 16 * BWD_STAGES + 1024
 
 
 def wgmma_smem_bytes(gate_up: bool, nt: int) -> int:
@@ -257,18 +291,32 @@ def _moe_ffn_bwd_op(buf: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
     e, c, d = buf.shape
     f = w1.shape[2]
     lib = _build.library()
+    kind = bwd_route(buf.dtype, d, f, [t.data_ptr() for t in (w1, w3, w2)])
+    if kind == "bwd_wgmma":
+        # small beside the weights: copy to align
+        if tma_error((c, d), (d, 1), 2, buf.data_ptr()):
+            buf = buf.clone()
+        if tma_error((c, d), (d, 1), 2, dy.data_ptr()):
+            dy = dy.clone()
     h, dg, du = (torch.empty((e, c, f), dtype=buf.dtype, device=buf.device)
                  for _ in range(3))
     dx, dw1, dw3, dw2 = (torch.empty_like(t) for t in (buf, w1, w3, w2))
-    err = lib.repro_moe_ffn_bwd(
-        buf.data_ptr(), w1.data_ptr(), w3.data_ptr(), w2.data_ptr(),
-        counts.data_ptr() if counts is not None else None, dy.data_ptr(),
-        h.data_ptr(), dg.data_ptr(), du.data_ptr(), dx.data_ptr(),
-        dw1.data_ptr(), dw3.data_ptr(), dw2.data_ptr(), e, c, d, f,
-        _build.DTYPE_CODES[buf.dtype], _build.stream_handle())
+    args = (buf.data_ptr(), w1.data_ptr(), w3.data_ptr(), w2.data_ptr(),
+            counts.data_ptr() if counts is not None else None, dy.data_ptr(),
+            h.data_ptr(), dg.data_ptr(), du.data_ptr(), dx.data_ptr(),
+            dw1.data_ptr(), dw3.data_ptr(), dw2.data_ptr(), e, c, d, f)
+    if kind == "bwd_wgmma":
+        err = lib.repro_moe_ffn_bwd_wgmma(*args, _build.stream_handle())
+        why = lib.repro_refusal().decode() if err else ""
+        if why:
+            raise ValueError(f"moe_ffn_bwd refused (E={e}, C={c}, d={d}, "
+                             f"f={f}): {why}")
+    else:
+        err = lib.repro_moe_ffn_bwd(*args, _build.DTYPE_CODES[buf.dtype],
+                                    _build.stream_handle())
     _build.check(err, "moe_ffn_bwd")
     moe_ffn.launches += 1
-    moe_ffn.launches_by_route["bwd_simt"] += 1
+    moe_ffn.launches_by_route[kind] += 1
     return dx, dw1, dw3, dw2
 
 

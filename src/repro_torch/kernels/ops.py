@@ -4,8 +4,8 @@ There is no implementation switch: the device of the tensors decides.  A
 CPU tensor takes the kernel's plain PyTorch version; a CUDA tensor launches
 the hand-written Hopper kernel or raises.  Every TPU kernel of the
 reference has its counterpart here (K1-K5), and K1, K2 and K3 have
-gradients (K1's backward counts under K1, routes "bwd_wgmma" and
-"bwd_simt"; K3's under K3, route "bwd_simt").
+gradients (K1's backward counts under K1 and K3's under K3, each on
+route "bwd_wgmma" or "bwd_simt").
 """
 from __future__ import annotations
 

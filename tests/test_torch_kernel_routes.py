@@ -13,6 +13,7 @@ and 8-11).
 """
 import inspect
 
+import numpy as np
 import pytest
 import torch
 
@@ -167,12 +168,90 @@ def test_k3_wgmma_shared_memory_fits_one_block(gate_up, nt):
     assert 2 * (got + 1024) <= 228 * 1024
 
 
+# ---------------------------------------------------------------------------
+# K3's backward: its route and the wgmma route's shared memory
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d,f", [(2048, 1024), (2048, 768), (256, 192),
+                                 (64, 64), (200, 136), (96, 80), (2048, 1000),
+                                 (2000, 1024)])
+def test_k3_backward_takes_the_tensor_cores_at_bf16_multiples_of_64(dtype, d,
+                                                                    f):
+    want = "bwd_wgmma" if dtype == torch.bfloat16 and d % 64 == 0 and \
+        f % 64 == 0 else "bwd_simt"
+    assert k3.bwd_route(dtype, d, f) == want
+    assert k3.bwd_route(dtype, d, f, [0, 16, 1 << 20]) == want
+
+
+@pytest.mark.parametrize("address", [2, 8, 1030])
+def test_k3_backward_with_a_misaligned_weight_keeps_the_simt_route(address):
+    assert k3.bwd_route(torch.bfloat16, 2048, 1024, [256, address, 512]) \
+        == "bwd_simt"
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_trained_moe_backward_takes_the_wgmma_route(arch):
+    """Every training call of the two MoE configurations (bf16, d and f
+    multiples of 64) runs the backward on the tensor cores."""
+    cfg = _cfg(arch)
+    assert k3.bwd_route(torch.bfloat16, cfg.d_model, cfg.d_ff) == "bwd_wgmma"
+    assert tma_error((cfg.d_model, cfg.d_ff), (cfg.d_ff, 1), 2, 0) is None
+
+
+@pytest.mark.parametrize("kernel", k3.BWD_WGMMA_PASSES)
+def test_k3_backward_wgmma_shared_memory_fits_one_block(kernel):
+    """A ring of 3 stages of 64 x 64 bf16 boxes (8 KB): "hidden" holds the
+    W1, W3 and W2 slabs and 128 token rows of X and dY (two boxes each), 7
+    boxes; "dx" 128 rows of W1, W3, dG and dU, 8; "dw" 64 rows of X and dY
+    (one box each) and of H, dG and dU at 128 hidden columns (two each),
+    8.  16 bytes of barriers a stage, 1024 to align the swizzled ring.  The
+    C entry ``repro_moe_ffn_bwd_wgmma_smem`` returns the same figures on
+    the card (chip_smoke.py phase 2).  Each epilogue reuses the ring:
+    hidden's three 64 x 128 fp32 fragments and three 128 x 72 bf16 staged
+    tiles, dx's 128 x 136, dw's two 64 x 136 and one 128 x 72."""
+    box = 64 * 64 * 2
+    boxes = {"hidden": 3 + 2 * 2, "dx": 2 * 2 + 2 * 2,
+             "dw": 1 + 1 + 3 * 2}[kernel]
+    want = 3 * boxes * box + 3 * 16 + 1024
+    assert k3.bwd_wgmma_smem_bytes(kernel) == want
+    assert want <= SMEM_LIMIT
+    epilogue = {"hidden": 3 * 64 * 128 * 4 + 3 * 128 * 72 * 2,
+                "dx": 128 * 136 * 2,
+                "dw": 2 * 64 * 136 * 2 + 128 * 72 * 2}[kernel]
+    assert epilogue <= 3 * boxes * box
+
+
+def test_k3_backward_shared_memory_names_its_passes():
+    assert k3.BWD_WGMMA_PASSES == ("hidden", "dx", "dw")
+    with pytest.raises(ValueError, match="kernel"):
+        k3.bwd_wgmma_smem_bytes("down")
+
+
+@pytest.mark.parametrize("dtype,kind", [(torch.bfloat16, "bwd_wgmma"),
+                                        (torch.float32, "bwd_simt")])
+def test_cpu_backward_launches_nothing_on_either_route(dtype, kind):
+    """A shape whose CUDA call takes ``kind``: on the CPU the operator takes
+    the plain version, and no counter moves."""
+    e, c, d, f = 2, 8, 64, 64
+    rng = np.random.default_rng(3)
+    buf, w1, w3, w2, dy = (torch.from_numpy(
+        rng.standard_normal(s).astype(np.float32)).to(dtype)
+        for s in ((e, c, d), (e, d, f), (e, d, f), (e, f, d), (e, c, d)))
+    assert k3.bwd_route(dtype, d, f) == kind
+    ops.reset_launch_counts()
+    got = ops.moe_ffn_bwd(buf, w1, w3, w2, dy,
+                          torch.tensor([8, 3], dtype=torch.int32))
+    assert [t.shape for t in got] == [t.shape for t in (buf, w1, w3, w2)]
+    assert ops.launch_counts()["moe_ffn"] == 0
+    assert ops.route_counts()["moe_ffn"] == dict.fromkeys(k3.COUNTED, 0)
+
+
 def test_route_counts_start_at_zero_and_reset():
     ops.reset_launch_counts()
     assert ops.route_counts() == {
         "flash_attention": {"wgmma": 0, "simt": 0, "bwd_wgmma": 0,
                             "bwd_simt": 0},
-        "moe_ffn": {"wgmma": 0, "simt": 0, "bwd_simt": 0},
+        "moe_ffn": {"wgmma": 0, "simt": 0, "bwd_wgmma": 0, "bwd_simt": 0},
         "ssd_scan": {"wgmma": 0, "simt": 0}}
     # CPU tensors take the plain versions and launch nothing
     q = torch.zeros((2, 4, 128), dtype=torch.bfloat16)

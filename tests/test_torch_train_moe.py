@@ -3,7 +3,9 @@
 K3's gradient: the plain version ``moe_ffn_bwd_ref`` against ``jax.vjp``
 of the reference's FFN einsums (``repro.kernels.ref.moe_ffn``), with
 per-expert row counts that leave an expert empty, and the custom
-operator's autograd against autograd through ``moe_ffn_ref``.  The MoE
+operator's autograd against autograd through ``moe_ffn_ref``, and the
+card's gate for K3's tensor-core backward (``chip_smoke.py`` phase 31
+(a)) against another summation order and a control.  The MoE
 layer: ``apply_moe``'s output, auxiliary loss and gradients (the input,
 the router and the three expert weights) against ``jax.value_and_grad`` of
 ``repro.models.moe.apply_moe``, at the default capacity and at one small
@@ -18,6 +20,9 @@ differently), 5e-2 in bf16 (``tests/test_kernels.py``); the layer at
 rtol/atol 1e-4 (``tests/test_torch_moe.py``'s model tolerance); the
 trainer's final loss within 0.05, as ``tests/test_torch_train_e2e.py``.
 """
+import importlib.util
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -114,9 +119,85 @@ def test_moe_ffn_gradient_equals_autograd_of_the_plain_version(dtype):
     for g, w in zip(got, want):
         assert g.dtype == dt
         torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
-    # the CPU takes the plain version: nothing was launched or counted
+    # the CPU takes the plain version: nothing was launched or counted,
+    # on either of the backward's routes
     assert ops.launch_counts()["moe_ffn"] == 0
+    assert ops.route_counts()["moe_ffn"]["bwd_wgmma"] == 0
     assert ops.route_counts()["moe_ffn"]["bwd_simt"] == 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_ffn_bwd_ref_ignores_what_lies_past_the_counts(dtype):
+    """buf and dy with NaN in every row past each count (counts not
+    multiples of 16, one expert empty) give the same four gradients, bit
+    for bit, as with zeros there: dbuf 0 past the counts, the empty
+    expert's weight gradients 0.  Phase 31's poisoned case holds the
+    kernel to this rule."""
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(9)
+    e, c, d, f = 4, 24, 16, 12
+    counts = np.array([24, 0, 5, 13])
+    live = torch.from_numpy(_live(counts, e, c))
+    buf, w1, w3, w2, dy = (torch.from_numpy(a).to(dt)
+                           for a in _ffn_operands(rng, e, c, d, f))
+    n = torch.from_numpy(counts.astype(np.int32))
+    zeros = [torch.where(live, t, torch.zeros_like(t)) for t in (buf, dy)]
+    nans = [torch.where(live, t, torch.full_like(t, float("nan")))
+            for t in (buf, dy)]
+    want = ops.moe_ffn_bwd_ref(zeros[0], w1, w3, w2, zeros[1], n)
+    for got in (ops.moe_ffn_bwd_ref(nans[0], w1, w3, w2, nans[1], n),
+                ops.moe_ffn_bwd(nans[0], w1, w3, w2, nans[1], n)):
+        for g, w in zip(got, want):
+            assert bool(g.isfinite().all())
+            assert torch.equal(g, w)
+        assert not got[0][~live.expand(e, c, d)].any()
+        assert all(not t[1].any() for t in got[1:])
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_k3_backward_gate_refuses_a_kernel_that_rounds_dh():
+    """``chip_smoke.py`` phase 31 (a)'s gate for K3's wgmma backward, on a
+    small bf16 call: its plain version spelled out is ``moe_ffn_bwd_ref``
+    bit for bit; the same function summed in another order (d permuted,
+    so every fp32 sum over d takes its terms in another order) moves some
+    of H, dG and dU to the other bf16 neighbour and passes; the control
+    (dH rounded to bf16 before the SwiGLU gradient) does not."""
+    cs = _chip_smoke()
+    e, c, d, f = 4, 128, 512, 256
+    counts = np.array([128, 0, 37, 101])
+    buf, w1, w3, w2, dy = (torch.from_numpy(a).to(torch.bfloat16)
+                           for a in _ffn_operands(np.random.default_rng(12),
+                                                  e, c, d, f))
+    n = torch.from_numpy(counts.astype(np.int32))
+    live = torch.from_numpy(_live(counts, e, c))
+    want = ops.moe_ffn_bwd_ref(buf, w1, w3, w2, dy, n)
+    mids, plain = cs.k3_plain_parts(torch, buf, w1, w3, w2, dy, n)
+    assert all(torch.equal(a, b) for a, b in zip(plain, want))
+    assert cs.k3_backward_verdict(plain, mids, want, mids, live)["ok"]
+
+    p = torch.from_numpy(np.random.default_rng(13).permutation(d))
+    q = torch.argsort(p)
+    other_mids, other = cs.k3_plain_parts(
+        torch, buf[..., p], w1[:, p], w3[:, p], w2[..., p], dy[..., p], n)
+    other = (other[0][..., q], other[1][:, q], other[2][:, q],
+             other[3][..., q])
+    sound = cs.k3_backward_verdict(other, other_mids, want, mids, live)
+    assert sound["ok"], sound
+    assert max(sound["intermediate_share_off"].values()) > 0, sound
+
+    control_mids, control = cs.k3_plain_parts(torch, buf, w1, w3, w2, dy, n,
+                                              dh_bf16=True)
+    refused = cs.k3_backward_verdict(control, control_mids, want, mids, live)
+    assert not refused["ok"], refused
+    assert max(refused["dw_normwise"].values()) > cs.K3_DW_NORMWISE
+    assert max(refused["intermediate_share_off"].values()) > cs.K3_SHARE_OFF
 
 
 def test_moe_ffn_bwd_checks_its_output_gradient():
