@@ -368,9 +368,10 @@ and the script exits non-zero:
             backward; K2's
             gradient (dX, dW) at M 4,096 for wq, w_gate, w_down and the
             tied head beside ``torch.matmul``; card == CPU for 3 fp32
-            train steps at reduced size; then qwen3-0.6b at full width in
-            bf16 through ``repro_torch.launch.train`` (4 x 1,024 tokens a
-            step, 30 steps, checkpoints every 10, one injected failure):
+            train steps at reduced size; then qwen3-0.6b at full width cut
+            to 14 of its 28 layers in bf16 through
+            ``repro_torch.launch.train`` (4 x 1,024 tokens a step, 20
+            steps, checkpoints every 10, one injected failure):
             one restart, the loss falling, telemetry points == steps run,
             the program a CUDA graph, K1 and K2 launches exact; step p50,
             tokens/s, peak memory, device ms by kernel family from one
@@ -388,16 +389,36 @@ and the script exits non-zero:
             plain version and a set of ``torch.bmm`` products; K3's forward
             at C 640 against its plain version; card == CPU for 3 fp32
             train steps of reduced olmoe-1b-7b; then olmoe-1b-7b at full
-            width cut to 4 of its 16 layers in bf16 through
+            width cut to 1 of its 16 layers in bf16 through
             ``repro_torch.launch.train`` (4 x 1,024 tokens a step, 16
             steps, checkpoints every 8, one injected failure at 12): one
             restart, the loss falling, telemetry points == steps run, the
             program a CUDA graph, K1, K2, K3 and K3's backward launches
             exact; step p50, tokens/s, peak memory and device ms by kernel
             family from one profiled replay.
+32. train_hybrid  hybrid training in a process of its own
+            (``chip_smoke.py --train-hybrid`` runs it alone): K5's backward
+            against its plain version bit for bit at recurrentgemma-2b's
+            training shape (B 4, S 1024, L 2560, from zero), at the
+            admission shape from h0 with a final-state gradient, at ragged
+            S and L and at S 1, the same bits on two runs, batch row 0
+            alone equal to its row, timed beside the plain version and the
+            bound; K5's forward at the training shape timed; K1's backward
+            at the "L" layer's training shape (bf16, B 4, 10 heads over 1,
+            D 256, window 2048) on "bwd_wgmma" beside SDPA's backward;
+            card == CPU for 3 fp32 train steps of reduced
+            recurrentgemma-2b; then recurrentgemma-2b at full width cut to
+            5 of its 26 layers ((R, R, L) under remat, then R, R) in bf16
+            through ``repro_torch.launch.train`` (4 x 1,024 tokens a step,
+            12 steps, checkpoints every 6, one injected failure at 9): one
+            restart, the loss falling, telemetry points == steps run, the
+            program a CUDA graph, K1, K2 and K5 launches (K5 forward and
+            backward apart) exact; step p50, tokens/s, peak memory,
+            checkpoint seconds and device ms by kernel family from one
+            profiled replay.
 
-Then a ``{"kernels": [...]}`` line (K1's, K2's and K3's entries with a
-``backward`` record from phases 30 and 31), and as the last line
+Then a ``{"kernels": [...]}`` line (K1's, K2's, K3's and K5's entries
+with a ``backward`` record from phases 30-32), and as the last line
 ``{"ok": true, "device": {...}}``.  The full record is also written to
 ``results/chip_smoke.json``.  Without a card, or outside a checkout of
 the repository, the script exits non-zero and prints no result.
@@ -709,7 +730,8 @@ def time_calls(torch, call, steps):
 def profile_calls(torch, call, steps, timed):
     """``call`` ``steps`` times under torch.profiler, each ended by a
     sync: device time by kernel family (K2, K1, K1's backward, K3, K3's
-    backward, K4, K5, PyTorch's own kernels) and kernels per call, beside ``timed`` (:func:`time_calls`,
+    backward, K4, K5, K5's backward, PyTorch's own kernels) and kernels
+    per call, beside ``timed`` (:func:`time_calls`,
     measured before any profiler ran in the phase).  The idle share is one
     minus the profiled (or the events') device time over the unprofiled
     wall time of a step; under the profiler the wall time grows, so its
@@ -725,7 +747,8 @@ def profile_calls(torch, call, steps, timed):
         wall_ms = 1e3 * (time.perf_counter() - t0)
     fam = {"matmul_kernel": 0.0, "flash_attention_kernel": 0.0,
            "fa_bwd": 0.0, "moe_ffn_kernel": 0.0, "moe_bwd": 0.0,
-           "ssd_scan_kernel": 0.0, "rglru_scan_kernel": 0.0, "torch": 0.0}
+           "ssd_scan_kernel": 0.0, "rglru_scan_kernel": 0.0,
+           "rglru_scan_bwd_kernel": 0.0, "torch": 0.0}
     n_kernels = 0
     for e in prof.key_averages():
         if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
@@ -753,6 +776,7 @@ def profile_calls(torch, call, steps, timed):
                 moe_bwd_ms_per_step=fam["moe_bwd"] / steps,
                 ssd_scan_ms_per_step=fam["ssd_scan_kernel"] / steps,
                 rglru_scan_ms_per_step=fam["rglru_scan_kernel"] / steps,
+                rglru_bwd_ms_per_step=fam["rglru_scan_bwd_kernel"] / steps,
                 torch_ms_per_step=fam["torch"] / steps,
                 kernels_per_step=n_kernels / steps,
                 idle_share=max(0.0, 1.0 - busy / steps / wall_unprofiled),
@@ -819,7 +843,8 @@ def serve_engine(out, arch, plens, arrivals, max_new, per_pass, smi):
         raise AssertionError(f"kernel launches {launches}, expected "
                              f"{want}")
     # every served K1, K3 and K4 call is bf16 on the tensor cores
-    if any(r["wgmma"] != launches[name] for name, r in routes.items()):
+    if any(r["wgmma"] != launches[name] for name, r in routes.items()
+           if "wgmma" in r):
         raise AssertionError(f"K1/K3/K4 calls off the wgmma route: "
                              f"{routes}")
     mism = []
@@ -1079,7 +1104,8 @@ def serve_qwen3_moe():
     if bench["requests"] != 32 or \
             set(bench["sources"].values()) != {"cuda_graph"} or any(
                 r["wgmma"] != bench["launches"][k] or r["simt"]
-                for k, r in bench["launches_by_route"].items()):
+                for k, r in bench["launches_by_route"].items()
+                if "wgmma" in r):
         raise AssertionError(f"{QWEN3_MOE} serve bench: {bench}")
     # every request is due at once into an idle engine, so one burst
     # prefill admits the first ``batch`` of them and prefill_slot each
@@ -1759,10 +1785,13 @@ def serve_autotune(params=None):
 # ---------------------------------------------------------------------------
 # phase 30: training (``chip_smoke.py --train``)
 # ---------------------------------------------------------------------------
-# the full-width run: qwen3-0.6b, 4 x 1024 tokens a step, a checkpoint
-# every 10 steps, one failure injected before step 15 (the restart resumes
-# from step 10, so 34 steps run); the CPU parity run: 3 steps
-TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 30, 10, 15
+# the full-width run: qwen3-0.6b cut to TRAIN_LAYERS of its 28 layers (3.8
+# GB a checkpoint instead of 6: with phase 31's cut, it pays for phase
+# 32), 4 x 1024 tokens a step, a checkpoint every 10 steps, one failure
+# injected before step 15 (the restart resumes from step 10, so 24 steps
+# run); the CPU parity run: 3 steps
+TRAIN_LAYERS = 14
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 20, 10, 15
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 4, 1024, 1e-3
 PARITY_STEPS, PARITY_LR = 3, 1e-3
 # card == CPU after PARITY_STEPS fp32 steps: losses and grad norms to
@@ -1805,14 +1834,14 @@ def k1_backward_smem(lib, fn):
         k1_mod.bwd_wgmma_smem_bytes(d, kernel))
 
 
-def k1_backward_cases(torch, smi):
-    """Phase 30 (a): every case of K1_BACKWARD_CASES, printed; raises
-    unless each is within FLASH_TOL, takes its route and keeps its
-    bits."""
+def k1_backward_cases(torch, smi, cases=K1_BACKWARD_CASES,
+                      routes=K1_BACKWARD_ROUTES):
+    """Phase 30 (a) (and 32 (a), with its own ``cases`` and ``routes``):
+    every case, printed; raises unless each is within FLASH_TOL, takes its
+    route and keeps its bits."""
     k1 = [k1_backward_case(torch, name, dname, b, h, hk, s, d, causal,
                            window, sk=sk)
-          for name, dname, b, h, hk, s, d, causal, window, sk
-          in K1_BACKWARD_CASES]
+          for name, dname, b, h, hk, s, d, causal, window, sk in cases]
     for c in k1:
         print(f"K1 backward {c['case']} {c['dtype']} (route {c['route']}): "
               f"err {c['max_abs_err']}, same bits "
@@ -1826,7 +1855,7 @@ def k1_backward_cases(torch, smi):
                 c["bits_equal_B1_in_batch"] is False or \
                 c["route"] != [c["want_route"]]:
             raise AssertionError(f"K1 backward {c}")
-    if [c["route"] for c in k1] != K1_BACKWARD_ROUTES:
+    if [c["route"] for c in k1] != routes:
         raise AssertionError(f"K1 backward routes: {k1}")
     return k1
 
@@ -2060,8 +2089,8 @@ def train_phase():
        tied head (1024 x 151,936 padded to 153,600): dX and dW within
        MATMUL_TOL of ``matmul_ref``, each timed beside ``torch.matmul``;
     c. card == CPU for PARITY_STEPS fp32 train steps at reduced size;
-    d. qwen3-0.6b at its published width and depth, bf16, weights from
-       seed 0, 4 x 1,024 tokens a step, through
+    d. qwen3-0.6b at its published width cut to TRAIN_LAYERS of its 28
+       layers, bf16, weights from seed 0, 4 x 1,024 tokens a step, through
        ``repro_torch.launch.train.train``: TRAIN_STEPS steps, a
        checkpoint every TRAIN_CKPT_EVERY, one failure injected at step
        TRAIN_FAIL_AT.  Before training, on the hot-loaded program: its
@@ -2070,9 +2099,9 @@ def train_phase():
        restart, the final step reached, every loss finite and the last
        five below the first five, telemetry points equal to the steps
        run, the program a CUDA graph, and K1's and K2's launches exactly
-       the captured per-step counts (28 layers: K2 28 a layer + 3 for the
-       head, K1 3 a layer: forward, the recompute of ``remat_policy``
-       "nothing", backward) times the steps run.
+       the captured per-step counts (K2 28 a layer + 3 for the head, K1 3
+       a layer: forward, the recompute of ``remat_policy`` "nothing",
+       backward) times the steps run.
 
     Prints the record as its last line."""
     import shutil
@@ -2128,9 +2157,10 @@ def train_phase():
           f"{rec['parity']['grad_norm_rel_err']:.2e}, params "
           f"{rec['parity']['param_max_abs_err']:.2e}", flush=True)
 
-    # d. full width through the trainer
+    # d. full width, cut in depth, through the trainer
+    cfg = cfg.replace(n_layers=TRAIN_LAYERS)
     assert (cfg.n_layers, cfg.d_model, cfg.vocab_size, cfg.dtype) == \
-        (28, 1024, 151936, "bfloat16"), cfg
+        (TRAIN_LAYERS, 1024, 151936, "bfloat16"), cfg
     table1, per_step = {}, {}
     keys = steps_lib.batch_keys(cfg)
 
@@ -2166,7 +2196,7 @@ def train_phase():
         table1["cold_execute_s"] = time.perf_counter() - t0
         ops.reset_launch_counts()
 
-    # the checkpoints (6 GB a save: bf16 weights, fp32 moments) go to the
+    # the checkpoints (3.8 GB a save: bf16 weights, fp32 moments) go to the
     # process's temporary directory, and are removed after the run
     ckpt = tempfile.mkdtemp(prefix="chip_smoke_train_")
     gc.collect()
@@ -2174,7 +2204,7 @@ def train_phase():
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     try:
-        res = train("qwen3-0.6b", reduced=False, steps=TRAIN_STEPS,
+        res = train("qwen3-0.6b", config=cfg, steps=TRAIN_STEPS,
                     global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
                     ckpt_dir=ckpt, ckpt_every=TRAIN_CKPT_EVERY,
                     fail_at=[TRAIN_FAIL_AT], lr=TRAIN_LR, log_every=5,
@@ -2189,7 +2219,8 @@ def train_phase():
     per_layer = {"matmul": 28 * cfg.n_layers + 3,
                  "flash_attention": 3 * cfg.n_layers}
     p50 = res["straggler"]["median_s"]
-    full = {"arch": "qwen3-0.6b", "dtype": cfg.dtype, "batch": TRAIN_BATCH,
+    full = {"arch": "qwen3-0.6b", "n_layers": cfg.n_layers,
+            "dtype": cfg.dtype, "batch": TRAIN_BATCH,
             "seq": TRAIN_SEQ, "steps": TRAIN_STEPS, "steps_run": n,
             "restarts": res["restarts"], "final_step": res["final_step"],
             "first_loss": res["first_loss"], "final_loss": res["final_loss"],
@@ -2211,7 +2242,8 @@ def train_phase():
             "train_wall_s": train_s}
     rec["full"] = full
     rec["launches"], rec["launches_by_route"] = launches, routes
-    print(f"train qwen3-0.6b full width bf16: {n} steps run, restarts "
+    print(f"train qwen3-0.6b full width, {cfg.n_layers} of 28 layers, bf16: "
+          f"{n} steps run, restarts "
           f"{res['restarts']}, loss {losses[0]:.3f} -> {losses[-1]:.3f}, "
           f"step p50 {p50 * 1e3:.1f} ms, {full['tokens_per_s']:.0f} tok/s, "
           f"peak {full['peak_memory_gib']:.1f} GiB, cold_execute "
@@ -2254,11 +2286,13 @@ def train_phase():
 
 # phase 31: MoE training.  The full-width run: olmoe-1b-7b at its published
 # width cut to MOE_TRAIN_LAYERS of its 16 layers (its whole state, ~83 GB,
-# does not fit the card), 4 x 1,024 tokens a step, a checkpoint every 8
+# does not fit the card; 1 layer, 6.3 GB a checkpoint, with phase 30's
+# cut pays for phase 32's run), 4 x 1,024 tokens a step, a checkpoint
+# every 8
 # steps, one failure injected before step 12 (the restart resumes from step
 # 8, so 19 steps run)
 MOE_TRAIN_ARCH = "olmoe-1b-7b"
-MOE_TRAIN_LAYERS = 4
+MOE_TRAIN_LAYERS = 1
 MOE_TRAIN_STEPS, MOE_TRAIN_CKPT_EVERY, MOE_TRAIN_FAIL_AT = 16, 8, 12
 # phase 31 (a)'s cases: (name, dtype, arch whose (E, d, f) and capacity at
 # 4,096 routed tokens give the shape, or an explicit (E, C, d, f) with its
@@ -2781,7 +2815,7 @@ def train_moe_phase():
                   "idle_share": prof["idle_share"]}
         ops.reset_launch_counts()
 
-    # the checkpoints (~19 GB a save: bf16 weights, fp32 moments) go to the
+    # the checkpoints (6.3 GB a save: bf16 weights, fp32 moments) go to the
     # process's temporary directory, and are removed after the run
     ckpt = tempfile.mkdtemp(prefix="chip_smoke_train_moe_")
     gc.collect()
@@ -2868,6 +2902,346 @@ def train_moe_phase():
                          f"all (want {by_route} a step)")
     if fails:
         raise AssertionError(f"phase 31 full width: {fails}: {full}")
+    rec["seconds"] = time.perf_counter() - t_start
+    emit(rec)
+    return 0
+
+
+# phase 32: hybrid training.  The full-width run: recurrentgemma-2b at its
+# published width cut to HYBRID_TRAIN_LAYERS of its 26 layers (one (R, R, L)
+# group under remat and the two-"R" tail, the reduced config's layer set:
+# 1.04 B parameters, ~10.4 GB a checkpoint), 4 x 1,024 tokens a step, a
+# checkpoint every 6 steps, one failure injected before step 9 (the restart
+# resumes from step 6, so 14 steps run)
+HYBRID_TRAIN_ARCH = "recurrentgemma-2b"
+HYBRID_TRAIN_LAYERS = 5
+HYBRID_TRAIN_STEPS, HYBRID_TRAIN_CKPT_EVERY, HYBRID_TRAIN_FAIL_AT = 12, 6, 9
+# phase 32 (a)'s cases of K5's backward: (name, B, S, L, with h0, dhf):
+# recurrentgemma's training shape (from zero; the training forward's loss
+# leaves the final state unused, so autograd hands dhf over as zeros), the
+# admission shape from a state with a final-state gradient, ragged S and L
+# (S 300: two register tiles a segment, the last one partial)
+K5_BACKWARD_CASES = (
+    ("training", TRAIN_BATCH, TRAIN_SEQ, 2560, False, "zero"),
+    ("admission", 1, PREFILL_LEN, 2560, True, "random"),
+    ("ragged S 37", 2, 37, 40, True, "random"),
+    ("ragged S 200", 2, 200, 40, True, None),
+    ("ragged S 300", 1, 300, 40, False, "random"),
+    ("S 1", 1, 1, 2560, True, "random"))
+
+
+def k5_backward_case(torch, name, bsz, s, l, with_h0, dhf_kind):
+    """K5's backward against ``rglru_scan_bwd_ref`` on one shape: da, db
+    and dh0 bit for bit, the same bits on two runs, batch row 0 alone
+    equal to its row of the batch (B > 1), timed beside the plain version
+    and the bound (a, h and dh read, da and db written once; h0, dhf and
+    dh0 where given; 3·B·S·L operations)."""
+    from repro_torch.kernels import ops
+    dev = torch.device("cuda")
+    g = torch.Generator(dev).manual_seed(s + l)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    a = torch.sigmoid(randn(bsz, s, l))
+    b = randn(bsz, s, l) * 0.3
+    h0 = randn(bsz, l) if with_h0 else None
+    h, _ = ops.rglru_scan(a, b, h0)
+    dh = randn(bsz, s, l)
+    dhf = None if dhf_kind is None else \
+        torch.zeros((bsz, l), device=dev) if dhf_kind == "zero" else \
+        randn(bsz, l)
+    before = ops.route_counts()["rglru_scan"]
+
+    def kernel():
+        return ops.rglru_scan_bwd(a, h, h0, dh, dhf)
+
+    got = kernel()
+    took = {r: n - before[r] for r, n in
+            ops.route_counts()["rglru_scan"].items() if n != before[r]}
+    again = kernel()
+    want = ops.rglru_scan_bwd_ref(a, h, h0, dh, dhf)
+    torch.cuda.synchronize()
+    errs = {}
+    for key, x, w in zip(("da", "db", "dh0"), got, want):
+        _, errs[key] = max_violation(x, w, RGLRU_TOL)
+    bits = all(torch.equal(x, w) for x, w in zip(got, want))
+    same = all(torch.equal(x, y) for x, y in zip(got, again))
+    batch_bits = None
+    if bsz > 1:
+        one = ops.rglru_scan_bwd(a[:1], h[:1], None if h0 is None else
+                                 h0[:1], dh[:1], None if dhf is None else
+                                 dhf[:1])
+        batch_bits = all(torch.equal(x, y[:1]) for x, y in zip(one, got))
+    ms = cuda_ms(torch, kernel, iters=20)
+    plain_ms = cuda_ms(torch, lambda: ops.rglru_scan_bwd_ref(
+        a, h, h0, dh, dhf), iters=3)
+    state = bsz * l * 4
+    nbytes = 5 * a.numel() * 4 + state * (1 + (h0 is not None)
+                                          + (dhf is not None))
+    bms, by = bound_ms(nbytes, 3.0 * a.numel(), "float32")
+    return {"case": name, "B": bsz, "S": s, "L": l, "h0": with_h0,
+            "dhf": dhf_kind, "route": took, "max_abs_err": errs,
+            "bit_equal_plain": bits, "same_bits_two_runs": same,
+            "bits_equal_B1_in_batch": batch_bits, "tol": RGLRU_TOL,
+            "ms": ms, "plain_ms": plain_ms, "bytes": nbytes,
+            "bound_ms": bms, "bound_by": by, "bound_share": bms / ms}
+
+
+def k5_forward_at_training_shape(torch, smi):
+    """Phase 32 (a): K5's forward at recurrentgemma's training shape (B 4,
+    S 1,024, L 2,560, from zero) against ``rglru_scan_ref`` bit for bit,
+    timed beside its bound (a and b read, h and the final state written:
+    126 MB)."""
+    from repro_torch.kernels import ops
+    dev = torch.device("cuda")
+    g = torch.Generator(dev).manual_seed(3)
+    bsz, s, l = TRAIN_BATCH, TRAIN_SEQ, 2560
+    a = torch.sigmoid(torch.randn((bsz, s, l), generator=g, device=dev))
+    b = torch.randn((bsz, s, l), generator=g, device=dev) * 0.3
+    got = ops.rglru_scan(a, b)
+    want = ops.rglru_scan_ref(a, b)
+    bits = all(torch.equal(x, w) for x, w in zip(got, want))
+    nbytes = 3 * a.numel() * 4 + bsz * l * 4
+    bms, by = bound_ms(nbytes, 2.0 * a.numel(), "float32")
+    ms = cuda_ms(torch, lambda: ops.rglru_scan(a, b), iters=20)
+    rec = {"B": bsz, "S": s, "L": l, "bit_equal_plain": bits, "ms": ms,
+           "plain_ms": cuda_ms(torch, lambda: ops.rglru_scan_ref(a, b),
+                               iters=3),
+           "bytes": nbytes, "bound_ms": bms, "bound_by": by,
+           "bound_share": bms / ms}
+    print(f"K5 forward at the training shape (B {bsz}, S {s}, L {l}): bits "
+          f"equal plain {bits}, {ms:.4f} ms (plain {rec['plain_ms']:.3f}, "
+          f"bound {bms:.4f} by {by}, share {rec['bound_share']:.3f}) on "
+          f"{smi}", flush=True)
+    if not bits:
+        raise AssertionError(f"K5 forward at the training shape: {rec}")
+    return rec
+
+
+def k5_backward_cases(torch, smi):
+    """Phase 32 (a): every case of K5_BACKWARD_CASES, printed; raises
+    unless each equals the plain version bit for bit, keeps its bits,
+    keeps batch row 0's bits alone and launched one "bwd" kernel."""
+    cases = [k5_backward_case(torch, *c) for c in K5_BACKWARD_CASES]
+    for c in cases:
+        print(f"K5 backward {c['case']} (B {c['B']}, S {c['S']}, L "
+              f"{c['L']}, h0 {c['h0']}, dhf {c['dhf']}; route "
+              f"{c['route']}): bits equal plain {c['bit_equal_plain']}, "
+              f"same bits {c['same_bits_two_runs']}, B1 bits in batch "
+              f"{c['bits_equal_B1_in_batch']}, {c['ms']:.4f} ms (plain "
+              f"{c['plain_ms']:.3f}, bound {c['bound_ms']:.4f} by "
+              f"{c['bound_by']}, share {c['bound_share']:.3f}) on {smi}",
+              flush=True)
+        if not (c["bit_equal_plain"] and c["same_bits_two_runs"]) or \
+                c["bits_equal_B1_in_batch"] is False or \
+                c["route"] != {"bwd": 1}:
+            raise AssertionError(f"K5 backward {c}")
+    return cases
+
+
+def train_hybrid_phase():
+    """Phase 32's body (``chip_smoke.py --train-hybrid``, started by the
+    whole script in a process of its own, as phases 30 and 31):
+
+    a. K5's backward against its plain version at recurrentgemma-2b's
+       training shape (B 4, S 1,024, L 2,560, from zero, dhf zero), at the
+       admission shape (B 1, S 256) from h0 with a final-state gradient,
+       at ragged S and L (S 37, 200 and 300 at L 40) and at S 1: da, db
+       and dh0 bit for bit, the same bits on two runs, batch row 0 alone
+       equal to its row, one "bwd" launch a call, timed beside the plain
+       version and the bound; K5's forward at the training shape, timed
+       against its bound; then K1's backward at recurrentgemma's "L"
+       training shape (bf16, B 4, 10 query heads over 1, D 256, S 1,024,
+       window 2,048) on "bwd_wgmma" within FLASH_TOL, timed beside SDPA's
+       backward;
+    b. card == CPU for PARITY_STEPS fp32 train steps of reduced
+       recurrentgemma-2b (phase 30's tolerances);
+    c. recurrentgemma-2b at its published width (d 2,560, MQA 10 x 256,
+       lru 2,560, d_ff 7,680, tied 256,000 head, window 2,048) cut to
+       HYBRID_TRAIN_LAYERS layers, bf16, weights from seed 0, through
+       ``repro_torch.launch.train.train``: 4 x 1,024 tokens a step,
+       HYBRID_TRAIN_STEPS steps, a checkpoint every
+       HYBRID_TRAIN_CKPT_EVERY, one failure injected at step
+       HYBRID_TRAIN_FAIL_AT.  Before training, on the hot-loaded program,
+       its replay timed and one replay profiled by kernel family.  Gates:
+       one restart, the final step reached, every loss finite and the
+       last five below the first five, telemetry points equal to the steps
+       run, the program a CUDA graph, and the launches exactly the
+       captured per-step counts times the steps run: K2 115 (the group's
+       19 products forward, recomputed under ``remat_policy`` "nothing",
+       dX and dW; the tail's 12 forward, dX and dW; 3 for the head), K1 3
+       (forward and recompute on "wgmma", the backward on "bwd_wgmma"),
+       K5 6 forward (the group's two "R" layers twice, the tail's once)
+       and 4 backward.
+
+    Prints the record as its last line."""
+    import shutil
+    import tempfile
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke --train-hybrid: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, SRC)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import _build, ops
+    from repro_torch.launch.train import train
+    from repro_torch.models import registry, transformer
+    t_start = time.perf_counter()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    rec = {"nvidia_smi": smi}
+    # run alone, the process builds the library: its ptxas lines for K5's
+    # backward kernel (empty where the whole script's phase 2 built it)
+    _build.library()
+    rec["k5_backward_build"] = _build.ptxas_report("rglru_scan_bwd")
+
+    # a. K5's backward and forward at the training shape; K1's backward at
+    # the "L" layer's
+    rec["k5_backward"] = k5_backward_cases(torch, smi)
+    rec["k5_forward_training"] = k5_forward_at_training_shape(torch, smi)
+    rec["k1_backward"] = k1_backward_cases(
+        torch, smi, cases=(("recurrentgemma L", "bfloat16", TRAIN_BATCH, 10,
+                            1, TRAIN_SEQ, 256, True, 2048, None),),
+        routes=[["bwd_wgmma"]])
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # b. card == CPU, reduced, fp32
+    rec["parity"] = train_parity(torch, HYBRID_TRAIN_ARCH)
+    print(f"train parity (reduced recurrentgemma fp32, {PARITY_STEPS} "
+          f"steps): loss rel {rec['parity']['loss_rel_err']:.2e}, grad norm "
+          f"rel {rec['parity']['grad_norm_rel_err']:.2e}, params "
+          f"{rec['parity']['param_max_abs_err']:.2e}", flush=True)
+
+    # c. full width, cut in depth, through the trainer
+    cfg = registry.get_config(HYBRID_TRAIN_ARCH).replace(
+        n_layers=HYBRID_TRAIN_LAYERS)
+    assert (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+            cfg.lru_width, cfg.d_ff, cfg.vocab_size, cfg.tie_embeddings,
+            cfg.local_window, cfg.dtype,
+            transformer.split_layers(cfg)) == \
+        (2560, 10, 1, 256, 2560, 7680, 256000, True, 2048, "bfloat16",
+         (("R", "R", "L"), 1, ("R", "R"))), cfg
+    per_step = {}
+
+    def hook(handle, state, pipeline):
+        prog = handle.program
+        per_step.update(launches=dict(prog.launches),
+                        routes={k: dict(v) for k, v in prog.routes.items()},
+                        source=prog.source, lower_s=prog.stats.lower_s,
+                        compile_s=prog.stats.compile_s,
+                        graph_bytes=prog.stats.graph_bytes)
+        batch = pipeline.device_batch(0)
+        args = [batch[k] for k in ("tokens", "labels")]
+
+        def call():
+            handle(state, *args)
+
+        timed = time_calls(torch, call, 3)
+        prof = profile_calls(torch, call, 1, timed)
+        per_step["replay"] = timed
+        per_step["profile"] = None if "device_ms_per_step" not in prof \
+            else {"K2_ms": prof["matmul_ms_per_step"],
+                  "K1_forward_ms": prof["flash_ms_per_step"],
+                  "K1_backward_ms": prof["flash_bwd_ms_per_step"],
+                  "K5_forward_ms": prof["rglru_scan_ms_per_step"],
+                  "K5_backward_ms": prof["rglru_bwd_ms_per_step"],
+                  "torch_ms": prof["torch_ms_per_step"],
+                  "device_ms": prof["device_ms_per_step"],
+                  "kernels": prof["kernels_per_step"],
+                  "idle_share": prof["idle_share"]}
+        ops.reset_launch_counts()
+
+    # the checkpoints (~10.4 GB a save: bf16 weights, fp32 moments) go to
+    # the process's temporary directory, and are removed after the run
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_train_hybrid_")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        res = train(HYBRID_TRAIN_ARCH, config=cfg, steps=HYBRID_TRAIN_STEPS,
+                    global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                    ckpt_dir=ckpt, ckpt_every=HYBRID_TRAIN_CKPT_EVERY,
+                    fail_at=[HYBRID_TRAIN_FAIL_AT], lr=TRAIN_LR,
+                    log_every=3, device="cuda", on_program=hook)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    train_s = time.perf_counter() - t0
+    launches, routes = ops.launch_counts(), ops.route_counts()
+    n = res["steps_run"]
+    losses = res["losses"]
+    want_steps = (HYBRID_TRAIN_STEPS + HYBRID_TRAIN_FAIL_AT
+                  - HYBRID_TRAIN_CKPT_EVERY - 1)
+    want = {"matmul": 115, "flash_attention": 3, "moe_ffn": 0,
+            "ssd_scan": 0, "rglru_scan": 10}
+    want_routes = {"flash_attention": {"wgmma": 2, "simt": 0,
+                                       "bwd_wgmma": 1, "bwd_simt": 0},
+                   "rglru_scan": {"fwd": 6, "bwd": 4}}
+    p50 = res["straggler"]["median_s"]
+    full = {"arch": HYBRID_TRAIN_ARCH, "n_layers": cfg.n_layers,
+            "dtype": cfg.dtype, "params": registry.param_counts(cfg),
+            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "steps": HYBRID_TRAIN_STEPS, "steps_run": n,
+            "restarts": res["restarts"], "final_step": res["final_step"],
+            "first_loss": res["first_loss"], "final_loss": res["final_loss"],
+            "losses": losses, "grad_norms": res["grad_norms"],
+            "telemetry_points": res["telemetry_points"],
+            "telemetry_errors": res["telemetry_errors"],
+            "source": per_step["source"],
+            "per_step_launches": per_step["launches"],
+            "per_step_routes": per_step["routes"],
+            "launches": launches, "launches_by_route": routes,
+            "step_p50_s": p50, "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / p50,
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "graph_bytes": per_step["graph_bytes"],
+            "checkpoint_save_s": res["checkpoint_save_s"],
+            "checkpoint_restore_s": res["checkpoint_restore_s"],
+            "lower_s": per_step["lower_s"],
+            "compile_s": per_step["compile_s"],
+            "replay": per_step["replay"], "profile": per_step["profile"],
+            "train_wall_s": train_s}
+    rec["full"] = full
+    rec["launches"], rec["launches_by_route"] = launches, routes
+    print(f"train {HYBRID_TRAIN_ARCH} full width, {cfg.n_layers} of 26 "
+          f"layers, bf16: {n} steps run, restarts {res['restarts']}, loss "
+          f"{losses[0]:.3f} -> {losses[-1]:.3f}, step p50 {p50 * 1e3:.1f} "
+          f"ms, {full['tokens_per_s']:.0f} tok/s, peak "
+          f"{full['peak_memory_gib']:.1f} GiB, capture "
+          f"{per_step['compile_s']:.2f} s, checkpoint saves "
+          f"{[round(x, 2) for x in res['checkpoint_save_s']]} s, restore "
+          f"{[round(x, 2) for x in res['checkpoint_restore_s']]} s, by "
+          f"family {per_step['profile']} on {smi}", flush=True)
+    fails = []
+    if res["restarts"] != 1 or res["final_step"] != HYBRID_TRAIN_STEPS - 1:
+        fails.append("restarts or final step")
+    if n != want_steps or not all(math.isfinite(x) for x in losses):
+        fails.append(f"{n} steps run (want {want_steps}) or a loss not "
+                     f"finite")
+    if not sum(losses[-5:]) < sum(losses[:5]):
+        fails.append("the loss did not fall")
+    if res["telemetry_points"] != n or res["telemetry_errors"]:
+        fails.append("telemetry points != steps run")
+    if per_step["source"] != "cuda_graph":
+        fails.append(f"source {per_step['source']}")
+    for name, k in want.items():
+        if per_step["launches"].get(name, 0) != k or launches[name] != k * n:
+            fails.append(f"{name} launches {launches[name]} (per step "
+                         f"{per_step['launches'].get(name)}, want {k} x "
+                         f"{n})")
+    for name, by_route in want_routes.items():
+        got = per_step["routes"].get(name, {})
+        if {r: got.get(r, 0) for r in by_route} != by_route or \
+                routes[name] != {r: k * n for r, k in by_route.items()}:
+            fails.append(f"{name} routes {got} a step, {routes[name]} in "
+                         f"all (want {by_route} a step)")
+    if fails:
+        raise AssertionError(f"phase 32 full width: {fails}: {full}")
     rec["seconds"] = time.perf_counter() - t_start
     emit(rec)
     return 0
@@ -3013,13 +3387,15 @@ def main():
         out["k1_backward_kernels"] = tc_build["K1 backward"]
         out["k3_backward_kernels"] = tc_build["K3 backward"]
         out["k4_kernels"] = tc_build["K4"]
-        # K5 and K3's backward route "bwd_simt" run on CUDA cores: their
-        # registers and spills, for the record
+        # K5, its backward and K3's backward route "bwd_simt" run on CUDA
+        # cores: their registers and spills, for the record
         out["k5_kernels"] = _build.ptxas_report("rglru_scan")
+        out["k5_backward_kernels"] = _build.ptxas_report("rglru_scan_bwd")
         out["k3_backward_simt_kernels"] = [
             r for r in _build.ptxas_report("moe_ffn_bwd")
             if "wgmma" not in r["function"]]
         for name, rows in (("K5", out["k5_kernels"]),
+                           ("K5 backward", out["k5_backward_kernels"]),
                            ("K3 backward", out["k3_backward_simt_kernels"])):
             for r in rows:
                 print(f"{name} CUDA cores: {r['function']}: "
@@ -4475,7 +4851,8 @@ def main():
         if launches != want:
             raise AssertionError(f"{arch} paged: kernel launches {launches}, "
                                  f"expected {want}")
-        if any(r["wgmma"] != launches[name] for name, r in routes.items()):
+        if any(r["wgmma"] != launches[name] for name, r in routes.items()
+               if "wgmma" in r):
             raise AssertionError(f"{arch} paged: K1/K3/K4 calls off the "
                                  f"wgmma route: {routes}")
         # the unpaged engine on the same weights and workload
@@ -4656,7 +5033,8 @@ def main():
         if launches != want:
             raise AssertionError(f"{name}: kernel launches {launches}, "
                                  f"expected {want}")
-        if any(r["wgmma"] != launches[k] for k, r in routes.items()):
+        if any(r["wgmma"] != launches[k] for k, r in routes.items()
+               if "wgmma" in r):
             raise AssertionError(f"{name}: K1/K3/K4 calls off the wgmma "
                                  f"route: {routes}")
         path_launches[name], path_routes[name] = launches, routes
@@ -6282,7 +6660,8 @@ def main():
                 raise AssertionError(f"bench.{name} did not run on the "
                                      f"card: {rec['device']}")
             if any(r["wgmma"] != rec["launches"][k] or r["simt"]
-                   for k, r in rec["launches_by_route"].items()):
+                   for k, r in rec["launches_by_route"].items()
+                   if "wgmma" in r):
                 raise AssertionError(f"bench.{name}: K1/K3/K4 calls off "
                                      f"the wgmma route: "
                                      f"{rec['launches_by_route']}")
@@ -6450,6 +6829,27 @@ def main():
         print(f"train_moe: {trained_moe['seconds']:.1f} s in its process "
               f"({smi})", flush=True)
 
+    # -- 32. hybrid training, in a process of its own --------------------
+    with phase("train_hybrid") as out:
+        gc.collect()
+        torch.cuda.empty_cache()
+        res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--train-hybrid"], capture_output=True,
+                             text=True, env=env, timeout=600, cwd=ROOT)
+        lines = res.stdout.strip().splitlines()
+        for line in lines[:-1]:
+            print(line, flush=True)
+        if res.returncode != 0 or not lines:
+            raise AssertionError(f"phase 32's process failed "
+                                 f"({res.returncode}): {res.stderr[-4000:]}")
+        trained_rg = json.loads(lines[-1])
+        out.update(trained_rg)
+        path_launches["recurrentgemma-2b/train"] = trained_rg["launches"]
+        path_routes["recurrentgemma-2b/train"] = \
+            trained_rg["launches_by_route"]
+        print(f"train_hybrid: {trained_rg['seconds']:.1f} s in its process "
+              f"({smi})", flush=True)
+
     def total(name):
         return sum(path[name] for path in path_launches.values())
 
@@ -6500,6 +6900,26 @@ def main():
         "build_simt": RECORD["phases"][1].get("k3_backward_simt_kernels"),
         "forward_at_training_capacity": trained_moe["k3_forward_c640"],
         "cases": k3_bwd}
+    # phase 32's backward record: K5's backward kernel at recurrentgemma's
+    # training shape (its other cases beside it)
+    k5_bwd = trained_rg["k5_backward"]
+    k5_routes = trained_rg["launches_by_route"]["rglru_scan"]
+    k5_backward = {
+        "source": "src/repro_torch/kernels/csrc/rglru_scan_bwd.cu",
+        "route": "cuda", "launches": k5_routes["bwd"],
+        "max_abs_err": max(max(c["max_abs_err"].values()) for c in k5_bwd),
+        "bit_equal_plain": all(c["bit_equal_plain"] for c in k5_bwd),
+        **{key: k5_bwd[0][key] for key in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by")},
+        "library_ms": None,
+        "library": "none: no single PyTorch call computes a linear "
+                   "recurrence's gradient",
+        "per": f"one call: f32 B {k5_bwd[0]['B']}, S {k5_bwd[0]['S']}, L "
+               f"{k5_bwd[0]['L']}, from zero",
+        "build": RECORD["phases"][1].get("k5_backward_kernels"),
+        "forward_at_training_shape": trained_rg["k5_forward_training"],
+        "k1_backward_at_the_L_layer": trained_rg["k1_backward"],
+        "cases": k5_bwd}
     k2_grad = trained["k2_gradient"]
     k2_backward = {
         "launches": trained["launches"]["matmul"],
@@ -6626,6 +7046,10 @@ def main():
          "replaces": "src/repro/kernels/rglru_scan.py:45",
          "launches": total("rglru_scan"),
          "launches_by_path": by_path("rglru_scan"),
+         "launches_by_route": {
+             r: sum(path["rglru_scan"].get(r, 0)
+                    for path in path_routes.values()
+                    if "rglru_scan" in path) for r in ("fwd", "bwd")},
          "max_abs_err": k5_err,
          "ms": k5["ms"], "plain_ms": k5["plain_ms"],
          "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
@@ -6635,7 +7059,7 @@ def main():
          "per": f"one call at recurrentgemma-2b admission: f32 B=1, "
                 f"S={PREFILL_LEN}, L={rg_lru}, from a state h0",
          "bit_equal_plain": k5_plain_bits, "bits_equal_B1_B2": k5_bits,
-         "build": k5_build},
+         "build": k5_build, "backward": k5_backward},
     ]
     RECORD["kernels"] = kernels
     _write_record()
@@ -6650,6 +7074,8 @@ if __name__ == "__main__":
         sys.exit(train_phase())
     if sys.argv[1:] == ["--train-moe"]:
         sys.exit(train_moe_phase())
+    if sys.argv[1:] == ["--train-hybrid"]:
+        sys.exit(train_hybrid_phase())
     if sys.argv[1:] == ["--serve-qwen3-moe"]:
         sys.exit(serve_qwen3_moe())
     if sys.argv[1:] == ["--serve-autotune"]:

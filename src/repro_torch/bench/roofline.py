@@ -13,12 +13,12 @@ H100's published peaks (:mod:`repro_torch.launch.roofline`).  Per cell:
 FLOPs, ideal bytes, ``compute_s``, ``memory_s``, the dominant term,
 whether the parameters and caches (a train cell: the parameters and the
 fp32 moments) fit one card's 80 GB, and ``model_flops`` over the counted
-FLOPs.  The ``train_4k`` cells of the dense and MoE families are
-counted through the train program (forward, the recompute its
-``remat_policy`` asks for, K2's dX and dW products, K1's and K3's
-backward, AdamW); those of the SSM, hybrid and encoder-decoder families
-are listed as waiting for their training step (ROADMAP Queue 1 item
-14b); the reference's 500k-token
+FLOPs.  The ``train_4k`` cells of the dense, MoE and hybrid families
+are counted through the train program (forward, the recompute its
+``remat_policy`` asks for, K2's dX and dW products, K1's, K3's and K5's
+backward, AdamW); those of the SSM and encoder-decoder families are
+listed as waiting for their training step (ROADMAP Queue 1 items 14b.3
+and 14b.4); the reference's 500k-token
 cells of the full-attention archs are skipped as the reference skips
 them.
 

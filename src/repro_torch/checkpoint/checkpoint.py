@@ -18,15 +18,24 @@ type ``|V2``) is read by viewing its bytes as uint16.  Restoring onto the
 card copies each leaf in from the host; the reference's tree loader,
 which reads a leaf once and broadcasts it to data-parallel replicas,
 belongs to tensor parallelism (ROADMAP Queue 1 item 13).
+
+Leaves move between the card and their files on ``_IO_THREADS`` threads,
+one leaf a thread, each a ``_CHUNK`` at a time through a staging buffer
+of its own (page-locked for a card's leaf): a leaf is never held whole
+on the host, and a file is ``np.save``'s bytes of the leaf.  The threads
+copy after the caller's current streams have drained, and every copy
+has ended when a save or a restore returns.
 """
 from __future__ import annotations
 
+import collections
 import hashlib
 import json
 import shutil
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Any, Dict, Iterator, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,6 +43,10 @@ import torch
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "int32": torch.int32, "int64": torch.int64,
            "float16": torch.float16}
+# leaves in flight at once (file I/O and copies release the interpreter
+# lock), and the bytes a thread stages at a time
+_IO_THREADS = 4
+_CHUNK = 64 << 20
 
 
 def _leaves(tree, path=()) -> Iterator[Tuple[str, torch.Tensor]]:
@@ -46,6 +59,19 @@ def _leaves(tree, path=()) -> Iterator[Tuple[str, torch.Tensor]]:
         yield "/".join(path), tree
 
 
+def _pipelined(fn: Callable, items: Iterable) -> Iterator:
+    """``fn`` of each item on ``_IO_THREADS`` threads, the results in the
+    items' order, at most ``_IO_THREADS`` calls in flight."""
+    with ThreadPoolExecutor(_IO_THREADS) as pool:
+        pending = collections.deque()
+        for item in items:
+            if len(pending) == _IO_THREADS:
+                yield pending.popleft().result()
+            pending.append(pool.submit(fn, item))
+        while pending:
+            yield pending.popleft().result()
+
+
 def _leaf_file(path: str) -> str:
     return hashlib.sha1(path.encode()).hexdigest()[:16] + ".npy"
 
@@ -54,11 +80,42 @@ def _dtype_name(t: torch.Tensor) -> str:
     return str(t.dtype).replace("torch.", "")
 
 
-def _to_numpy(t: torch.Tensor) -> np.ndarray:
-    t = t.detach().cpu()
+def _np_dtype(t: torch.Tensor) -> np.dtype:
+    """The file's dtype: a bf16 leaf is saved as its uint16 bits."""
     if t.dtype == torch.bfloat16:
-        return t.view(torch.int16).numpy().view(np.uint16)
-    return t.numpy()
+        return np.dtype(np.uint16)
+    return torch.empty((), dtype=t.dtype).numpy().dtype
+
+
+def _wait_for_caller(tensors):
+    """The threads copy in their own (default) streams: what the caller
+    queued on its current streams comes first."""
+    for dev in {t.device for t in tensors if t.is_cuda}:
+        torch.cuda.current_stream(dev).synchronize()
+
+
+def _chunks(flat: torch.Tensor) -> Iterator[Tuple[torch.Tensor, slice]]:
+    """(stage, span) pairs covering the bytes of ``flat``: one staging
+    buffer (page-locked where ``flat`` is on the card) reused for every
+    span, ``stage`` cut to the span's length."""
+    stage = torch.empty(max(1, min(flat.numel(), _CHUNK)), dtype=torch.uint8,
+                        pin_memory=flat.is_cuda)
+    for i in range(0, flat.numel(), stage.numel()):
+        n = min(stage.numel(), flat.numel() - i)
+        yield stage[:n], slice(i, i + n)
+
+
+def _write_leaf(file: Path, leaf: torch.Tensor):
+    """``np.save``'s bytes of ``leaf`` (contiguous), copied off its device
+    a chunk at a time."""
+    header = {"descr": np.lib.format.dtype_to_descr(_np_dtype(leaf)),
+              "fortran_order": False, "shape": tuple(leaf.shape)}
+    flat = leaf.reshape(-1).view(torch.uint8)
+    with open(file, "wb") as f:
+        np.lib.format.write_array_header_1_0(f, header)
+        for stage, span in _chunks(flat):
+            stage.copy_(flat[span])
+            f.write(stage.numpy().data)
 
 
 def save_checkpoint(directory, step: int, tree) -> Dict[str, Any]:
@@ -69,13 +126,15 @@ def save_checkpoint(directory, step: int, tree) -> Dict[str, Any]:
     if tmp.exists():
         shutil.rmtree(tmp)
     tmp.mkdir(parents=True)
-    manifest = {"step": int(step), "time": time.time(), "leaves": {}}
-    for path, leaf in _leaves(tree):
-        fname = _leaf_file(path)
-        arr = _to_numpy(leaf)
-        np.save(tmp / fname, arr)
-        manifest["leaves"][path] = {"file": fname, "shape": list(arr.shape),
-                                    "dtype": _dtype_name(leaf)}
+    leaves = [(path, leaf.detach().contiguous())
+              for path, leaf in _leaves(tree)]
+    manifest = {"step": int(step), "time": time.time(), "leaves": {
+        path: {"file": _leaf_file(path), "shape": list(leaf.shape),
+               "dtype": _dtype_name(leaf)} for path, leaf in leaves}}
+    _wait_for_caller(leaf for _, leaf in leaves)
+    for _ in _pipelined(lambda item: _write_leaf(
+            tmp / _leaf_file(item[0]), item[1]), leaves):
+        pass
     (tmp / "MANIFEST.json").write_text(json.dumps(manifest, indent=1))
     if final.exists():
         shutil.rmtree(final)
@@ -113,13 +172,15 @@ def _manifest(directory: Path, step: Optional[int]):
 
 def _read_leaf(d: Path, meta: Dict[str, Any], path: str) -> torch.Tensor:
     arr = np.load(d / meta["file"])
+    if not arr.flags.c_contiguous:
+        arr = np.array(arr, order="C")
     name = meta["dtype"]
     if name == "bfloat16":
         # the port's uint16 bits, or the reference's |V2 (ml_dtypes) bytes
-        bits = np.array(arr, order="C").view(np.int16)
+        bits = arr.view(np.int16)
         t = torch.from_numpy(bits).view(torch.bfloat16)
     elif name in _DTYPES:
-        t = torch.from_numpy(np.array(arr, order="C"))
+        t = torch.from_numpy(arr)
         if t.dtype != _DTYPES[name]:
             raise ValueError(f"leaf {path}: file holds {arr.dtype}, the "
                              f"manifest says {name}")
@@ -138,17 +199,13 @@ def load_checkpoint(directory, like, step: Optional[int] = None, *,
     leaf gives the path, shape, dtype and device the read must match).
     Returns (tree, step); the tree's tensors are new."""
     _check_sharded(mesh, broadcast_axis)
-    d, manifest, step = _manifest(Path(directory), step)
 
-    def build(t, path=()):
-        if isinstance(t, dict):
-            return {k: build(t[k], path + (str(k),)) for k in t}
-        key = "/".join(path)
-        leaf = _read_leaf(d, manifest["leaves"][key], key)
-        _check_like(key, leaf, t)
-        return leaf.to(t.device)
+    def empty(t):
+        return {k: empty(v) for k, v in t.items()} if isinstance(t, dict) \
+            else torch.empty_like(t)
 
-    return build(like), step
+    tree = empty(like)
+    return tree, restore_into(directory, tree, step)
 
 
 def _check_like(path: str, leaf: torch.Tensor, like: torch.Tensor):
@@ -158,16 +215,48 @@ def _check_like(path: str, leaf: torch.Tensor, like: torch.Tensor):
                          f"{like.dtype} {tuple(like.shape)}")
 
 
+def _read_into(d: Path, meta: Dict[str, Any], path: str,
+               dst: torch.Tensor):
+    """Copy a leaf's file into ``dst`` a chunk at a time.  A file whose
+    header does not give ``dst``'s layout (another dtype or shape, Fortran
+    order), or a ``dst`` that is not contiguous, is read whole by
+    :func:`_read_leaf`, which names the mismatch."""
+    dst = dst.detach()
+    with open(d / meta["file"], "rb") as f:
+        version = np.lib.format.read_magic(f)
+        read_header = {(1, 0): np.lib.format.read_array_header_1_0,
+                       (2, 0): np.lib.format.read_array_header_2_0}.get(
+                           version)
+        shape, fortran, dtype = read_header(f) if read_header else \
+            (None, True, None)
+        # the port's uint16 bits of a bf16 leaf, or the reference's |V2
+        fits = (not fortran and dst.is_contiguous()
+                and list(shape) == list(meta["shape"]) == list(dst.shape)
+                and meta["dtype"] == _dtype_name(dst)
+                and (dtype.itemsize == 2 if dst.dtype == torch.bfloat16
+                     else dtype == _np_dtype(dst)))
+        if fits:
+            flat = dst.view(-1).view(torch.uint8)
+            for stage, span in _chunks(flat):
+                if f.readinto(stage.numpy().data) != stage.numel():
+                    raise ValueError(f"leaf {path}: its file ends early")
+                flat[span].copy_(stage)
+            return
+    leaf = _read_leaf(d, meta, path)
+    _check_like(path, leaf, dst)
+    dst.copy_(leaf)
+
+
 def restore_into(directory, tree, step: Optional[int] = None) -> int:
     """Copy a checkpoint into ``tree``'s own tensors, in place (their
     storage kept: a captured program stays bound to it).  Returns the
     step."""
     d, manifest, step = _manifest(Path(directory), step)
-    with torch.no_grad():
-        for path, dst in _leaves(tree):
-            leaf = _read_leaf(d, manifest["leaves"][path], path)
-            _check_like(path, leaf, dst)
-            dst.copy_(leaf)
+    leaves = list(_leaves(tree))
+    _wait_for_caller(dst for _, dst in leaves)
+    for _ in _pipelined(lambda item: _read_into(
+            d, manifest["leaves"][item[0]], *item), leaves):
+        pass
     return step
 
 

@@ -218,6 +218,8 @@ def _bind(cdll: ctypes.CDLL):
     cdll.repro_ssd_scan_wgmma_smem.restype = i
     cdll.repro_rglru_scan.argtypes = [p, p, p, p, p, i, i, i, p]
     cdll.repro_rglru_scan.restype = i
+    cdll.repro_rglru_scan_bwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, p]
+    cdll.repro_rglru_scan_bwd.restype = i
     # csrc/hostcall.cu: in-graph host calls (core/hostcall.py)
     cdll.repro_hostcall.argtypes = [p, p, p, i, p, p, p, p, p, ll]
     cdll.repro_hostcall.restype = i

@@ -3,9 +3,10 @@
 There is no implementation switch: the device of the tensors decides.  A
 CPU tensor takes the kernel's plain PyTorch version; a CUDA tensor launches
 the hand-written Hopper kernel or raises.  Every TPU kernel of the
-reference has its counterpart here (K1-K5), and K1, K2 and K3 have
+reference has its counterpart here (K1-K5), and K1, K2, K3 and K5 have
 gradients (K1's backward counts under K1 and K3's under K3, each on
-route "bwd_wgmma" or "bwd_simt").
+route "bwd_wgmma" or "bwd_simt"; K5's under K5, on route "bwd", its
+forward on "fwd").
 """
 from __future__ import annotations
 
@@ -18,7 +19,9 @@ from repro_torch.kernels.flash_attention import (flash_attention,
 from repro_torch.kernels.matmul import matmul, matmul_ref
 from repro_torch.kernels.moe_dispatch import (moe_ffn, moe_ffn_bwd,
                                               moe_ffn_bwd_ref, moe_ffn_ref)
-from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_ref
+from repro_torch.kernels.rglru_scan import (rglru_scan, rglru_scan_bwd,
+                                            rglru_scan_bwd_ref,
+                                            rglru_scan_ref)
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
 
 KERNELS = {"matmul": matmul, "flash_attention": flash_attention,
@@ -29,7 +32,8 @@ __all__ = ["matmul", "matmul_ref", "flash_attention", "flash_attention_ref",
            "flash_attention_bwd", "flash_attention_bwd_ref",
            "moe_ffn", "moe_ffn_ref", "moe_ffn_bwd", "moe_ffn_bwd_ref",
            "ssd_scan", "ssd_scan_ref",
-           "rglru_scan", "rglru_scan_ref", "KERNELS", "launch_counts",
+           "rglru_scan", "rglru_scan_ref", "rglru_scan_bwd",
+           "rglru_scan_bwd_ref", "KERNELS", "launch_counts",
            "route_counts", "reset_launch_counts", "add_launch_counts"]
 
 
@@ -40,7 +44,7 @@ def launch_counts() -> Dict[str, int]:
 
 def route_counts() -> Dict[str, Dict[str, int]]:
     """Launches by route since the last reset, for the kernels with more
-    than one route (K1, K3, K4)."""
+    than one route (K1, K3, K4) or a backward (K5: "fwd" and "bwd")."""
     return {name: dict(fn.launches_by_route) for name, fn in KERNELS.items()
             if hasattr(fn, "launches_by_route")}
 

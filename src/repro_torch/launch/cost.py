@@ -7,8 +7,9 @@ function the Syscore captures.  So :func:`count` runs the function once
 on ``meta`` tensors (shapes and dtypes, no storage) under a
 ``TorchDispatchMode`` that sees every ATen operator and every one of the
 five kernels' custom operators (``repro_torch::{matmul,flash_attention,
-moe_ffn,ssd_scan,rglru_scan}``, and K1's and K3's gradients
-``flash_attention_bwd`` and ``moe_ffn_bwd``), and adds up what each
+moe_ffn,ssd_scan,rglru_scan}``, and K1's, K3's and K5's gradients
+``flash_attention_bwd``, ``moe_ffn_bwd`` and ``rglru_scan_bwd``), and
+adds up what each
 costs.  On ``meta`` the kernels' registered fakes run, never their CUDA
 implementations: counting launches nothing, moves no launch counter and
 allocates no device memory.
@@ -37,7 +38,9 @@ FLOPs:
   head and chunk 2·Q²·(N + P) (the decay-masked C·Bᵀ and its product with
   x) + 4·Q·N·P (the inter-chunk output and the state update), as the
   reference kernel computes them;
-- K5 ``rglru_scan`` a, b (B, S, L): 2·B·S·L (h = a·h + b).
+- K5 ``rglru_scan`` a, b (B, S, L): 2·B·S·L (h = a·h + b);
+- K5's gradient ``rglru_scan_bwd`` a, h, dh (B, S, L): 3·B·S·L (the
+  adjoint lam = c·lam + dh, and da = lam·h_prev).
 
 Bytes (the reference's ideal-traffic model: what must touch HBM under
 perfect elementwise fusion):
@@ -158,6 +161,10 @@ def _rglru(args):
     return 2.0 * args[0].numel()
 
 
+def _rglru_bwd(args):
+    return 3.0 * args[0].numel()
+
+
 # schema name -> FLOPs of one call; the bytes of these are their I/O
 _PRODUCTS: Dict[str, Callable] = {
     "aten::mm": _mm, "aten::addmm": _mm,
@@ -169,6 +176,7 @@ _PRODUCTS: Dict[str, Callable] = {
     "repro_torch::moe_ffn_bwd": _moe_bwd,
     "repro_torch::ssd_scan": _ssd,
     "repro_torch::rglru_scan": _rglru,
+    "repro_torch::rglru_scan_bwd": _rglru_bwd,
 }
 
 # cache writes: schema name -> the argument holding the update

@@ -8,10 +8,18 @@ The RG-LRU recurrence (arXiv:2402.19427):
     h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
 
 Prefill runs the recurrence through K5 (``kernels.ops.rglru_scan``) from
-the cached state; decode is the one-token update in plain PyTorch, as the
-reference leaves it to XLA.  The three projections go through K2.  Cache
-writes are made in place: the layer's ``conv`` buffer (the last 3 conv
-inputs, model dtype) and ``h`` (B, lru), fp32 whatever the model dtype.
+the cached state, and training from zero with no cache; decode is the
+one-token update in plain PyTorch, as the reference leaves it to XLA.
+The three projections go through K2.  Cache writes are made in place: the
+layer's ``conv`` buffer (the last 3 conv inputs, model dtype) and ``h``
+(B, lru), fp32 whatever the model dtype.
+
+In training, the recurrence's gradient is K5's backward kernel
+(``repro_torch::rglru_scan_bwd``, the autograd of K5's operator); the
+gate parameters' gradients (``lam``, ``w_a``, ``b_a``, ``w_i``, ``b_i``),
+the conv's and the GELU gate's come from autograd through the plain ops,
+as the reference leaves them to XLA, and the projections' from K2's
+gradient.
 
 Numerics against the reference: the reference's prefill combines steps
 with ``lax.associative_scan``, K5 and its plain version walk them in
@@ -105,7 +113,9 @@ def apply_rglru_layer(cfg, p: Params, x: torch.Tensor, *, mode: str,
     """Full recurrent block: norm -> (x, gate) projections -> conv ->
     RG-LRU -> gated out projection.  Writes the layer's ``conv`` and ``h``
     into ``cache`` in place; in decode mode a row with ``live`` (B,) False
-    keeps its old ones."""
+    keeps its old ones.  ``mode="train"`` takes ``cache=None``, runs the
+    conv and the scan from zero (the reference's ``h0 = None``), writes
+    nothing and returns ``(x, None)``."""
     residual = x
     xn = apply_rmsnorm(p["ln"], x, cfg.norm_eps)
     xb = linear(xn, p["w_x"])
@@ -122,11 +132,14 @@ def apply_rglru_layer(cfg, p: Params, x: torch.Tensor, *, mode: str,
         conv = causal_conv(xb, p["conv_w"], p["conv_b"])
         y, hf = rglru_scan(p, conv, h0=cache["h"])
         new_conv = F.pad(xb, (0, 0, w, 0))[:, -w:]
+    elif mode == "train":
+        if cache is not None:
+            raise ValueError("the RG-LRU layer's training forward takes no "
+                             "cache")
+        y, _ = rglru_scan(p, causal_conv(xb, p["conv_w"], p["conv_b"]))
+        return residual + linear(y * gate, p["w_out"]), None
     else:
-        raise NotImplementedError(
-            f"mode {mode!r}: the RG-LRU layer's training forward (and its "
-            f"scan's backward kernel) is not ported yet (ROADMAP Queue 1 "
-            f"item 14b)")
+        raise ValueError(f"mode {mode!r}: decode, prefill or train")
 
     out = linear(y * gate, p["w_out"])
     if live is not None and mode == "decode":

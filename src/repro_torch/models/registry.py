@@ -92,8 +92,9 @@ def cell_spec(arch_id: str, shape_id: str, *, reduced: bool = False,
     parameters (from ``abstract_params``: a ``meta`` device has no
     generator to draw from), the caches, and the per-call inputs of
     :func:`build_step_fn`'s program; a ``train`` cell's are the train
-    state (parameters, fp32 moments, step) and the batch, for the dense
-    and MoE families (the others raise: ROADMAP Queue 1 item 14b).  The
+    state (parameters, fp32 moments, step) and the batch, for the dense,
+    MoE and hybrid families (the SSM and encoder-decoder ones raise:
+    ROADMAP Queue 1 items 14b.3 and 14b.4).  The
     reference's ``attn_impl`` and ``cache_heads`` knobs are sharding
     switches (ROADMAP Queue 1 item 13); ``remat`` replaces the config's
     ``remat_policy`` (nothing, dots or full)."""

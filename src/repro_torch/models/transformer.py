@@ -565,8 +565,10 @@ def forward(cfg, params, tokens, *, prefix_embeds=None,
     position at once through K1 (causal, the layer's window), no cache,
     each layer group under the config's ``remat_policy``.  It returns the
     reference's triple (logits, None, aux), aux the MoE layers' summed
-    auxiliary loss, a 0-dim fp32 zero for the dense family (SSM and
-    RG-LRU training raise: ROADMAP item 14b)."""
+    auxiliary loss, a 0-dim fp32 zero for the other families.  "R" layers
+    run their scan from zero through K5, whose gradient is K5's backward
+    kernel; under ``remat_policy`` "nothing" a group's K5 and K1 run again
+    in the backward.  SSM training raises (ROADMAP item 14b.3)."""
     check_supported(cfg)
     if mode == "train":
         if caches is not None or lengths is not None:

@@ -377,20 +377,21 @@ def model_module(cfg):
 
 def train_unsupported(cfg) -> Optional[str]:
     """Why the port cannot train ``cfg`` yet, or None: the training step
-    covers the decoder-only models of "G" and "L" layers, with the SwiGLU
-    MLP (the dense family, a frontend's prefix included) or a mixture of
-    experts (K3's backward kernel, the router's gradient and auxiliary
-    loss); SSM, RG-LRU and encoder-decoder training wait for ROADMAP
-    Queue 1 item 14b."""
+    covers the decoder-only models of "G", "L" and "R" layers, with the
+    SwiGLU MLP (the dense family, a frontend's prefix included), a mixture
+    of experts (K3's backward kernel, the router's gradient and auxiliary
+    loss) or the RG-LRU recurrence (K5's backward kernel, the hybrid
+    family); SSM training waits for ROADMAP Queue 1 item 14b.3 (K4's
+    backward) and encoder-decoder training for item 14b.4."""
+    if cfg.is_encdec:
+        return (f"{cfg.name}: training an encoder-decoder model is not "
+                f"ported yet (ROADMAP Queue 1 item 14b.4)")
     unit, _, tail = transformer.split_layers(cfg)
-    kinds = sorted(set(unit + tail) - set(transformer.ATTN_KINDS))
-    what = ("an encoder-decoder model" if cfg.is_encdec
-            else f"layer kinds {', '.join(kinds)} (K4's or K5's backward)"
-            if kinds else None)
-    if what is None:
+    kinds = sorted(set(unit + tail) - set(transformer.ATTN_KINDS) - {"R"})
+    if not kinds:
         return None
-    return (f"{cfg.name}: training {what} is not ported yet (ROADMAP "
-            f"Queue 1 item 14b)")
+    return (f"{cfg.name}: training layer kinds {', '.join(kinds)} (K4's "
+            f"backward) is not ported yet (ROADMAP Queue 1 item 14b.3)")
 
 
 def lm_loss(cfg, logits, labels, aux):

@@ -1,6 +1,6 @@
 """The port's roofline bench (``repro_torch.bench.roofline``) on the
 reduced configs: every (arch x shape) cell of the reference's matrix
-counted on ``meta`` tensors, the training cells of the SSM, hybrid and
+counted on ``meta`` tensors, the training cells of the SSM and
 encoder-decoder families listed as waiting for item 14b, the 500k-token cells of the full-attention archs skipped as the
 reference skips them, and the counted decode of qwen3-0.6b equal to the
 reference's HLO count of the same program (the JAX ``decode`` at batch 4
@@ -21,7 +21,7 @@ from repro_torch.bench import roofline
 ROOT = Path(__file__).resolve().parent.parent
 DENSE = {"qwen3-0.6b", "llama3.2-3b", "gemma3-4b", "gemma3-12b",
          "internvl2-26b"}
-TRAINABLE = DENSE | {"olmoe-1b-7b", "qwen3-moe-30b-a3b"}
+TRAINABLE = DENSE | {"olmoe-1b-7b", "qwen3-moe-30b-a3b", "recurrentgemma-2b"}
 
 
 @pytest.fixture(scope="module")
@@ -34,8 +34,8 @@ def test_every_cell_is_counted_or_waits(record):
     waiting = {(w["arch"], w["shape"]) for w in record["waiting"]}
     matrix = set(jregistry.all_cells())
     assert cells | waiting == matrix and not cells & waiting
-    # the dense and MoE families' training cells are counted, the others
-    # wait
+    # the dense, MoE and hybrid families' training cells are counted, the
+    # others wait
     assert waiting == {(a, s) for a, s in matrix if s == "train_4k"
                        and a not in TRAINABLE}
     assert all("item 14b" in w["waits_for"] for w in record["waiting"])

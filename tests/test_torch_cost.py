@@ -224,6 +224,37 @@ def test_moe_train_cell_counts_k3_and_its_gradient(arch):
     assert bwd["flops"] * 6 == fwd["flops"] / 2 * 16
 
 
+def test_rglru_gradient_counts_three_b_s_l():
+    """K5's gradient through its operator's fake: 3·B·S·L (the adjoint's
+    product and sum, and da's product), each input read and each output
+    written once."""
+    a, h, dh = (_meta(2, 7, 40, dtype=torch.float32) for _ in range(3))
+    h0, dhf = (_meta(2, 40, dtype=torch.float32) for _ in range(2))
+    cost, grads = count(ops.rglru_scan_bwd, a, h, h0, dh, dhf)
+    assert cost.flops == 3 * 2 * 7 * 40
+    assert cost.bytes_ideal == _nbytes(a, h, h0, dh, dhf, *grads)
+    assert set(cost.by_op) == {"repro_torch::rglru_scan_bwd"}
+
+
+def test_hybrid_train_cell_counts_k5_and_its_gradient():
+    """recurrentgemma-2b's train cell is counted through its train
+    program: under remat "nothing" K5 runs twice for each "R" layer of the
+    stacked groups (forward and recompute) and once for each of the
+    tail's, and its gradient once for every "R" layer, at 3/2 of a forward
+    call's FLOPs."""
+    spec = registry.cell_spec("recurrentgemma-2b", "train_4k", reduced=True)
+    assert spec.kind == "train" and spec.cfg.remat_policy == "nothing"
+    cost, _ = count(registry.build_step_fn(spec), *spec.abstract_args)
+    unit, groups, tail = transformer.split_layers(spec.cfg)
+    in_groups, in_tail = groups * unit.count("R"), tail.count("R")
+    fwd = cost.by_op["repro_torch::rglru_scan"]
+    bwd = cost.by_op["repro_torch::rglru_scan_bwd"]
+    assert (fwd["calls"], bwd["calls"]) == (2 * in_groups + in_tail,
+                                           in_groups + in_tail)
+    assert bwd["flops"] / bwd["calls"] == \
+        1.5 * fwd["flops"] / fwd["calls"]
+
+
 @pytest.mark.parametrize("remat,recomputed,fa_recomputed", [
     ("full", 0, 0), ("nothing", 1, 1), ("dots", 0, 1)])
 def test_train_cell_counts_three_times_the_forward_products(

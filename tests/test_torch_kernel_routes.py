@@ -252,7 +252,8 @@ def test_route_counts_start_at_zero_and_reset():
         "flash_attention": {"wgmma": 0, "simt": 0, "bwd_wgmma": 0,
                             "bwd_simt": 0},
         "moe_ffn": {"wgmma": 0, "simt": 0, "bwd_wgmma": 0, "bwd_simt": 0},
-        "ssd_scan": {"wgmma": 0, "simt": 0}}
+        "ssd_scan": {"wgmma": 0, "simt": 0},
+        "rglru_scan": {"fwd": 0, "bwd": 0}}
     # CPU tensors take the plain versions and launch nothing
     q = torch.zeros((2, 4, 128), dtype=torch.bfloat16)
     ops.flash_attention(q, q[:1], q[:1])

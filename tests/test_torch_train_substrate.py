@@ -4,7 +4,8 @@ form) against ``repro.optim.adamw_update``; the token pipeline's batches
 byte for byte against ``repro.data.TokenPipeline`` (dense, prefix and
 encoder-decoder archs, bf16 leaves through the device batch); checkpoints
 (the reference's layout, round trips in fp32 and bf16, atomic saves,
-``keep``, restoring into bound storage); and a checkpoint the JAX package
+``keep``, restoring into bound storage, ``np.save``'s bytes at any
+staging chunk); and a checkpoint the JAX package
 wrote, restored by the port, whose next step's loss equals the
 reference's.  fp32 tolerances rtol/atol 1e-5 for AdamW (both sides run the
 same elementwise ops in the same order) and 1e-4 for the loss."""
@@ -196,6 +197,37 @@ def test_checkpoint_round_trip_in_the_reference_layout(tmp_path, dtype):
     with pytest.raises(NotImplementedError, match="item 13"):
         load_checkpoint(tmp_path, state, mesh=object(),
                         broadcast_axis="data")
+
+
+@pytest.mark.parametrize("chunk", [1, 6, 64, None])
+def test_checkpoint_files_are_np_save_bytes_at_any_chunk(tmp_path,
+                                                         monkeypatch, chunk):
+    """A leaf's file is ``np.save``'s bytes of the leaf (bf16 as its
+    uint16 bits) and restores bit for bit whatever the staging chunk, an
+    empty leaf included; a Fortran-order file takes the whole-file read."""
+    import repro_torch.checkpoint.checkpoint as ckmod
+    if chunk is not None:
+        monkeypatch.setattr(ckmod, "_CHUNK", chunk)
+    g = torch.Generator().manual_seed(3)
+    tree = {"bf": torch.randn((5, 3), generator=g).to(torch.bfloat16),
+            "f32": torch.randn((7,), generator=g),
+            "i64": torch.arange(4, dtype=torch.int64).reshape(2, 2),
+            "empty": torch.zeros((0, 3)),
+            "n": torch.tensor(9, dtype=torch.int32)}
+    manifest = save_checkpoint(tmp_path, 1, tree)
+    for path, leaf in tree.items():
+        want = leaf.view(torch.int16).numpy().view(np.uint16) \
+            if leaf.dtype == torch.bfloat16 else leaf.numpy()
+        np.save(tmp_path / "want.npy", want)
+        got = tmp_path / "step_1" / manifest["leaves"][path]["file"]
+        assert got.read_bytes() == (tmp_path / "want.npy").read_bytes()
+    np.save(tmp_path / "step_1" / manifest["leaves"]["i64"]["file"],
+            np.asfortranarray(np.array([[0, 3], [1, 4]], dtype=np.int64)))
+    other = {k: torch.full_like(v, 0) for k, v in tree.items()}
+    assert restore_into(tmp_path, other) == 1
+    for k in ("bf", "f32", "empty", "n"):
+        assert torch.equal(other[k], tree[k])
+    assert other["i64"].tolist() == [[0, 3], [1, 4]]
 
 
 def test_checkpoint_saves_are_atomic_and_keep_the_newest(tmp_path):
